@@ -178,6 +178,9 @@ class PrimitiveArray(ArrowArrayBase):
         mask = self.null_mask()
         return [v if m else None for v, m in zip(py, mask)]
 
+    def to_numpy(self) -> np.ndarray:
+        return self.raw_values()
+
     def __repr__(self) -> str:
         head = self.values()[:10]
         suffix = ", ..." if self._length > 10 else ""

@@ -81,6 +81,9 @@ class BooleanArray(ArrowArrayBase):
         mask = self.null_mask()
         return [v if m else None for v, m in zip(raw, mask)]
 
+    def to_numpy(self) -> np.ndarray:
+        return self.raw_values()
+
     def __repr__(self) -> str:
         head = self.values()[:10]
         suffix = ", ..." if self._length > 10 else ""

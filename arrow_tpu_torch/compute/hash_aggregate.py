@@ -1,7 +1,7 @@
 """Hash aggregate: GROUP BY key with SUM / COUNT / MIN / MAX / MEAN.
 
 Counterpart of ``arrow_tpu/compute/hash_aggregate.py``, sort route only
-(``groupby_core`` without its ``merge_len`` branch, and ``hash_aggregate``):
+(``groupby_core`` and ``hash_aggregate``):
 
   1. one stable sort by (valid-key rank, key), then a gather of every value
      plane and validity plane by the permutation;
@@ -9,6 +9,9 @@ Counterpart of ``arrow_tpu/compute/hash_aggregate.py``, sort route only
      (kernel B2) that restarts at the group starts, so a group's result sits
      at its last row;
   3. the group-end rows of (key, results) compacted to the front (kernel B1).
+
+Under ``ARROW_TPU_FORCE_MERGE=1`` the sort of step 1 runs on kernel B7
+(``groupby_core``'s ``merge_len`` branch), as in the JAX package.
 
 Groups come out in ascending key order.  Rows with a null key are dropped;
 null values are skipped by sum/min/max/mean and not counted by count.
@@ -19,6 +22,7 @@ The MXU, partition and radix routes are not ported yet: naming them raises
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -29,6 +33,7 @@ from ..errors import OperationNotSupported
 from ..table import RecordBatch
 from ..utils import bits as B
 from ..utils.scans import compact_rows, segment_ends, segmented_scan
+from . import kernels as CK
 
 AGG_KINDS = ("sum", "count", "min", "max", "mean")
 _A = dt.ArrowType
@@ -71,6 +76,7 @@ def groupby_core(
     val_entries: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     agg_spec: Sequence[Tuple[str, Optional[_A]]],
     dense: bool = False,
+    merge_len: Optional[int] = None,
 ):
     """Sort + segmented-scan group-by.
 
@@ -78,17 +84,34 @@ def groupby_core(
     mask; val_entries: (values, valid bools) for each non-count_all entry of
     agg_spec, a list of (agg, value type).  dense: every row of every buffer
     is valid, so the sort drops the rank key and the validity planes.
+    merge_len: the keys are non-null 32-bit and every row below merge_len is
+    valid; the sort runs on kernel B7 (``sort_kv``) with each value plane (of
+    at most 4 bytes) and its validity riding as 32-bit planes.
     Returns (num_groups tensor, out_keys, [out_agg...]) with capacity n,
     groups at the front in ascending key order, zeros after them.
     """
     n = key_data.shape[0]
     device = key_data.device
-    perm = _sort_perm(key_data, key_type, None if dense else kvalid)
-    skey = key_data[perm]
-    if dense:
+    if merge_len is not None:
+        planes, small = [], []
+        for v, ok in val_entries:
+            small.append(v.dtype if v.element_size() < 4 else None)
+            planes.append(v.to(torch.int32) if v.element_size() < 4 else v)
+            planes.append(ok.to(torch.int32))
+        skey, outs = CK.sort_kv(key_data, planes, merge_len, unsigned=dt.is_unsigned(key_type))
+        in_group = torch.arange(n, device=device) < merge_len
+        sorted_vals = [
+            (sv if sd is None else sv.to(sd), (sf != 0) & in_group)
+            for sd, sv, sf in zip(small, outs[::2], outs[1::2])
+        ]
+    elif dense:
+        perm = _sort_perm(key_data, key_type, None)
+        skey = key_data[perm]
         in_group = torch.ones(n, dtype=torch.bool, device=device)
         sorted_vals = [(v[perm], in_group) for v, _ in val_entries]
     else:
+        perm = _sort_perm(key_data, key_type, kvalid)
+        skey = key_data[perm]
         in_group = kvalid[perm]
         sorted_vals = [(v[perm], ok[perm] & in_group) for v, ok in val_entries]
 
@@ -151,6 +174,17 @@ def groupby_core(
     return num_groups, parts[0], out_aggs
 
 
+def _merge_sort_ok(keys: ArrowArrayBase, value_cols) -> bool:
+    """Whether the group-by sort rides kernel B7: opt-in through the JAX
+    package's ``ARROW_TPU_FORCE_MERGE=1`` only, for non-null keys of 32-bit
+    storage (u32/i32/date32) and value columns of at most 4 bytes."""
+    if os.environ.get("ARROW_TPU_FORCE_MERGE") != "1":
+        return False
+    if keys.validity is not None or keys.data.dtype != torch.int32:
+        return False
+    return all(c is None or dt.item_size(c.dtype) <= 4 for c in value_cols)
+
+
 def hash_aggregate(
     keys: ArrowArrayBase,
     aggregations: Sequence[Tuple[str, Optional[ArrowArrayBase], str]],
@@ -196,8 +230,10 @@ def hash_aggregate(
 
     dense = keys.validity is None and keys.length == n and not any_value_nulls
     kvalid = _valid_bools(keys.validity, keys.length, n, device)
+    use_merge = _merge_sort_ok(keys, [col for _n, col, _k in aggregations])
     num_groups, out_keys, out_aggs = groupby_core(
-        keys.data[:n], keys.dtype, kvalid, val_entries, agg_spec, dense=dense
+        keys.data[:n], keys.dtype, kvalid, val_entries, agg_spec, dense=dense,
+        merge_len=keys.length if use_merge else None,
     )
     ng = int(num_groups)
 

@@ -1,10 +1,15 @@
-"""The flagship query: compare -> filter -> sort group-by.
+"""The flagship query (compare -> filter -> sort group-by) and the sort-join
+query that extends it.
 
 Counterpart of ``__graft_entry__.py::entry`` and the README quick start:
 
     mask = K.gt_scalar(batch["v"], 0.0)
     kept = C.filter(batch, mask)
     C.hash_aggregate(kept["k"], [("total", kept["v"], "sum"), ("n", None, "count")])
+
+:func:`sort_join_query` is the single-device body of
+``__graft_entry__.py::dryrun_multichip``: that group-by, then the aggregate
+joined back against the kept rows and the kept rows sorted by key.
 
 The batch is ``entry()``'s: u32 keys in [0, 10 000) and standard-normal f32
 values, drawn from ``np.random.default_rng(seed)`` in that order.
@@ -18,6 +23,7 @@ import numpy as np
 
 from . import compute as C
 from . import kernels as K
+from .array.array import ArrowArrayBase
 from .array.boolean import BooleanArray
 from .table import RecordBatch
 
@@ -51,6 +57,18 @@ def flagship_query(batch: RecordBatch) -> Tuple[int, RecordBatch]:
     """Returns (rows kept by the filter, groups with key/total/n columns)."""
     kept = filter_step(batch, compare_step(batch))
     return kept.num_rows, groupby_step(kept)
+
+
+def sort_join_query(
+    batch: RecordBatch,
+) -> Tuple[RecordBatch, RecordBatch, RecordBatch, Tuple[ArrowArrayBase, ArrowArrayBase]]:
+    """Returns (kept rows, groups, the groups joined back onto the kept rows
+    with the groups as the build side, (kept keys, kept values) sorted by
+    key)."""
+    kept = filter_step(batch, compare_step(batch))
+    groups = groupby_step(kept)
+    joined = C.hash_join(kept, groups, "k", "key")
+    return kept, groups, joined, C.sort_by_key(kept["k"], kept["v"])
 
 
 def numpy_reference(keys: np.ndarray, vals: np.ndarray):

@@ -1,5 +1,5 @@
-"""Elementwise kernel tier (ported so far: compare)."""
+"""Elementwise kernel tier (ported so far: compare, and take from swizzle)."""
 
-from . import compare, kernel
+from . import compare, kernel, swizzle
 
-__all__ = ["compare", "kernel"]
+__all__ = ["compare", "kernel", "swizzle"]

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -70,6 +70,30 @@ class RecordBatch:
     @property
     def schema(self) -> List[Tuple[str, dt.ArrowType]]:
         return [(n, c.dtype) for n, c in self._columns.items()]
+
+    # -- transforms -----------------------------------------------------------
+
+    def select(self, names: Sequence[str]) -> "RecordBatch":
+        return RecordBatch({n: self._columns[n] for n in names})
+
+    def with_column(self, name: str, col: ArrowArrayBase) -> "RecordBatch":
+        cols = dict(self._columns)
+        cols[name] = col
+        return RecordBatch(cols)
+
+    def rename(self, mapping: Dict[str, str]) -> "RecordBatch":
+        return RecordBatch({mapping.get(n, n): c for n, c in self._columns.items()})
+
+    def take(self, indexes) -> "RecordBatch":
+        from .kernels import take as _take
+
+        return RecordBatch({n: _take(c, indexes) for n, c in self._columns.items()})
+
+    def to_pydict(self) -> Dict[str, list]:
+        return {n: c.values() for n, c in self._columns.items()}
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        return {n: c.to_numpy() for n, c in self._columns.items()}
 
     def __repr__(self) -> str:
         cols = ", ".join(f"{n}: {c.dtype.value}" for n, c in self._columns.items())

@@ -22,7 +22,7 @@ def num_words(length: int) -> int:
     return (length + WORD_BITS - 1) // WORD_BITS
 
 
-def _to_int32(x: torch.Tensor) -> torch.Tensor:
+def to_int32(x: torch.Tensor) -> torch.Tensor:
     """int64 holding a value in [0, 2^32) -> int32 with the same low 32 bits."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
@@ -43,7 +43,7 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     if n % WORD_BITS:
         mask = torch.nn.functional.pad(mask, (0, WORD_BITS - n % WORD_BITS))
     m = mask.reshape(-1, WORD_BITS).to(torch.int64)
-    return _to_int32((m << _shifts(mask.device)).sum(dim=1))
+    return to_int32((m << _shifts(mask.device)).sum(dim=1))
 
 
 def unpack_bits(words: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
@@ -57,7 +57,7 @@ def tail_mask_words(n_words: int, length: int, device=None) -> torch.Tensor:
     """int32[n_words]: all-ones below `length` bits, zeros above."""
     idx = torch.arange(n_words, dtype=torch.int64, device=device) * WORD_BITS
     nbits = (length - idx).clamp(0, WORD_BITS)
-    return _to_int32((torch.ones_like(nbits) << nbits) - 1)
+    return to_int32((torch.ones_like(nbits) << nbits) - 1)
 
 
 def mask_tail(words: torch.Tensor, length: int) -> torch.Tensor:

@@ -73,6 +73,35 @@ def segment_ends(starts: torch.Tensor, n_valid) -> torch.Tensor:
     return (idx < n_valid) & (nxt | (idx == n_valid - 1))
 
 
+def merge_lex_sort(
+    limbs: Sequence[torch.Tensor], payloads: Sequence[torch.Tensor], length=None
+) -> List[torch.Tensor]:
+    """Stable lexicographic sort by int32 limb keys (most significant first,
+    signed order; ``compute.sort.sortable_limbs`` makes them) on kernel B7,
+    32-bit payload planes riding along.
+
+    LSD composition: one stable ``sort_kv`` per limb, least significant
+    first.  Rows from `length` on sort last.  Returns [sorted limbs...,
+    sorted payloads...].
+    """
+    arrs = list(limbs) + list(payloads)
+    for ki in range(len(limbs) - 1, -1, -1):
+        rest = arrs[:ki] + arrs[ki + 1 :]
+        k_out, outs = CK.sort_kv(arrs[ki], tuple(rest), length=length)
+        arrs = list(outs[:ki]) + [k_out] + list(outs[ki:])
+    return arrs
+
+
+def merge_sort_ok(*key_arrays: torch.Tensor) -> bool:
+    """Whether :func:`merge_lex_sort` should run: opt-in through the JAX
+    package's ``ARROW_TPU_FORCE_MERGE=1`` only, for non-empty integer keys."""
+    import os
+
+    if os.environ.get("ARROW_TPU_FORCE_MERGE") != "1":
+        return False
+    return all(k.shape[0] > 0 and k.dtype in (torch.int32, torch.int64) for k in key_arrays)
+
+
 def compact_rows(flags: torch.Tensor, operands: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Stable-compact rows where `flags` is True to the front of each operand
     (kernel B1, at most ``compaction3.MAX_PLANES`` planes per launch).

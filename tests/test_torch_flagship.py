@@ -59,6 +59,8 @@ def test_port_imports_without_jax():
         "import arrow_tpu_torch, arrow_tpu_torch.flagship as f\n"
         "rows, g = f.flagship_query(f.make_batch(4096, 0, 'cpu'))\n"
         "assert rows > 0 and g.num_rows > 0\n"
+        "kept, g, j, (sk, sv) = f.sort_join_query(f.make_batch(4096, 0, 'cpu'))\n"
+        "assert j.num_rows == kept.num_rows == sk.length > 0\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'arrow_tpu.')) for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
