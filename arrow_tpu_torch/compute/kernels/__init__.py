@@ -1,28 +1,39 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch version.
 
-- ``compaction3``: B1, stable multi-plane compaction by a packed mask;
+- ``compaction3``: B1, stable multi-plane compaction by a packed mask, and
+  B8, the stable dual-output split by a mask or a key bit;
+- ``compaction``: B9, single-plane compaction (a one-plane call of B1's
+  kernel);
+- ``groupby_mxu``: B5, COUNT and exact SUM by dense keys in [0, 4096);
+- ``groupby_region``: B6, the same over class-grouped keys in
+  [0, nclass x 4096);
 - ``segscan``: B2, inclusive segmented scan;
 - ``radix``: B3 and B4, stable LSD radix sort of planes (1-, 2- or 8-bit
   digits);
 - ``merge``: B7, stable pairwise merge of sorted runs, and ``sort_kv`` on it.
 
-No module builds or loads anything at import: ``_build`` compiles the
+Importing the package registers every kernel in ``_build.KERNELS``.  No
+module builds or loads anything at import: ``_build`` compiles the
 library at the first launch on a CUDA tensor.
 
 The operators reach the kernels through :func:`compact_multi`,
-:func:`segmented_scan`, :func:`radix_sort`, :func:`merge_pass` and
-:func:`sort_kv` here, which call the kernel wrappers.  Inside a
+:func:`segmented_scan`, :func:`radix_sort`, :func:`merge_pass`,
+:func:`sort_kv`, :func:`groupby_dense` and :func:`groupby_region` here
+(:func:`compact` and :func:`split_multi` too, though no operator calls
+them), which call the kernel wrappers.  Inside a
 :func:`plain_versions` block they call the plain versions instead, on any
 device: that is the reference path the kernels are held against on the card.
 """
 
 import contextlib
 
-from . import _build, compaction3, merge, radix, segscan  # noqa: F401  (registers KERNELS)
+from . import _build, compaction, compaction3, groupby_mxu, merge, radix, segscan  # noqa: F401
+from . import groupby_region as region  # the module; groupby_region() below is its entry
 
 __all__ = [
-    "compaction3", "merge", "radix", "segscan", "compact_multi", "merge_pass",
-    "plain_versions", "radix_sort", "segmented_scan", "sort_kv",
+    "compaction", "compaction3", "groupby_mxu", "merge", "radix", "region", "segscan",
+    "compact", "compact_multi", "groupby_dense", "groupby_region", "merge_pass",
+    "plain_versions", "radix_sort", "segmented_scan", "sort_kv", "split_multi",
 ]
 
 _plain = False
@@ -44,6 +55,18 @@ def compact_multi(vplanes, wplanes, mask_words, n=None):
     """Kernel B1 as the operators call it (see ``compaction3.compact_multi``)."""
     fn = compaction3.compact_multi_plain if _plain else compaction3.compact_multi
     return fn(vplanes, wplanes, mask_words, n)
+
+
+def compact(data, mask_words):
+    """Kernel B9 as the operators would call it (see ``compaction.compact``)."""
+    fn = compaction.compact_plain if _plain else compaction.compact
+    return fn(data, mask_words)
+
+
+def split_multi(vplanes, mask_words=None, bit=None):
+    """Kernel B8 as the operators would call it (see ``compaction3.split_multi``)."""
+    fn = compaction3.split_multi_plain if _plain else compaction3.split_multi
+    return fn(vplanes, mask_words, bit)
 
 
 def segmented_scan(vals, flags, op, unsigned=False):
@@ -68,3 +91,15 @@ def merge_pass(planes, run_len, unique_payload=False):
 def sort_kv(keys, payloads=(), length=None, unique_payload=False, unsigned=False):
     """``merge.sort_kv`` with its merge passes on :func:`merge_pass`."""
     return merge.sort_kv(keys, payloads, length, unique_payload, unsigned, merge=merge_pass)
+
+
+def groupby_dense(keys, vals, nlimb, length=None):
+    """Kernel B5 as the operators call it (see ``groupby_mxu.groupby_dense``)."""
+    fn = groupby_mxu.groupby_dense_plain if _plain else groupby_mxu.groupby_dense
+    return fn(keys, vals, nlimb, length)
+
+
+def groupby_region(keys, vals, nlimb, nclass):
+    """Kernel B6 as the operators call it (see ``groupby_region.groupby_region``)."""
+    fn = region.groupby_region_plain if _plain else region.groupby_region
+    return fn(keys, vals, nlimb, nclass)

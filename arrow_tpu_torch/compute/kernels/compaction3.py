@@ -1,13 +1,15 @@
-"""Stable multi-plane compaction by a packed mask (kernel B1).
+"""Stable multi-plane compaction by a packed mask (kernel B1) and the stable
+dual-output split (kernel B8).
 
-Counterpart of ``arrow_tpu/compute/kernels/compaction3.py::compact_multi_pallas``.
-The CUDA kernel is ``arrow_tpu_torch/csrc/compaction3.cu``; its source note
-says how it is built.  Beside it, :func:`compact_multi_plain` is the same
-function in plain PyTorch.
+Counterparts of ``arrow_tpu/compute/kernels/compaction3.py::compact_multi_pallas``
+and ``split_multi_pallas``.  Both CUDA kernels are in
+``arrow_tpu_torch/csrc/compaction3.cu``; its source note says how they are
+built.  Beside them, :func:`compact_multi_plain` and
+:func:`split_multi_plain` are the same functions in plain PyTorch.
 
-:func:`compact_multi` is the wrapper: it runs the plain version for tensors
-on the CPU and launches the kernel for tensors on a CUDA device; it never
-falls back from one to the other.
+:func:`compact_multi` and :func:`split_multi` are the wrappers: they run the
+plain version for tensors on the CPU and launch the kernel for tensors on a
+CUDA device; they never fall back from one to the other.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ...utils import bits as B
 from . import _build
 
 MAX_PLANES = 16
+MAX_SPLIT_PLANES = 8
 _KIND_VALUE4, _KIND_VALUE8, _KIND_WORDS = 0, 1, 2
 
 KERNEL = _build.register_kernel(
@@ -28,6 +31,14 @@ KERNEL = _build.register_kernel(
         name="compact_multi",
         source="arrow_tpu_torch/csrc/compaction3.cu",
         replaces="arrow_tpu/compute/kernels/compaction3.py:446",
+    )
+)
+
+SPLIT_KERNEL = _build.register_kernel(
+    _build.Kernel(
+        name="split_multi",
+        source="arrow_tpu_torch/csrc/compaction3.cu",
+        replaces="arrow_tpu/compute/kernels/compaction3.py:873",
     )
 )
 
@@ -67,6 +78,13 @@ def compact_multi_plain(
     return vouts, wouts, sel.sum(dtype=torch.int32)
 
 
+def _tile_scratch(lib, n: int, device) -> torch.Tensor:
+    """The per-tile scratch ``arrow_compact_multi`` and ``arrow_split_multi`` take."""
+    lib.arrow_compact_scratch_bytes.argtypes = [ctypes.c_longlong]
+    lib.arrow_compact_scratch_bytes.restype = ctypes.c_longlong
+    return torch.empty(lib.arrow_compact_scratch_bytes(n), dtype=torch.uint8, device=device)
+
+
 def _check_plane(t: torch.Tensor, what: str, device: torch.device, min_len: int) -> None:
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, the mask on {device}")
@@ -76,13 +94,14 @@ def _check_plane(t: torch.Tensor, what: str, device: torch.device, min_len: int)
         raise ValueError(f"{what} has {t.shape[0]} elements, needs {min_len}")
 
 
-def compact_multi_cuda(
+def launch_compact(
     vplanes: Sequence[torch.Tensor],
     wplanes: Sequence[torch.Tensor],
     mask_words: torch.Tensor,
     n: Optional[int] = None,
 ) -> Result:
-    """Launch the B1 CUDA kernel (see :func:`compact_multi_plain`)."""
+    """Check the arguments and launch ``arrow_compact_multi``; counts no
+    launch (its callers do, each for its own kernel)."""
     n = _rows(vplanes, wplanes, mask_words, n)
     device = mask_words.device
     if device.type != "cuda":
@@ -116,11 +135,7 @@ def compact_multi_cuda(
         kinds.append(_KIND_WORDS)
         wouts.append(o)
     lib = _build.load().cdll
-    lib.arrow_compact_scratch_bytes.argtypes = [ctypes.c_longlong]
-    lib.arrow_compact_scratch_bytes.restype = ctypes.c_longlong
-    scratch = torch.empty(
-        lib.arrow_compact_scratch_bytes(n), dtype=torch.uint8, device=device
-    )
+    scratch = _tile_scratch(lib, n, device)
     count = torch.empty((), dtype=torch.int32, device=device)
 
     fn = lib.arrow_compact_multi
@@ -138,8 +153,19 @@ def compact_multi_cuda(
             scratch.data_ptr(), count.data_ptr(), _build.stream_of(mask_words),
         )
     _build.check(err, "compact_multi")
-    KERNEL.launches += 1
     return tuple(vouts), tuple(wouts), count
+
+
+def compact_multi_cuda(
+    vplanes: Sequence[torch.Tensor],
+    wplanes: Sequence[torch.Tensor],
+    mask_words: torch.Tensor,
+    n: Optional[int] = None,
+) -> Result:
+    """Launch the B1 CUDA kernel (see :func:`compact_multi_plain`)."""
+    out = launch_compact(vplanes, wplanes, mask_words, n)
+    KERNEL.launches += 1
+    return out
 
 
 def compact_multi(
@@ -161,3 +187,113 @@ def compact_multi(
     if mask_words.device.type == "cpu":
         return compact_multi_plain(vplanes, wplanes, mask_words, n)
     return compact_multi_cuda(vplanes, wplanes, mask_words, n)
+
+
+SplitResult = Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...], torch.Tensor]
+
+
+def _check_split(vplanes, mask_words, bit) -> int:
+    if (mask_words is None) == (bit is None):
+        raise ValueError("split_multi takes a mask or a bit, not both or neither")
+    if not 1 <= len(vplanes) <= MAX_SPLIT_PLANES:
+        raise ValueError(f"split_multi takes 1 to {MAX_SPLIT_PLANES} planes, not {len(vplanes)}")
+    n = int(vplanes[0].shape[0])
+    if not 0 <= n < 1 << 31:
+        raise ValueError(f"row count {n} out of range")
+    device = vplanes[0].device
+    for i, p in enumerate(vplanes):
+        _check_plane(p, f"plane {i}", device, n)
+        if p.shape[0] != n or p.element_size() != 4:
+            raise ValueError(f"plane {i}: {p.shape[0]} rows of {p.element_size()} bytes; "
+                             f"needs {n} rows of 4 bytes")
+    if mask_words is not None:
+        if mask_words.dtype != torch.int32:
+            raise ValueError("mask words must be int32")
+        _check_plane(mask_words, "mask", device, B.num_words(n))
+    elif not 0 <= bit < 32:
+        raise ValueError(f"bit {bit} outside a 32-bit plane")
+    return n
+
+
+def split_multi_plain(
+    vplanes: Sequence[torch.Tensor],
+    mask_words: Optional[torch.Tensor] = None,
+    bit: Optional[int] = None,
+) -> SplitResult:
+    """Plain PyTorch B8: (selected-front planes, unselected-front planes,
+    count).  Each output has the input's n rows: the selected (unselected)
+    rows first, in order, then zeros."""
+    vplanes = tuple(vplanes)
+    n = _check_split(vplanes, mask_words, bit)
+    if mask_words is not None:
+        sel = B.unpack_bits(mask_words[: B.num_words(n)], n)
+    else:  # the rows whose plane-0 bit is zero
+        sel = ((vplanes[0].view(torch.int32) >> bit) & 1) == 0
+
+    def front(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        picked = p[m]
+        out = torch.zeros_like(p)
+        out[: picked.shape[0]] = picked
+        return out
+
+    return (tuple(front(p, sel) for p in vplanes), tuple(front(p, ~sel) for p in vplanes),
+            sel.sum(dtype=torch.int32))
+
+
+def split_multi_cuda(
+    vplanes: Sequence[torch.Tensor],
+    mask_words: Optional[torch.Tensor] = None,
+    bit: Optional[int] = None,
+) -> SplitResult:
+    """Launch the B8 CUDA kernel (see :func:`split_multi_plain`)."""
+    vplanes = tuple(vplanes)
+    n = _check_split(vplanes, mask_words, bit)
+    device = vplanes[0].device
+    if device.type != "cuda":
+        raise ValueError("split_multi_cuda needs CUDA tensors")
+    sel = [torch.empty_like(p) for p in vplanes]
+    unsel = [torch.empty_like(p) for p in vplanes]
+    lib = _build.load().cdll
+    scratch = _tile_scratch(lib, n, device)
+    count = torch.empty((), dtype=torch.int32, device=device)
+    fn = lib.arrow_split_multi
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    k = len(vplanes)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * k)(*[t.data_ptr() for t in ts])
+
+    with torch.cuda.device(device):
+        err = fn(
+            ptrs(vplanes), ptrs(sel), ptrs(unsel), k,
+            None if mask_words is None else mask_words.data_ptr(), 0 if bit is None else bit, n,
+            scratch.data_ptr(), count.data_ptr(), _build.stream_of(vplanes[0]),
+        )
+    _build.check(err, "split_multi")
+    SPLIT_KERNEL.launches += 1
+    return tuple(sel), tuple(unsel), count
+
+
+def split_multi(
+    vplanes: Sequence[torch.Tensor],
+    mask_words: Optional[torch.Tensor] = None,
+    bit: Optional[int] = None,
+) -> SplitResult:
+    """Stable dual-output split of up to 8 planes of n 4-byte rows, from one
+    read of the input.
+
+    The selection is `mask_words` (packed int32 words) or `bit`: the rows
+    whose plane-0 bit `bit` is zero.  Returns (selected-front planes,
+    unselected-front planes, count): each output has n rows, its rows first
+    in input order, zeros after them; `count` (selected rows) is a 0-d int32
+    tensor on the device.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel.
+    """
+    if vplanes and vplanes[0].device.type == "cpu":
+        return split_multi_plain(vplanes, mask_words, bit)
+    return split_multi_cuda(vplanes, mask_words, bit)

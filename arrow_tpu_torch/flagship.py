@@ -13,6 +13,12 @@ joined back against the kept rows and the kept rows sorted by key.
 
 The batch is ``entry()``'s: u32 keys in [0, 10 000) and standard-normal f32
 values, drawn from ``np.random.default_rng(seed)`` in that order.
+
+:func:`groupby_query` is the group-by of the BASELINE configuration "GROUP
+BY u32 key, SUM/COUNT, 1K-100M distinct keys incl. heavy-hitter skew"
+(``BASELINE.json`` configs[2]) on :func:`make_groupby_batch`'s batches: the
+key distributions of ``bench.py``'s group-by sweep (1K, 1M, skewed and ~100M
+distinct u32 keys) with i32 values in [0, 200), drawn with numpy.
 """
 
 from __future__ import annotations
@@ -28,6 +34,11 @@ from .array.boolean import BooleanArray
 from .table import RecordBatch
 
 NUM_KEYS = 10_000
+#: the group-by key distributions: uniform in [0, 2^10) and [0, 2^20), the
+#: heavy-hitter skew floor(u^4 * 2^20) for u uniform in [0, 1), uniform in
+#: [0, 2^31) (about 100M distinct keys at 2^27 rows)
+GROUPBY_DISTS = ("1k", "1m", "skew", "100m")
+GROUPBY_VALUE_MAX = 200
 
 
 def make_host_columns(n: int, seed: int = 0) -> Dict[str, np.ndarray]:
@@ -80,3 +91,37 @@ def numpy_reference(keys: np.ndarray, vals: np.ndarray):
     counts = np.bincount(inv, minlength=groups.shape[0])
     sums = np.bincount(inv, weights=v.astype(np.float64), minlength=groups.shape[0])
     return int(keep.sum()), groups, counts, sums.astype(np.float32)
+
+
+def make_groupby_columns(n: int, dist: str, seed: int = 0) -> Dict[str, np.ndarray]:
+    """u32 keys of distribution `dist` (see GROUPBY_DISTS), then i32 values
+    in [0, 200), drawn from ``np.random.default_rng(seed)`` in that order."""
+    rng = np.random.default_rng(seed)
+    if dist == "skew":
+        u = rng.random(n, dtype=np.float32)
+        keys = (u * u * u * u * np.float32(1 << 20)).astype(np.uint32)
+    else:
+        high = {"1k": 1 << 10, "1m": 1 << 20, "100m": 1 << 31}[dist]
+        keys = rng.integers(0, high, n, dtype=np.uint32)
+    vals = rng.integers(0, GROUPBY_VALUE_MAX, n, dtype=np.int32)
+    return {"k": keys, "v": vals}
+
+
+def make_groupby_batch(n: int, dist: str, seed: int = 0, device=None) -> RecordBatch:
+    return RecordBatch.from_numpy(make_groupby_columns(n, dist, seed), device=device)
+
+
+def groupby_query(batch: RecordBatch) -> RecordBatch:
+    """GROUP BY k: SUM(v) as "s", COUNT(v) as "c", on hash_aggregate's auto
+    route."""
+    return C.hash_aggregate(batch["k"], [("s", batch["v"], "sum"), ("c", batch["v"], "count")])
+
+
+def groupby_reference(keys: np.ndarray, vals: np.ndarray):
+    """The group-by in numpy for keys below 2^22 (the dense distributions):
+    (group keys, counts, sums), by bincount; the sums are exact in float64
+    (below 2^53)."""
+    counts = np.bincount(keys)
+    sums = np.bincount(keys, weights=vals)
+    groups = np.flatnonzero(counts)
+    return groups.astype(np.uint32), counts[groups], sums[groups].astype(np.int64)

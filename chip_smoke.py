@@ -12,10 +12,11 @@ Phases, each printing lines that start with its name:
    build/arrow_tpu_torch/ and loads it; nvcc's per-kernel register report
    goes to build/arrow_tpu_torch/nvcc.log;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, over lengths, masks/flags, ops, dtypes, digit widths, key domains
-   and run lengths (exact, except float adds: f32 at rtol 1e-6, f64 at rtol
-   1e-12, and an f32-accumulating stand-in for the f64 add must fail that
-   check);
+   card, over lengths, masks/flags, ops, dtypes, digit widths, key domains,
+   class orders and run lengths (exact, except float adds: f32 at rtol 1e-6,
+   f64 at rtol 1e-12, and an f32-accumulating stand-in for the f64 add must
+   fail that check); the split (B8) and the one-plane compaction (B9), which
+   no operator calls, are also timed there at 2^27 rows;
 4. flagship: the flagship query (compare -> filter -> sort group-by) through
    the public API at 2^20 and 2^27 rows, checked against the same query on
    the plain versions and against a numpy oracle; the kernels' launch counts
@@ -30,14 +31,32 @@ Phases, each printing lines that start with its name:
    ARROW_TPU_RADIX_R=4 (the 2-bit radix, whose launches and calls are read
    there) and with ARROW_TPU_SORT=xla; per-step times for both paths and the
    sort's crossover, radix against torch.sort, at 2^24, 2^26 and 2^27;
-6. profile: each query at each size under torch.profiler: device busy time,
+6. groupby: the group-by query (GROUP BY u32 key, SUM and COUNT of i32
+   values in [0, 200)) at 2^27 rows for each key distribution (1K, 1M,
+   skewed and ~100M distinct keys): the route hash_aggregate's auto mode
+   took, read from the launch counts (the dense-table kernel for 1K, the
+   radix sort and the region kernel for 1M and skew, the radix sort and the
+   segmented scans for ~100M), the answer against the
+   plain path and a numpy oracle (against the sort route for ~100M keys),
+   peak device memory, each kernel call replayed against its plain version
+   and timed; the query's time on auto's route against the sort route (at
+   ~100M keys, 31 significant bits, that is the radix route against the sort
+   route, which sets auto's choice between them), and on the plain path;
+7. profile: each query at each size under torch.profiler: device busy time,
    the device's idle share of the query's wall time, and the device ops that
    take the most time.
 
-It then prints the nvidia-smi line, a JSON line with every kernel's launch
-count in the sort-join query (the 2-bit radix: in its rerun), its largest
-error against its plain version, and its kernel and plain times summed over
-that run's calls, and last the line
+A replayed or timed kernel call is timed (CUDA events, the median of 5
+samples of 4 back-to-back calls, per call, in turns with its plain version)
+beside one PyTorch library call that computes the same function, where there
+is one, and given its bound: the bytes it must move (each input row it needs
+read once, each output row written once) over the card's 3.35 TB/s.
+
+It then prints the nvidia-smi line, a JSON line with, for every kernel, its
+launch count on the main paths (the sort-join query, its 2-bit rerun, and the
+four group-by queries), its largest error against its plain version, and its
+kernel, plain, library and bound times summed over the calls of those runs
+(B8 and B9: over their timed calls of phase 3), and last the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero without that line; so does a machine
 without CUDA.
@@ -46,6 +65,7 @@ without CUDA.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -65,17 +85,31 @@ B3_KEYS = ("int32", "uint32", "float32", "uint64", "int64")
 B3_DOMAINS = (2, 10_000, 1 << 32)
 B7_SIZES = (1, 31, 8193, (1 << 20) + 17, 1 << 27)
 B7_RUNS = (1, 7, 8192, "half")
+B5_DOMAINS = (1, 7, 1024, 4096)
+B6_CLASSES = (1, 2, 256, 1024)
+B6_ORDERS = ("skew", "unsorted", "grouped")
+B8_FORMS = ("0", "0.01", "0.5", "0.99", "1", "bit0", "bit31")
+TIMED_N = 1 << 27  # where B8 and B9 are timed
 SORT_JOIN_N = 1 << 27
+GROUPBY_N = 1 << 27
+# kernels that the group-by query's auto route must launch, by key distribution
+GROUPBY_ROUTES = {"1k": ("groupby_dense",), "1m": ("radix_sort", "groupby_region"),
+                  "skew": ("radix_sort", "groupby_region"), "100m": ("radix_sort", "segmented_scan")}
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's data-sheet memory rate
 CROSSOVER_SIZES = (1 << 24, 1 << 26, 1 << 27)
 # float adds differ from the plain ladder in summation order only
 ADD_RTOL = {"float32": 1e-6, "float64": 1e-12}
 REPS = 5
+# a timed kernel call is a run of this many back-to-back calls, so that the
+# wrapper's host work overlaps the device work of the call before it
+CALLS_PER_SAMPLE = 4
 PROFILE_TOP = 8
 # the device functions of the hand-written kernels (arrow_tpu_torch/csrc)
 OWN_DEVICE_FUNCTIONS = ("tile_counts", "scan_tile_counts", "scatter_tiles",
                         "seg_tile_reduce", "seg_scan_tiles", "seg_tile_scan",
                         "radix_histogram", "radix_scan_rows", "radix_scatter", "radix_or_and",
-                        "merge_runs")
+                        "merge_runs", "split_counts", "split_tiles", "dense_histogram",
+                        "region_histogram")
 
 
 class PhaseFailed(RuntimeError):
@@ -96,28 +130,30 @@ def smi_line() -> str:
     return out[0]
 
 
-def _event_ms(fn) -> float:
-    """CUDA-event time of one fn() call, synchronised."""
+def _event_ms(fn, calls=1) -> float:
+    """CUDA-event time of `calls` back-to-back fn() calls, synchronised, per call."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    fn()
+    for _ in range(calls):
+        fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end)
+    return start.elapsed_time(end) / calls
 
 
-def cuda_ms(fn):
-    """Median of REPS timed calls after one warm-up."""
+def cuda_ms(fn, calls=1):
+    """Median of REPS timed samples (of `calls` calls each) after one warm-up."""
     fn()
-    return statistics.median(_event_ms(fn) for _ in range(REPS))
+    return statistics.median(_event_ms(fn, calls) for _ in range(REPS))
 
 
-def interleaved_ms(kernel_fn, plain_fn):
-    """Median times of two versions after a warm-up, timed in turns on one card."""
+def interleaved_ms(kernel_fn, plain_fn, calls=1):
+    """Median times of two versions after a warm-up, timed in turns on one
+    card, REPS samples of `calls` calls each."""
     kernel_fn(), plain_fn()
-    pairs = [(_event_ms(kernel_fn), _event_ms(plain_fn)) for _ in range(REPS)]
+    pairs = [(_event_ms(kernel_fn, calls), _event_ms(plain_fn, calls)) for _ in range(REPS)]
     return statistics.median(k for k, _ in pairs), statistics.median(p for _, p in pairs)
 
 
@@ -396,7 +432,179 @@ def check_b7(device, gen):
     return worst
 
 
-def phase_kernels():
+def _table_inputs(n, domain, order, gen, device):
+    """int32 keys below `domain` (uniform, or floor(u^4 * domain) for
+    "skew"), grouped by class (key >> 12) unless "unsorted", and values of
+    every 32-bit pattern (u32 up to 2^32 - 1) as int32."""
+    import torch
+
+    if order == "skew":
+        u = torch.rand(n, generator=gen, device=device, dtype=torch.float64)
+        keys = (u.pow(4) * domain).to(torch.int64)
+    else:
+        keys = torch.randint(0, domain, (n,), generator=gen, device=device)
+    if order != "unsorted":
+        keys = keys[torch.sort(keys >> 12, stable=True).indices]
+    vals = torch.randint(-(2**31), 2**31, (n,), generator=gen, device=device).to(torch.int32)
+    return keys.to(torch.int32), vals
+
+
+def _exact(got, want):
+    """(all equal, max abs err) of two tuples of tensors."""
+    import torch
+
+    ok = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    err = max((float((g.double() - w.double()).abs().max()) for g, w in zip(got, want) if g.numel()),
+              default=0.0)
+    return ok, err
+
+
+def check_b5(device, gen):
+    """B5 over lengths and key domains; values of every 32-bit pattern cut
+    to 1-4 limbs; `length` below n."""
+    import torch
+
+    from arrow_tpu_torch.compute.kernels import groupby_mxu as GM
+
+    worst, cases, failures = 0.0, 0, []
+    for n in B1_SIZES:
+        for domain in B5_DOMAINS:
+            cases += 1
+            keys, vals = _table_inputs(n, domain, "unsorted", gen, device)
+            nlimb, length = 1 + cases % 4, n - n // 3
+            got = GM.groupby_dense(keys, vals, nlimb, length)
+            want = GM.groupby_dense_plain(keys, vals, nlimb, length)
+            torch.cuda.synchronize()
+            ok, err = _exact(got, want)
+            worst = max(worst, err)
+            if not ok:
+                failures.append(f"n={n} domain={domain} nlimb={nlimb}")
+            del keys, vals, got, want
+        torch.cuda.empty_cache()
+    print(f"kernels: groupby_dense vs plain: {cases} cases (n in {list(B1_SIZES)}, key domains "
+          f"{list(B5_DOMAINS)}, u32 values up to 2^32-1 cut to 1-4 limbs, length = n - n//3), exact; "
+          f"max abs err {worst}; failures {failures}")
+    require(not failures, "groupby_dense disagrees with its plain version")
+    return worst
+
+
+def check_b6(device, gen):
+    """B6 over lengths, class counts and class orders (skewed and grouped,
+    uniform and grouped, unsorted)."""
+    import torch
+
+    from arrow_tpu_torch.compute.kernels import region as GR
+
+    worst, cases, failures = 0.0, 0, []
+    for n in B1_SIZES:
+        for nclass in B6_CLASSES:
+            for order in B6_ORDERS:
+                cases += 1
+                keys, vals = _table_inputs(n, nclass * 4096, order, gen, device)
+                nlimb = 4 if cases % 2 else 2
+                got = GR.groupby_region(keys, vals, nlimb, nclass)
+                want = GR.groupby_region_plain(keys, vals, nlimb, nclass)
+                torch.cuda.synchronize()
+                ok, err = _exact(got, want)
+                worst = max(worst, err)
+                if not ok:
+                    failures.append(f"n={n} nclass={nclass} order={order}")
+                del keys, vals, got, want
+        torch.cuda.empty_cache()
+    print(f"kernels: groupby_region vs plain: {cases} cases (n in {list(B1_SIZES)}, classes "
+          f"{list(B6_CLASSES)}, orders {list(B6_ORDERS)}, u32 values up to 2^32-1 cut to 2 or 4 "
+          f"limbs), exact; max abs err {worst}; failures {failures}")
+    require(not failures, "groupby_region disagrees with its plain version")
+    return worst
+
+
+def _split_args(n, form, gen, device):
+    """Three 4-byte planes and the selection of `form`: a mask of that
+    selectivity, or "bitK" (the rows whose plane-0 bit K is zero)."""
+    import torch
+
+    from arrow_tpu_torch.utils import bits as B
+
+    planes = [
+        torch.randint(-(2**31), 2**31, (n,), generator=gen, device=device).to(torch.int32),
+        torch.randn(n, generator=gen, device=device),
+        torch.arange(n, dtype=torch.int32, device=device),
+    ]
+    if form.startswith("bit"):
+        return planes, None, int(form[3:])
+    return planes, B.pack_bits(_rand_mask(n, form, gen, device)), None
+
+
+def check_b8(device, gen, smi):
+    """B8 over lengths, mask selectivities and the bit form; then timed at
+    TIMED_N rows (mask form at 0.5; the bit form printed beside it)."""
+    import torch
+
+    from arrow_tpu_torch.compute.kernels import compaction3 as C3
+
+    worst, cases, failures = 0.0, 0, []
+    for n in B1_SIZES:
+        for form in B8_FORMS:
+            cases += 1
+            args = _split_args(n, form, gen, device)
+            got, want = C3.split_multi(*args), C3.split_multi_plain(*args)
+            torch.cuda.synchronize()
+            ok, err = _exact(got[0] + got[1], want[0] + want[1])
+            ok &= int(got[2]) == int(want[2])
+            worst = max(worst, err)
+            if not ok:
+                failures.append(f"n={n} form={form}")
+            del args, got, want
+        torch.cuda.empty_cache()
+    print(f"kernels: split_multi vs plain: {cases} cases (n in {list(B1_SIZES)}, selections "
+          f"{list(B8_FORMS)}, three 4-byte planes), exact incl. both zero tails; max abs err {worst}; "
+          f"failures {failures}")
+    require(not failures, "split_multi disagrees with its plain version")
+    timed = {}
+    for form in ("0.5", "bit0"):
+        args = _split_args(TIMED_N, form, gen, device)
+        timed[form], what = measure_call("split_multi", args)
+        print(f"kernels: split_multi at n={TIMED_N} ({what}): {timed[form].line()} ({smi})")
+        del args
+    torch.cuda.empty_cache()
+    return worst, timed["0.5"]
+
+
+def check_b9(device, gen, smi):
+    """B9 over lengths and B1's masks; then timed at TIMED_N rows (mask 0.5)."""
+    import torch
+
+    from arrow_tpu_torch.compute.kernels import compaction as C1
+    from arrow_tpu_torch.utils import bits as B
+
+    worst, cases, failures = 0.0, 0, []
+    for n in B1_SIZES:
+        data = torch.randint(-(2**31), 2**31, (n,), generator=gen, device=device).to(torch.int32)
+        for pattern in B1_PATTERNS:
+            cases += 1
+            mask = B.pack_bits(_rand_mask(n, pattern, gen, device))
+            got, want = C1.compact(data, mask), C1.compact_plain(data, mask)
+            torch.cuda.synchronize()
+            ok, err = _exact(got, want)
+            worst = max(worst, err)
+            if not ok:
+                failures.append(f"n={n} mask={pattern}")
+        del data
+    print(f"kernels: compact vs plain: {cases} cases (n in {list(B1_SIZES)}, masks {list(B1_PATTERNS)}, "
+          f"one int32 plane), exact incl. zero tail; max abs err {worst}; failures {failures}")
+    require(not failures, "compact disagrees with its plain version")
+    data = torch.randint(-(2**31), 2**31, (TIMED_N,), generator=gen, device=device).to(torch.int32)
+    mask = B.pack_bits(_rand_mask(TIMED_N, "0.5", gen, device))
+    timed, what = measure_call("compact", (data, mask))
+    print(f"kernels: compact at n={TIMED_N} ({what}): {timed.line()} ({smi})")
+    del data, mask
+    torch.cuda.empty_cache()
+    return worst, timed
+
+
+def phase_kernels(smi):
+    """Every kernel against its plain version.  Returns (max abs error by
+    kernel, timed calls of B8 and B9 by kernel)."""
     import torch
 
     device = torch.device("cuda")
@@ -409,16 +617,153 @@ def phase_kernels():
     errs["radix_sort"] = errs["radix_sort_2bit"] = check_b3(device, gen)
     errs["merge_pass"] = check_b7(device, gen)
     torch.cuda.empty_cache()
-    return errs
+    errs["groupby_dense"] = check_b5(device, gen)
+    errs["groupby_region"] = check_b6(device, gen)
+    timed = {}
+    errs["split_multi"], timed["split_multi"] = check_b8(device, gen, smi)
+    errs["compact"], timed["compact"] = check_b9(device, gen, smi)
+    return errs, timed
 
 
 # kernel name -> (module, name of the CUDA launcher, name of the plain version)
 KERNEL_FUNCTIONS = {
     "compact_multi": ("compaction3", "compact_multi_cuda", "compact_multi_plain"),
+    "split_multi": ("compaction3", "split_multi_cuda", "split_multi_plain"),
+    "compact": ("compaction", "compact_cuda", "compact_plain"),
     "segmented_scan": ("segscan", "segmented_scan_cuda", "segmented_scan_plain"),
     "radix_sort": ("radix", "radix_sort_cuda", "radix_sort_plain"),
     "merge_pass": ("merge", "merge_pass_cuda", "merge_pass_plain"),
+    "groupby_dense": ("groupby_mxu", "groupby_dense_cuda", "groupby_dense_plain"),
+    "groupby_region": ("groupby_region", "groupby_region_cuda", "groupby_region_plain"),
 }
+
+
+def _functions(name):
+    """(module, CUDA launcher, plain version) of a kernel (the 2-bit radix:
+    the radix sort's)."""
+    name = "radix_sort" if name == "radix_sort_2bit" else name
+    mod = _kernel_module(name)
+    _, launcher, plain = KERNEL_FUNCTIONS[name]
+    return mod, getattr(mod, launcher), getattr(mod, plain)
+
+
+@dataclasses.dataclass
+class Measured:
+    """A kernel's calls, summed: max abs error against the plain version,
+    kernel, plain and library times (library None once a call has no
+    library equivalent) and the bound (bytes over HBM_BYTES_PER_S)."""
+
+    err: float = 0.0
+    ms: float = 0.0
+    plain_ms: float = 0.0
+    library_ms: object = 0.0
+    bound_ms: float = 0.0
+
+    def __add__(self, other):
+        lib = None if self.library_ms is None or other.library_ms is None else self.library_ms + other.library_ms
+        return Measured(max(self.err, other.err), self.ms + other.ms, self.plain_ms + other.plain_ms,
+                        lib, self.bound_ms + other.bound_ms)
+
+    def line(self):
+        lib = "none" if self.library_ms is None else f"{self.library_ms:.3f} ms"
+        return (f"kernel {self.ms:.3f} ms, plain {self.plain_ms:.3f} ms, library {lib}, bound "
+                f"{self.bound_ms:.4f} ms (bytes)")
+
+
+def call_bytes(name, args) -> int:
+    """The bytes a call must move: each input row it needs read once (a
+    compaction reads its mask and the selected rows only), each output row
+    written once (the outputs' zero tails included)."""
+    from arrow_tpu_torch.utils import bits as B
+
+    def width(ts, rows):
+        return sum(rows * t.element_size() for t in ts)
+
+    if name in ("compact_multi", "compact"):
+        vplanes, wplanes, mask, n = args if name == "compact_multi" else ([args[0]], [], args[1], None)
+        n = n if n is not None else (vplanes[0].shape[0] if vplanes else mask.shape[0] * 32)
+        kept = int(B.unpack_bits(mask[: B.num_words(n)], n).sum())
+        return n // 8 + width(vplanes, kept + n) + len(wplanes) * (n // 8 + 4 * n)
+    if name == "split_multi":
+        vplanes, mask, _bit = args
+        n = vplanes[0].shape[0]
+        return 3 * width(vplanes, n) + (n // 8 if mask is not None else 0)
+    if name == "segmented_scan":
+        vals, flags, _op, _unsigned = args
+        n = vals.shape[0]
+        return 2 * width([vals], n) + (n if flags is not None else 0)
+    if name.startswith("radix_sort"):
+        planes, _bits, n, _width = args
+        return 2 * width(planes, planes[0].shape[0] if n is None else n)
+    if name == "merge_pass":
+        planes = args[0]
+        return 2 * width(planes, planes[0].shape[0])
+    if name == "groupby_dense":
+        keys, _vals, _nlimb, length = args
+        rows = keys.shape[0] if length is None else min(length, keys.shape[0])
+        return 8 * rows + 4096 * 12
+    keys, _vals, _nlimb, nclass = args  # groupby_region
+    return 8 * keys.shape[0] + nclass * 4096 * 12
+
+
+def library_call(name, args):
+    """One PyTorch call (per plane) that computes the call's function on its
+    inputs, or None where PyTorch has none; what it needs besides (an
+    unpacked mask, int64 values) is made here, outside its time."""
+    import torch
+
+    from arrow_tpu_torch.compute.kernels.groupby_mxu import SLOTS, value_mask
+    from arrow_tpu_torch.utils import bits as B
+
+    if name in ("compact_multi", "compact"):
+        vplanes, wplanes, mask, n = args if name == "compact_multi" else ([args[0]], [], args[1], None)
+        if wplanes:
+            return None
+        n = vplanes[0].shape[0] if n is None else n
+        sel = B.unpack_bits(mask[: B.num_words(n)], n)
+        return lambda: [p[:n][sel] for p in vplanes]
+    if name == "segmented_scan":
+        vals, flags, op, _unsigned = args
+        return (lambda: torch.cumsum(vals, 0)) if flags is None and op == "add" else None
+    if name.startswith("radix_sort"):
+        planes, _bits, n, _width = args
+        key = planes[0][: planes[0].shape[0] if n is None else n]
+        return lambda: torch.sort(key, stable=True)
+    if name == "merge_pass":
+        return lambda: torch.sort(args[0][0], stable=True)
+    if name in ("groupby_dense", "groupby_region"):
+        keys, vals, nlimb, extra = args
+        rows, slots = keys.shape[0], SLOTS
+        if name == "groupby_dense" and extra is not None:
+            rows = min(extra, rows)
+        if name == "groupby_region":
+            slots *= extra
+        k, v = keys[:rows], vals[:rows].to(torch.int64) & value_mask(nlimb)
+        return lambda: (torch.zeros(slots, dtype=torch.int64, device=k.device).index_add_(0, k, v),
+                        torch.bincount(k, minlength=slots))
+    return None  # split_multi
+
+
+def measure_call(name, args):
+    """One kernel call on its arguments: checked against its plain version
+    (as in phase 3), timed beside it and beside its library call, bounded.
+    Returns (its Measured, a description of the call)."""
+    import torch
+
+    _mod, kernel, plain = _functions(name)
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    ok, got_t, want_t, what = _describe(name, args, got, want)
+    err = max((float((g.double() - w.double()).abs().max()) for g, w in zip(got_t, want_t) if g.numel()),
+              default=0.0)
+    require(ok, f"{name} ({what}) disagrees with its plain version")
+    del got, want, got_t, want_t
+    ms, plain_ms = interleaved_ms(lambda: kernel(*args), lambda: plain(*args), CALLS_PER_SAMPLE)
+    lib = library_call(name, args)
+    library_ms = cuda_ms(lib, CALLS_PER_SAMPLE) if lib is not None else None
+    del lib
+    bound_ms = call_bytes(name, args) / HBM_BYTES_PER_S * 1e3
+    return Measured(err, ms, plain_ms, library_ms, bound_ms), what
 
 
 def _kernel_module(name):
@@ -431,8 +776,7 @@ def _kernel_module(name):
 def recorded_calls():
     """Record the arguments of every kernel launch made inside the block,
     by kernel (a 2-bit radix sort under radix_sort_2bit)."""
-    calls = {name: [] for name in ("compact_multi", "segmented_scan", "radix_sort",
-                                   "radix_sort_2bit", "merge_pass")}
+    calls = {name: [] for name in (*KERNEL_FUNCTIONS, "radix_sort_2bit")}
     saved = {}
 
     def recording(name, fn):
@@ -466,6 +810,17 @@ def _describe(name, args, got, want):
         ok = int(got[2]) == int(want[2]) and all(bool(torch.equal(g, w)) for g, w in zip(got_t, want_t))
         return ok, got_t, want_t, (f"{len(vplanes)} value planes {dtypes(vplanes)} + {len(wplanes)} "
                                    f"bitmap planes, n={n}, kept {int(got[2])}")
+    if name == "split_multi":
+        vplanes, mask, bit = args
+        got_t, want_t = got[0] + got[1], want[0] + want[1]
+        ok = int(got[2]) == int(want[2]) and all(bool(torch.equal(g, w)) for g, w in zip(got_t, want_t))
+        sel = "a mask" if mask is not None else f"plane-0 bit {bit}"
+        return ok, got_t, want_t, (f"{len(vplanes)} planes {dtypes(vplanes)}, n={vplanes[0].shape[0]}, "
+                                   f"by {sel}, selected {int(got[2])}")
+    if name == "compact":
+        data, _mask = args
+        ok = int(got[1]) == int(want[1]) and bool(torch.equal(got[0], want[0]))
+        return ok, [got[0]], [want[0]], f"one {str(data.dtype)[6:]} plane, n={data.shape[0]}, kept {int(got[1])}"
     if name == "segmented_scan":
         vals, flags, op, unsigned = args
         rtol = ADD_RTOL.get(str(vals.dtype)[6:]) if op == "add" else None
@@ -477,37 +832,28 @@ def _describe(name, args, got, want):
         planes, bits, n, width = args
         n = planes[0].shape[0] if n is None else n
         return ok, got, want, f"{len(planes)} planes {dtypes(planes)}, n={n}, {width}-bit digits"
+    if name == "groupby_dense":
+        keys, _vals, nlimb, length = args
+        return ok, got, want, f"n={keys.shape[0]}, length={length}, {nlimb} limbs, {int(got[0].sum())} rows counted"
+    if name == "groupby_region":
+        keys, _vals, nlimb, nclass = args
+        return ok, got, want, f"n={keys.shape[0]}, {nclass} classes, {nlimb} limbs"
     planes, run_len, unique = args
     return ok, got, want, (f"{len(planes)} int32 planes, n={planes[0].shape[0]}, run_len={run_len}"
                            f"{', unique payload' if unique else ''}")
 
 
-def replay_calls(calls, smi):
+def replay_calls(calls, smi, label):
     """Each recorded kernel call, on its own arguments, against its plain
-    version (same tolerances as phase 3) and timed beside it.  Returns, per
-    kernel, (max abs err, kernel ms, plain ms) summed over its calls."""
-    import torch
-
+    version (same tolerances as phase 3), timed beside it and beside its
+    library call.  Returns a Measured per kernel that has calls, summed over
+    them."""
     out = {}
     for name, args_list in calls.items():
-        mod = _kernel_module("radix_sort" if name == "radix_sort_2bit" else name)
-        _, launcher, plain_name = KERNEL_FUNCTIONS["radix_sort" if name == "radix_sort_2bit" else name]
-        kernel, plain = getattr(mod, launcher), getattr(mod, plain_name)
-        err, total_k, total_p = 0.0, 0.0, 0.0
         for i, args in enumerate(args_list):
-            got, want = kernel(*args), plain(*args)
-            torch.cuda.synchronize()
-            ok, got_t, want_t, what = _describe(name, args, got, want)
-            for g, w in zip(got_t, want_t):
-                if g.numel():
-                    err = max(err, float((g.double() - w.double()).abs().max()))
-            require(ok, f"{name} call {i + 1} ({what}) disagrees with its plain version")
-            del got, want, got_t, want_t
-            ms, plain_ms = interleaved_ms(lambda: kernel(*args), lambda: plain(*args))
-            total_k, total_p = total_k + ms, total_p + plain_ms
-            print(f"sort_join: {name} call {i + 1} ({what}): matches plain; "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({smi})")
-        out[name] = (err, total_k, total_p)
+            m, what = measure_call(name, args)
+            print(f"{label}: {name} call {i + 1} ({what}): matches plain; {m.line()} ({smi})")
+            out[name] = out[name] + m if name in out else m
     return out
 
 
@@ -737,7 +1083,7 @@ def phase_sort_join(smi):
         flagship.sort_join_query(batch)
         torch.cuda.synchronize()
     calls["radix_sort_2bit"] = calls4["radix_sort_2bit"]
-    measured = replay_calls(calls, smi)
+    measured = replay_calls(calls, smi, "sort_join")
     del calls, calls4
     torch.cuda.empty_cache()
 
@@ -774,6 +1120,99 @@ def phase_sort_join(smi):
     return launches, measured
 
 
+def _same_groups(label, got, want):
+    """Two group-by results hold the same groups, bit for bit."""
+    import torch
+
+    ng = got.num_rows
+    require(ng == want.num_rows, f"{label}: {ng} groups vs {want.num_rows}")
+    require(got.column_names == want.column_names, f"{label}: columns {got.column_names}")
+    for name in got.column_names:
+        require(bool(torch.equal(got[name].data[:ng], want[name].data[:ng])), f"{label}: column {name} differs")
+
+
+def _route(launches):
+    """The hash_aggregate route a query took, read from its launches."""
+    for kernel, route in (("groupby_dense", "mxu"), ("groupby_region", "partition"), ("radix_sort", "radix")):
+        if launches[kernel]:
+            return route
+    return "sort"
+
+
+def phase_groupby(smi):
+    """The group-by query at GROUPBY_N rows for each key distribution.
+    Returns (launches by kernel, summed over the four queries; a Measured by
+    kernel over their replayed calls)."""
+    import numpy as np
+    import torch
+
+    from arrow_tpu_torch import compute as C
+    from arrow_tpu_torch import flagship
+    from arrow_tpu_torch.compute.kernels import _build
+    from arrow_tpu_torch.table import RecordBatch
+
+    n, device = GROUPBY_N, torch.device("cuda")
+    launches_all = {name: 0 for name in _build.KERNELS}
+    measured = {}
+    for dist in flagship.GROUPBY_DISTS:
+        label = f"groupby {dist}"
+        host = flagship.make_groupby_columns(n, dist, seed=0)
+        batch = RecordBatch.from_numpy(host, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gib = torch.cuda.memory_allocated() / 2**30
+        _build.reset_launch_counts()
+        out = flagship.groupby_query(batch)
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in _build.KERNELS.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        route = _route(launches)
+        print(f"{label} n={n}: {out.num_rows} groups on the {route} route; launches during the query "
+              f"{launches}; peak device memory {peak_gib:.2f} GiB ({base_gib:.2f} GiB of it the batch)")
+        for kernel in GROUPBY_ROUTES.get(dist, ()):
+            require(launches[kernel] >= 1, f"{label}: {kernel} was not launched: {launches}")
+        for name, count in launches.items():
+            launches_all[name] += count
+        for name in out.column_names:
+            require(out[name].data.is_cuda, f"{label}: output column {name} is not on CUDA")
+
+        with plain_path():
+            plain = flagship.groupby_query(batch)
+        _same_groups(f"{label} vs the plain path", out, plain)
+        if dist == "100m":
+            by_sort = C.hash_aggregate(batch["k"], [("s", batch["v"], "sum"), ("c", batch["v"], "count")],
+                                       method="sort")
+            _same_groups(f"{label} vs method=sort", out, by_sort)
+            del by_sort
+            oracle = "the sort route on the card"
+        else:
+            keys, counts, sums = flagship.groupby_reference(host["k"], host["v"])
+            require(np.array_equal(out["key"].raw_values(), keys), f"{label}: group keys vs numpy")
+            require(np.array_equal(out["c"].raw_values(), counts), f"{label}: counts vs numpy")
+            require(np.array_equal(out["s"].raw_values(), sums), f"{label}: sums vs numpy")
+            oracle = "numpy's bincount"
+        print(f"{label} n={n}: matches the plain path and {oracle} (keys, sums, counts exact)")
+        del out, plain, host
+
+        with recorded_calls() as calls:  # the query once more, its kernel calls kept for replay
+            flagship.groupby_query(batch)
+            torch.cuda.synchronize()
+        for name, m in replay_calls(calls, smi, label).items():
+            measured[name] = measured[name] + m if name in measured else m
+        del calls
+        torch.cuda.empty_cache()
+        aggs = [("s", batch["v"], "sum"), ("c", batch["v"], "count")]
+        auto_ms, sort_ms = interleaved_ms(lambda: flagship.groupby_query(batch),
+                                          lambda: C.hash_aggregate(batch["k"], aggs, method="sort"))
+        plain_ms = _event_ms(lambda: plain_step(flagship.groupby_query, batch))  # warm from the check
+        print(f"{label} n={n} query time (CUDA events; {smi}): the {route} route (auto) {auto_ms:.3f} ms, "
+              f"{n / auto_ms / 1e6:.3f} G rows/s; the sort route {sort_ms:.3f} ms (both the median of "
+              f"{REPS} after a warm-up, in turns); the plain path {plain_ms:.3f} ms (one run)")
+        del batch, aggs
+        torch.cuda.empty_cache()
+    return launches_all, measured
+
+
 def phase_profile(smi):
     """Each query at each size under torch.profiler.  Device busy time is the union
     of the device's kernel, copy and set intervals inside the query's host
@@ -785,10 +1224,13 @@ def phase_profile(smi):
 
     from arrow_tpu_torch import flagship
 
-    queries = [("flagship", n, flagship.flagship_query) for n in FLAGSHIP_SIZES]
-    queries.append(("sort_join", SORT_JOIN_N, flagship.sort_join_query))
-    for label, n, query in queries:
-        batch = flagship.make_batch(n, seed=0, device="cuda")
+    queries = [("flagship", n, flagship.flagship_query, flagship.make_batch) for n in FLAGSHIP_SIZES]
+    queries.append(("sort_join", SORT_JOIN_N, flagship.sort_join_query, flagship.make_batch))
+    for dist in ("1k", "1m"):
+        queries.append((f"groupby {dist}", GROUPBY_N, flagship.groupby_query,
+                        lambda n, seed, device, dist=dist: flagship.make_groupby_batch(n, dist, seed, device)))
+    for label, n, query, make in queries:
+        batch = make(n, seed=0, device="cuda")
         query(batch)  # warm the allocator
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -843,20 +1285,28 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
-    errs = phase_kernels()
+    errs, measured = phase_kernels(smi)
     phase_flagship(smi)
-    launches, measured = phase_sort_join(smi)
+    launches, sort_join_measured = phase_sort_join(smi)
+    groupby_launches, groupby_measured = phase_groupby(smi)
     phase_profile(smi)
 
     from arrow_tpu_torch.compute.kernels import _build
 
+    # each kernel's numbers from the runs that launch it: B8 and B9 from their
+    # timed calls of phase 3, the rest from the main paths' replayed calls
+    for name, m in (*sort_join_measured.items(), *groupby_measured.items()):
+        measured[name] = measured[name] + m if name in measured else m
     kernels = []
     for name, k in _build.KERNELS.items():
-        replay_err, ms, plain_ms = measured[name]  # ms: summed over the run's calls
+        require(name in measured, f"{name}: no call of it was timed")
+        m = measured[name]
         kernels.append({
             "name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
-            "launches": launches[name], "max_abs_err": max(errs[name], replay_err),
-            "ms": ms, "plain_ms": plain_ms,
+            "launches": launches[name] + groupby_launches[name],
+            "max_abs_err": max(errs[name], m.err),
+            "ms": m.ms, "plain_ms": m.plain_ms, "bound_ms": m.bound_ms, "bound_by": "bytes",
+            "library_ms": m.library_ms,
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -22,11 +22,15 @@ from arrow_tpu_torch import kernels as TK
 from arrow_tpu_torch.compute import join as TJ
 from arrow_tpu_torch.compute import kernels as TCK
 from arrow_tpu_torch.compute.kernels._build import KERNELS
+from arrow_tpu_torch.compute.kernels import compaction as C1
 from arrow_tpu_torch.compute.kernels import compaction3 as C3
+from arrow_tpu_torch.compute.kernels import groupby_mxu as GM
 from arrow_tpu_torch.compute.kernels import merge as M
 from arrow_tpu_torch.compute.kernels import plain_versions
 from arrow_tpu_torch.compute.kernels import radix as R
 from arrow_tpu_torch.compute.kernels import segscan as S
+from arrow_tpu_torch.compute.kernels.groupby_region import KERNEL as REGION_KERNEL
+from arrow_tpu_torch.compute.kernels.groupby_region import groupby_region, groupby_region_plain
 from arrow_tpu_torch.utils import bits as TB
 from arrow_tpu_torch.utils import scans as TS
 
@@ -491,3 +495,138 @@ def test_sort_join_query_on_cuda(cuda):
         packed = np.sort((j["k"].raw_values().astype(np.uint64) << np.uint64(32)) | j["v"].raw_values().view(np.uint32))
         want = np.sort((cols["k"][keep].astype(np.uint64) << np.uint64(32)) | cols["v"][keep].view(np.uint32))
         np.testing.assert_array_equal(packed, want)
+
+
+# ------------------------------------------------- kernels B8 and B9
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 8193, (1 << 20) + 17])
+@pytest.mark.parametrize("form", ["0", "0.01", "0.5", "0.99", "1", "bit0", "bit17", "bit31"])
+def test_split_multi_kernel_matches_plain(cuda, n, form):
+    rng = np.random.default_rng(n + len(form))
+    planes = [
+        torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32)).to(cuda),
+        torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda),
+        torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(cuda),
+    ]
+    if form.startswith("bit"):
+        kw = {"bit": int(form[3:])}
+    else:
+        kw = {"mask_words": torch.from_numpy(TB.pack_bits_np(rng.random(n) < float(form)).view(np.int32)).to(cuda)}
+    before = C3.SPLIT_KERNEL.launches
+    ks, ku, kc = C3.split_multi(planes, **kw)
+    torch.cuda.synchronize()
+    assert C3.SPLIT_KERNEL.launches == before + 1
+    ps, pu, pc = C3.split_multi_plain(planes, **kw)
+    assert int(kc) == int(pc)
+    for k, p in zip(ks + ku, ps + pu):
+        assert k.is_cuda and torch.equal(k, p)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 8193, (1 << 20) + 17])
+@pytest.mark.parametrize("pattern", ["0", "0.01", "0.5", "1"])
+def test_compact_kernel_matches_plain(cuda, n, pattern):
+    rng = np.random.default_rng(n)
+    data = torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(TB.pack_bits_np(rng.random(n) < float(pattern)).view(np.int32)).to(cuda)
+    before = C1.KERNEL.launches, C3.KERNEL.launches
+    out, count = C1.compact(data, mask)
+    torch.cuda.synchronize()
+    assert (C1.KERNEL.launches, C3.KERNEL.launches) == (before[0] + 1, before[1])
+    want, wc = C1.compact_plain(data, mask)
+    assert int(count) == int(wc) and torch.equal(out, want)
+
+
+# ------------------------------------------------- kernels B5 and B6
+
+
+def _table_inputs(rng, n, domain, order, device):
+    keys = rng.integers(0, domain, n)
+    if order == "skew":
+        keys = (rng.random(n) ** 4 * domain).astype(np.int64)
+    if order in ("grouped", "skew"):
+        keys = keys[np.argsort(keys >> 12, kind="stable")]
+    vals = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    return (torch.from_numpy(keys.astype(np.int32)).to(device), torch.from_numpy(vals).to(device))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 8193, (1 << 20) + 17])
+@pytest.mark.parametrize("domain", [1, 7, 1024, 4096, 5000])
+@pytest.mark.parametrize("nlimb", [1, 4])
+def test_groupby_dense_kernel_matches_plain(cuda, n, domain, nlimb):
+    """Keys past 4096 (domain 5000) add nothing; rows past `length` neither."""
+    rng = np.random.default_rng(n + domain)
+    keys, vals = _table_inputs(rng, n, domain, "uniform", cuda)
+    for length, k, v in ((None, keys, vals), (max(0, n - 9), keys, vals), (None, keys[1:], vals[1:])):
+        before = GM.KERNEL.launches
+        got = GM.groupby_dense(k, v, nlimb, length)
+        torch.cuda.synchronize()
+        assert GM.KERNEL.launches == before + 1
+        want = GM.groupby_dense_plain(k, v, nlimb, length)
+        assert all(g.is_cuda and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 8193, (1 << 20) + 17])
+@pytest.mark.parametrize("nclass", [1, 2, 256, 1024])
+@pytest.mark.parametrize("order", ["grouped", "unsorted", "skew"])
+def test_groupby_region_kernel_matches_plain(cuda, n, nclass, order):
+    rng = np.random.default_rng(n + nclass)
+    keys, vals = _table_inputs(rng, n, nclass * 4096, order, cuda)
+    for nlimb, k, v in ((4, keys, vals), (2, keys, vals), (4, keys[1:], vals[1:])):
+        before = REGION_KERNEL.launches
+        got = groupby_region(k, v, nlimb, nclass)
+        torch.cuda.synchronize()
+        assert REGION_KERNEL.launches == before + 1
+        want = groupby_region_plain(k, v, nlimb, nclass)
+        assert all(g.is_cuda and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("method,domain,vname", [
+    ("mxu", 4096, "uint32"), ("partition", 1 << 20, "int32"), ("partition", 5000, "uint8"),
+    ("radix", 1 << 31, "int32"), ("radix", 300, "float32"),
+])
+def test_groupby_routes_on_cuda_match_cpu(cuda, method, domain, vname):
+    """Each route on the card launches its kernels and gives the CPU's sort
+    route's answer."""
+    rng = np.random.default_rng(31)
+    n = 100_000
+    keys = att.UInt32Array.from_slice(rng.integers(0, domain, n).astype(np.uint32), device="cpu")
+    high = 2**32 if vname == "uint32" else 2**8 if vname == "uint8" else 1000
+    vals = att.PrimitiveArray.from_slice(rng.integers(0, high, n).astype(vname), dtype=att.ArrowType(vname),
+                                         device="cpu")
+    aggs = [("s", vals, "sum"), ("c", vals, "count"), ("m", vals, "mean"), ("n", None, "count")]
+    want = TC.hash_aggregate(keys, aggs, method="sort")
+    gk, gv = _to(keys, cuda), _to(vals, cuda)
+    before = {k: v.launches for k, v in KERNELS.items()}
+    got = TC.hash_aggregate(gk, [(a, gv if c is not None else None, k) for a, c, k in aggs], method=method)
+    after = {k: v.launches for k, v in KERNELS.items()}
+    launched = {k for k in after if after[k] > before[k]}
+    assert launched == {"mxu": {"groupby_dense"}, "partition": {"radix_sort", "groupby_region"},
+                        "radix": {"radix_sort", "segmented_scan", "compact_multi"}}[method]
+    for name in want.column_names:
+        assert got[name].data.is_cuda
+        _same(want[name], got[name], rtol=1e-6 if name == "s" else 1e-12)  # f32 sums: B2's order
+
+
+@pytest.mark.parametrize("dist", flagship.GROUPBY_DISTS)
+def test_groupby_query_on_cuda(cuda, dist):
+    """groupby_query on the card: its route's kernels launch; the answer is
+    the CPU's and, for the dense distributions, numpy's."""
+    n = 1 << 18
+    batch = flagship.make_groupby_batch(n, dist, seed=3, device=cuda)
+    before = {k: v.launches for k, v in KERNELS.items()}
+    got = flagship.groupby_query(batch)
+    after = {k: v.launches for k, v in KERNELS.items()}
+    need = {"1k": ["groupby_dense"], "1m": ["radix_sort", "groupby_region"],
+            "skew": ["radix_sort", "groupby_region"], "100m": ["segmented_scan", "compact_multi"]}[dist]
+    assert all(after[k] > before[k] for k in need), (dist, before, after)
+    want = flagship.groupby_query(flagship.make_groupby_batch(n, dist, seed=3, device="cpu"))
+    for name in want.column_names:
+        assert got[name].data.is_cuda
+        _same(want[name], got[name])
+    if dist != "100m":
+        cols = flagship.make_groupby_columns(n, dist, seed=3)
+        keys, counts, sums = flagship.groupby_reference(cols["k"], cols["v"])
+        np.testing.assert_array_equal(got["key"].raw_values(), keys)
+        np.testing.assert_array_equal(got["c"].raw_values(), counts)
+        np.testing.assert_array_equal(got["s"].raw_values(), sums)

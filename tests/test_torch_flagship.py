@@ -1,6 +1,6 @@
-"""The whole slice: the flagship query (compare -> filter -> sort group-by) in
-both packages, fed the same batch through Arrow buffers; and the port's
-independence from JAX."""
+"""The whole slices: the flagship query (compare -> filter -> sort group-by)
+and the group-by query of each key distribution, in both packages, fed the
+same batch through Arrow buffers; and the port's independence from JAX."""
 
 import contextlib
 import os
@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from arrow_tpu import compute as JC
 from arrow_tpu import kernels as JK
@@ -61,6 +62,8 @@ def test_port_imports_without_jax():
         "assert rows > 0 and g.num_rows > 0\n"
         "kept, g, j, (sk, sv) = f.sort_join_query(f.make_batch(4096, 0, 'cpu'))\n"
         "assert j.num_rows == kept.num_rows == sk.length > 0\n"
+        "for d in f.GROUPBY_DISTS:\n"
+        "    assert f.groupby_query(f.make_groupby_batch(4096, d, 0, 'cpu')).num_rows > 0\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'arrow_tpu.')) for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
@@ -69,3 +72,28 @@ def test_port_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("dist", flagship.GROUPBY_DISTS)
+def test_groupby_query_matches_jax_and_numpy(dist):
+    """The group-by slice as a whole: groupby_query's batch through both
+    packages' hash_aggregate (the mxu, partition and sort routes on both
+    sides; the Pallas kernels interpreted), exact, and against numpy for the
+    dense distributions."""
+    n = 1 << 14
+    cols = flagship.make_groupby_columns(n, dist, seed=5)
+    jb = JBatch.from_numpy(cols)
+    want = JC.hash_aggregate(jb["k"], [("s", jb["v"], "sum"), ("c", jb["v"], "count")])
+    tb = batch_to_torch(jb)
+    got = flagship.groupby_query(tb)
+    for name in ("key", "s", "c"):
+        assert_same(want[name], got[name])
+    with plain_versions():
+        plain = flagship.groupby_query(tb)
+    for name in ("key", "s", "c"):
+        assert_same(want[name], plain[name])
+    if dist != "100m":
+        keys, counts, sums = flagship.groupby_reference(cols["k"], cols["v"])
+        np.testing.assert_array_equal(got["key"].raw_values(), keys)
+        np.testing.assert_array_equal(got["c"].raw_values(), counts)
+        np.testing.assert_array_equal(got["s"].raw_values(), sums)
