@@ -12,9 +12,10 @@ Two emits, as in the JAX package:
   one, at ``RADIX_COSORT_ROWS`` buffer rows and more; ``torch.sort``
   otherwise) gives the key-ordered build row list and the non-empty probe run
   list, compacted by kernel B1.  A merge pass (kernel B7) of the run ends
-  with the output positions run-length-decodes every output slot, segmented
-  max scans (kernel B2) fill the runs' values in, and a second merge pass
-  against the rank-indexed build list resolves build ranks to row ids.
+  with the output positions run-length-decodes every output slot, one
+  segmented max scan of three planes (kernel B2) fills the runs' values in,
+  and a second merge pass against the rank-indexed build list resolves build
+  ranks to row ids.
   Output order is build-rank-major;
 - **legacy** (the default on the CPU): ``probe_bounds`` + ``build_order``
   and a searchsorted emit, probe-major.
@@ -211,8 +212,8 @@ def _expand(cap: int, ends_l, prow_l, lo_l, m_eff: int, total: int):
     One B7 pass merges the strictly increasing run ends (A, dead rows the
     sentinel) with the output positions (B); ties put a run end first, so the
     slot at a run's end opens the next run.  A rows carry the next run's
-    (probe row, lo); segmented max scans (B2) with the A rows as segment
-    starts fill them onto that run's slots."""
+    (probe row, lo); one segmented max scan of three planes (B2) with the A
+    rows as segment starts fills them onto that run's slots."""
     device = ends_l.device
     qi = torch.arange(cap, dtype=torch.int32, device=device)
     live_a = qi < m_eff
@@ -224,9 +225,7 @@ def _expand(cap: int, ends_l, prow_l, lo_l, m_eff: int, total: int):
         cap,
     )
     tag = m1 >= 0
-    fk = segmented_scan(torch.where(tag, mk, -1), tag, "max")
-    f1 = segmented_scan(m1, tag, "max")
-    f2 = segmented_scan(m2, tag, "max")
+    fk, f1, f2 = CK.segmented_scan_multi((torch.where(tag, mk, -1), m1, m2), tag, "max")
     valid = f1 >= 0  # slots before the first run end belong to run 0
     prow_j = torch.where(valid, f1, prow_l[0])
     lo_j = torch.where(valid, f2, lo_l[0])

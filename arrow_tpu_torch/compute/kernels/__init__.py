@@ -7,7 +7,7 @@
 - ``groupby_mxu``: B5, COUNT and exact SUM by dense keys in [0, 4096);
 - ``groupby_region``: B6, the same over class-grouped keys in
   [0, nclass x 4096);
-- ``segscan``: B2, inclusive segmented scan;
+- ``segscan``: B2, inclusive segmented scan of one to three planes;
 - ``radix``: B3 and B4, stable LSD radix sort of planes (1-, 2- or 8-bit
   digits);
 - ``merge``: B7, stable pairwise merge of sorted runs, and ``sort_kv`` on it.
@@ -17,10 +17,10 @@ module builds or loads anything at import: ``_build`` compiles the
 library at the first launch on a CUDA tensor.
 
 The operators reach the kernels through :func:`compact_multi`,
-:func:`segmented_scan`, :func:`radix_sort`, :func:`merge_pass`,
-:func:`sort_kv`, :func:`groupby_dense` and :func:`groupby_region` here
-(:func:`compact` and :func:`split_multi` too, though no operator calls
-them), which call the kernel wrappers.  Inside a
+:func:`segmented_scan`, :func:`segmented_scan_multi`, :func:`radix_sort`,
+:func:`merge_pass`, :func:`sort_kv`, :func:`groupby_dense` and
+:func:`groupby_region` here (:func:`compact` and :func:`split_multi` too,
+though no operator calls them), which call the kernel wrappers.  Inside a
 :func:`plain_versions` block they call the plain versions instead, on any
 device: that is the reference path the kernels are held against on the card.
 """
@@ -33,7 +33,8 @@ from . import groupby_region as region  # the module; groupby_region() below is 
 __all__ = [
     "compaction", "compaction3", "groupby_mxu", "merge", "radix", "region", "segscan",
     "compact", "compact_multi", "groupby_dense", "groupby_region", "merge_pass",
-    "plain_versions", "radix_sort", "segmented_scan", "sort_kv", "split_multi",
+    "plain_versions", "radix_sort", "segmented_scan", "segmented_scan_multi", "sort_kv",
+    "split_multi",
 ]
 
 _plain = False
@@ -73,6 +74,13 @@ def segmented_scan(vals, flags, op, unsigned=False):
     """Kernel B2 as the operators call it (see ``segscan.segmented_scan``)."""
     fn = segscan.segmented_scan_plain if _plain else segscan.segmented_scan
     return fn(vals, flags, op, unsigned)
+
+
+def segmented_scan_multi(planes, flags, op, unsigned=False):
+    """Kernel B2 on 1-3 planes that share `flags`, one launch (see
+    ``segscan.segmented_scan_multi``)."""
+    fn = segscan.segmented_scan_multi_plain if _plain else segscan.segmented_scan_multi
+    return fn(planes, flags, op, unsigned)
 
 
 def radix_sort(planes, nbits_or_bits, n=None, digit_bits=None):

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``arrow_tpu_torch/csrc/*.cu`` sources are compiled by ``nvcc`` into one
-shared library with a plain C interface, which is loaded with ``ctypes``.
+All ``arrow_tpu_torch/csrc/*.cu`` sources are compiled by ``nvcc``, one
+process for each source, all started together, and linked into one shared
+library with a plain C interface, which is loaded with ``ctypes``.
 The build happens at the first kernel launch (never at import: the CPU tests
 import every module on machines without ``nvcc``).  It writes to
 ``build/arrow_tpu_torch/`` at the root of the checkout, and the library's
@@ -24,7 +25,7 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -33,7 +34,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "arrow_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -92,6 +93,40 @@ def _library_path() -> pathlib.Path:
     return BUILD_DIR / f"libarrow_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def build_library(out: pathlib.Path, cu_sources) -> Tuple[float, str]:
+    """Compile each source with its own nvcc process, all started together,
+    and link the objects into the shared library `out`.  Returns (seconds,
+    nvcc's output); raises if a step fails."""
+    t0 = time.perf_counter()
+    objs = [out.with_name(f"{out.name}.{i}.{src.stem}.o") for i, src in enumerate(cu_sources)]
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(cu_sources, objs)
+    ]
+    logs, failed = [], []
+    try:
+        for src, proc in zip(cu_sources, procs):
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{''.join(logs)}")
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(out), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking {out.name} failed ({link.returncode}):\n{logs[-1]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return time.perf_counter() - t0, "".join(logs)
+
+
 @functools.lru_cache(maxsize=1)
 def load() -> Library:
     """Build the library if no up-to-date one exists, then load it."""
@@ -102,13 +137,7 @@ def load() -> Library:
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        seconds, log = build_library(tmp, [src for src in sources() if src.suffix == ".cu"])
         os.replace(tmp, path)
     cdll = ctypes.CDLL(str(path))
     cdll.arrow_cuda_error_string.argtypes = [ctypes.c_int]

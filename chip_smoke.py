@@ -12,11 +12,14 @@ Phases, each printing lines that start with its name:
    build/arrow_tpu_torch/ and loads it; nvcc's per-kernel register report
    goes to build/arrow_tpu_torch/nvcc.log;
 3. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, over lengths, masks/flags, ops, dtypes, digit widths, key domains,
-   class orders and run lengths (exact, except float adds: f32 at rtol 1e-6,
-   f64 at rtol 1e-12, and an f32-accumulating stand-in for the f64 add must
-   fail that check); the split (B8) and the one-plane compaction (B9), which
-   no operator calls, are also timed there at 2^27 rows;
+   card, over lengths, masks/flags, ops, dtypes, plane counts, digit widths,
+   key domains, class orders and run lengths (exact, except float adds: f32
+   at rtol 1e-6, f64 at rtol 1e-12, and an f32-accumulating stand-in for the
+   f64 add must fail that check); the segmented scan (B2) also on misaligned
+   views and in a race check (ten repeats of two 2^27-row scans, bit for bit
+   alike), and timed at 2^27 rows on four calls; the split (B8) and the
+   one-plane compaction (B9), which no operator calls, are also timed there
+   at 2^27 rows;
 4. flagship: the flagship query (compare -> filter -> sort group-by) through
    the public API at 2^20 and 2^27 rows, checked against the same query on
    the plain versions and against a numpy oracle; the kernels' launch counts
@@ -79,6 +82,10 @@ B1_SIZES = (0, 1, 31, 8193, (1 << 20) + 17, 1 << 27)
 B1_PATTERNS = ("0", "0.01", "0.5", "0.99", "1", "every32")
 B2_SIZES = (1, 8193, (1 << 20) + 17, 1 << 27)
 B2_FLAGS = {"none": 0.0, "sparse": 0.001, "dense": 0.3}
+B2_TYPES = ("int32", "uint32", "float32", "int64", "uint64", "float64")
+B2_PLANES = (1, 2, 3)
+B2_MISALIGNED_N = (1 << 20) + 17
+B2_RACE_REPEATS = 10
 B3_SIZES = (0, 1, 31, 8193, (1 << 20) + 17, 1 << 27)
 B3_WIDTHS = (1, 2, 8)
 B3_KEYS = ("int32", "uint32", "float32", "uint64", "int64")
@@ -106,7 +113,7 @@ CALLS_PER_SAMPLE = 4
 PROFILE_TOP = 8
 # the device functions of the hand-written kernels (arrow_tpu_torch/csrc)
 OWN_DEVICE_FUNCTIONS = ("tile_counts", "scan_tile_counts", "scatter_tiles",
-                        "seg_tile_reduce", "seg_scan_tiles", "seg_tile_scan",
+                        "seg_lookback",
                         "radix_histogram", "radix_scan_rows", "radix_scatter", "radix_or_and",
                         "merge_runs", "split_counts", "split_tiles", "dense_histogram",
                         "region_histogram")
@@ -249,7 +256,26 @@ def _b2_values(name, n, gen, device):
     return torch.randint(lo, hi, (n,), dtype=dtype, generator=gen, device=device), name.startswith("u")
 
 
-def check_b2(device, gen):
+def _b2_compare(got, want, op):
+    """(matches, max abs err, max rel err) of a scan's planes against the
+    plain version's: float adds within ADD_RTOL, everything else exact."""
+    import torch
+
+    ok, err, rel = True, 0.0, 0.0
+    for g, w in zip(got, want):
+        if w.is_floating_point():
+            err = max(err, float((g.double() - w.double()).abs().max()))
+            r = _max_rel(g, w)
+            rel = max(rel, r)
+            ok &= (r <= ADD_RTOL[str(w.dtype)[6:]]) if op == "add" else bool(torch.equal(g, w))
+        else:
+            ok &= bool(torch.equal(g, w))
+    return ok, err, rel
+
+
+def check_b2(device, gen, smi):
+    """B2 over lengths, dtypes, 1-3 planes, flag densities and ops; views with
+    a storage offset; a race check; then four calls timed at TIMED_N rows."""
     import torch
 
     from arrow_tpu_torch.compute.kernels import segscan as S
@@ -259,32 +285,55 @@ def check_b2(device, gen):
     standin_rel = float("inf")  # smallest error of the f32-accumulating stand-in
     failures = []
     for n in B2_SIZES:
-        for name in ("int32", "uint32", "float32", "int64", "uint64", "float64"):
-            vals, unsigned = _b2_values(name, n, gen, device)
-            for fname, density in B2_FLAGS.items():
-                flags = torch.rand(n, generator=gen, device=device) < density if density else None
-                for op in S.OPS:
-                    got = S.segmented_scan(vals, flags, op, unsigned)
-                    want = S.segmented_scan_plain(vals, flags, op, unsigned)
-                    torch.cuda.synchronize()
-                    cases += 1
-                    if vals.is_floating_point():
-                        worst_abs = max(worst_abs, float((got.double() - want.double()).abs().max()))
-                        rel = _max_rel(got, want)
-                        worst_rel[name] = max(worst_rel[name], rel)
-                        ok = (rel <= ADD_RTOL[name]) if op == "add" else bool(torch.equal(got, want))
-                        if name == "float64" and op == "add":
+        for name in B2_TYPES:
+            for nplanes in B2_PLANES:
+                planes, unsigned = [], False
+                for _ in range(nplanes):
+                    vals, unsigned = _b2_values(name, n, gen, device)
+                    planes.append(vals)
+                for fname, density in B2_FLAGS.items():
+                    flags = torch.rand(n, generator=gen, device=device) < density if density else None
+                    for op in S.OPS:
+                        if nplanes == 1:  # the one-plane entry the operators call
+                            got = [S.segmented_scan(planes[0], flags, op, unsigned)]
+                        else:
+                            got = S.segmented_scan_multi(planes, flags, op, unsigned)
+                        want = S.segmented_scan_multi_plain(planes, flags, op, unsigned)
+                        torch.cuda.synchronize()
+                        cases += 1
+                        ok, err, rel = _b2_compare(got, want, op)
+                        worst_abs = max(worst_abs, err)
+                        if op == "add" and name in worst_rel:
+                            worst_rel[name] = max(worst_rel[name], rel)
+                        if nplanes == 1 and name == "float64" and op == "add":
                             # what a B2 that kept the group-by's f64 sum in f32 would give
-                            standin = S.segmented_scan(vals.float(), flags, "add").double()
-                            standin_rel = min(standin_rel, _max_rel(standin, want))
-                    else:
-                        ok = bool(torch.equal(got, want))
-                    if not ok:
-                        failures.append(f"n={n} {name} flags={fname} op={op}")
-                    del got, want
-            del vals
+                            standin = S.segmented_scan(planes[0].float(), flags, "add").double()
+                            standin_rel = min(standin_rel, _max_rel(standin, want[0]))
+                        if not ok:
+                            failures.append(f"n={n} {name} planes={nplanes} flags={fname} op={op}")
+                        del got, want
+                del planes
+            torch.cuda.empty_cache()
+    n = B2_MISALIGNED_N
+    for name in B2_TYPES:  # views one row in: the kernel's element-wise path
+        bases = [_b2_values(name, n + 1, gen, device) for _ in range(2)]
+        unsigned = bases[0][1]
+        planes = [b[0][1:] for b in bases]
+        flags = (torch.rand(n + 1, generator=gen, device=device) < B2_FLAGS["sparse"])[1:]
+        require(planes[0].data_ptr() % 16 != 0 and flags.data_ptr() % 16 != 0, "the views are aligned")
+        for op in S.OPS:
+            got = S.segmented_scan_multi(planes, flags, op, unsigned)
+            want = S.segmented_scan_multi_plain(planes, flags, op, unsigned)
+            torch.cuda.synchronize()
+            cases += 1
+            ok, err, _rel = _b2_compare(got, want, op)
+            worst_abs = max(worst_abs, err)
+            if not ok:
+                failures.append(f"misaligned n={n} {name} op={op}")
+        del bases, planes, flags
     print(f"kernels: segmented_scan vs plain: {cases} cases (n in {list(B2_SIZES)}, "
-          f"ops {list(S.OPS)}, i32/u32/f32/i64/u64/f64, flags {list(B2_FLAGS)}); integers and "
+          f"ops {list(S.OPS)}, i32/u32/f32/i64/u64/f64, {list(B2_PLANES)} planes, flags "
+          f"{list(B2_FLAGS)}; and 2-plane views one row in, flags too, at n={n}); integers and "
           f"max/min/first exact, float add rtol {ADD_RTOL}; max abs err {worst_abs}; "
           f"failures {failures}")
     print(f"kernels: segmented_scan f32 add: max rel err {worst_rel['float32']} "
@@ -294,6 +343,46 @@ def check_b2(device, gen):
           f"{standin_rel} on the same cases, so the check rejects it")
     require(not failures, "segmented_scan disagrees with its plain version")
     require(standin_rel > ADD_RTOL["float64"], "the f64 add check would pass an f32 accumulator")
+
+    # the race check: the look-back's order of publication varies from run to
+    # run; integer results and `first` may not
+    n = B2_SIZES[-1]
+    vals = _b2_values("int32", n, gen, device)[0]
+    flags = torch.rand(n, generator=gen, device=device) < B2_FLAGS["sparse"]
+    race = {}
+    for op in ("first", "add"):
+        want = S.segmented_scan_plain(vals, flags, op)
+        runs = [S.segmented_scan(vals, flags, op) for _ in range(B2_RACE_REPEATS)]
+        torch.cuda.synchronize()
+        race[op] = bool(torch.equal(runs[0], want)) and all(bool(torch.equal(r, runs[0])) for r in runs)
+        del want, runs
+    print(f"kernels: segmented_scan race check: {B2_RACE_REPEATS} repeats each of i32 first and i32 "
+          f"add at n={n}, sparse flags: each equal bit for bit to the first repeat and to the plain "
+          f"version: {race}")
+    require(all(race.values()), f"segmented_scan differs between repeats or from plain: {race}")
+    del vals, flags
+    torch.cuda.empty_cache()
+
+    def i32(count):
+        return [_b2_values("int32", TIMED_N, gen, device)[0] for _ in range(count)]
+
+    def dense():
+        return torch.rand(TIMED_N, generator=gen, device=device) < B2_FLAGS["dense"]
+
+    timed = (
+        ("i32 add, no flags", lambda: (i32(1), None, "add", False)),
+        ("i32 max, dense flags", lambda: (i32(1), dense(), "max", False)),
+        ("f64 add, sparse flags", lambda: ([_b2_values("float64", TIMED_N, gen, device)[0]],
+                                           torch.rand(TIMED_N, generator=gen, device=device)
+                                           < B2_FLAGS["sparse"], "add", False)),
+        ("3 i32 planes, max, dense flags", lambda: (i32(3), dense(), "max", False)),
+    )
+    for label, make in timed:
+        args = make()
+        m, what = measure_call("segmented_scan", args)
+        print(f"kernels: segmented_scan at n={TIMED_N}, {label} ({what}): {m.line()} ({smi})")
+        del args
+        torch.cuda.empty_cache()
     return worst_abs
 
 
@@ -612,7 +701,7 @@ def phase_kernels(smi):
     gen.manual_seed(0)
     errs = {"compact_multi": check_b1(device, gen)}
     torch.cuda.empty_cache()
-    errs["segmented_scan"] = check_b2(device, gen)
+    errs["segmented_scan"] = check_b2(device, gen, smi)
     torch.cuda.empty_cache()
     errs["radix_sort"] = errs["radix_sort_2bit"] = check_b3(device, gen)
     errs["merge_pass"] = check_b7(device, gen)
@@ -630,7 +719,7 @@ KERNEL_FUNCTIONS = {
     "compact_multi": ("compaction3", "compact_multi_cuda", "compact_multi_plain"),
     "split_multi": ("compaction3", "split_multi_cuda", "split_multi_plain"),
     "compact": ("compaction", "compact_cuda", "compact_plain"),
-    "segmented_scan": ("segscan", "segmented_scan_cuda", "segmented_scan_plain"),
+    "segmented_scan": ("segscan", "segmented_scan_multi_cuda", "segmented_scan_multi_plain"),
     "radix_sort": ("radix", "radix_sort_cuda", "radix_sort_plain"),
     "merge_pass": ("merge", "merge_pass_cuda", "merge_pass_plain"),
     "groupby_dense": ("groupby_mxu", "groupby_dense_cuda", "groupby_dense_plain"),
@@ -689,9 +778,9 @@ def call_bytes(name, args) -> int:
         n = vplanes[0].shape[0]
         return 3 * width(vplanes, n) + (n // 8 if mask is not None else 0)
     if name == "segmented_scan":
-        vals, flags, _op, _unsigned = args
-        n = vals.shape[0]
-        return 2 * width([vals], n) + (n if flags is not None else 0)
+        planes, flags, _op, _unsigned = args
+        n = planes[0].shape[0]
+        return 2 * width(planes, n) + (n if flags is not None else 0)
     if name.startswith("radix_sort"):
         planes, _bits, n, _width = args
         return 2 * width(planes, planes[0].shape[0] if n is None else n)
@@ -723,8 +812,8 @@ def library_call(name, args):
         sel = B.unpack_bits(mask[: B.num_words(n)], n)
         return lambda: [p[:n][sel] for p in vplanes]
     if name == "segmented_scan":
-        vals, flags, op, _unsigned = args
-        return (lambda: torch.cumsum(vals, 0)) if flags is None and op == "add" else None
+        planes, flags, op, _unsigned = args
+        return (lambda: [torch.cumsum(p, 0) for p in planes]) if flags is None and op == "add" else None
     if name.startswith("radix_sort"):
         planes, _bits, n, _width = args
         key = planes[0][: planes[0].shape[0] if n is None else n]
@@ -822,11 +911,12 @@ def _describe(name, args, got, want):
         ok = int(got[1]) == int(want[1]) and bool(torch.equal(got[0], want[0]))
         return ok, [got[0]], [want[0]], f"one {str(data.dtype)[6:]} plane, n={data.shape[0]}, kept {int(got[1])}"
     if name == "segmented_scan":
-        vals, flags, op, unsigned = args
-        rtol = ADD_RTOL.get(str(vals.dtype)[6:]) if op == "add" else None
-        ok = _max_rel(got, want) <= rtol if rtol else bool(torch.equal(got, want))
+        planes, flags, op, unsigned = args
+        ok = _b2_compare(got, want, op)[0]
         segs = int(flags.sum()) if flags is not None else 0
-        return ok, [got], [want], f"{op} of {str(vals.dtype)[6:]}, n={vals.shape[0]}, {segs} segment starts"
+        kind = ("u" if unsigned else "") + str(planes[0].dtype)[6:]
+        return ok, got, want, (f"{len(planes)} plane(s), {op} of {kind}, n={planes[0].shape[0]}, "
+                               f"{segs} segment starts")
     ok = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
     if name.startswith("radix_sort"):
         planes, bits, n, width = args

@@ -141,6 +141,86 @@ def test_segmented_scan_kernel_matches_plain(cuda, n, flags, name):
             assert torch.equal(got, want)
 
 
+def _same_scan(got, want):
+    if want.is_floating_point():
+        torch.testing.assert_close(got, want, rtol=ADD_RTOL[want.dtype], atol=0, equal_nan=True)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 8193, (1 << 16) + 17])
+@pytest.mark.parametrize("flags", ["none", "sparse", "dense"])
+@pytest.mark.parametrize("name", ["int32", "uint32", "float32", "int64", "uint64", "float64"])
+@pytest.mark.parametrize("nplanes", [2, 3])
+def test_segmented_scan_multi_kernel_matches_plain(cuda, n, flags, name, nplanes):
+    """One launch scans every plane; each plane equals the plain version
+    (float adds at ADD_RTOL, everything else exact)."""
+    rng = np.random.default_rng(n + nplanes)
+    planes = [_scan_values(rng, name, n)[0].to(cuda) for _ in range(nplanes)]
+    unsigned = name.startswith("u")
+    density = {"none": 0.0, "sparse": 0.001, "dense": 0.3}[flags]
+    tf = torch.from_numpy(rng.random(n) < density).to(cuda) if density else None
+    for op in S.OPS:
+        before = S.KERNEL.launches
+        got = S.segmented_scan_multi(planes, tf, op, unsigned)
+        torch.cuda.synchronize()
+        assert S.KERNEL.launches == before + 1 and len(got) == nplanes
+        want = S.segmented_scan_multi_plain(planes, tf, op, unsigned)
+        for g, w in zip(got, want):
+            assert g.is_cuda
+            if op == "add":
+                _same_scan(g, w)
+            else:
+                assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["int32", "uint32", "float32", "int64", "uint64", "float64"])
+def test_segmented_scan_misaligned_views(cuda, name):
+    """Views with a storage offset (values and flags one row in) take the
+    kernel's element-wise path and give the plain version's answer."""
+    rng = np.random.default_rng(41)
+    n = (1 << 16) + 17
+    bases = [_scan_values(rng, name, n + 1)[0].to(cuda) for _ in range(2)]
+    flags = torch.from_numpy(rng.random(n + 1) < 0.01).to(cuda)[1:]
+    planes = [b[1:] for b in bases]
+    assert planes[0].data_ptr() % 16 and flags.data_ptr() % 16
+    for op in S.OPS:
+        for args in ((planes, flags), (planes[:1], None)):
+            before = S.KERNEL.launches
+            got = S.segmented_scan_multi(*args, op, name.startswith("u"))
+            torch.cuda.synchronize()
+            assert S.KERNEL.launches == before + 1
+            want = S.segmented_scan_multi_plain(*args, op, name.startswith("u"))
+            for g, w in zip(got, want):
+                if op == "add":
+                    _same_scan(g, w)
+                else:
+                    assert torch.equal(g, w)
+
+
+def test_join_expand_launches_b2_once(cuda, monkeypatch):
+    """The merge-expand emit's three fills are one B2 launch."""
+    monkeypatch.setattr(TJ, "RADIX_COSORT_ROWS", 0)
+    launches = []
+    expand = TJ._expand
+
+    def counted(*args):
+        before = S.KERNEL.launches
+        out = expand(*args)
+        torch.cuda.synchronize()
+        launches.append(S.KERNEL.launches - before)
+        return out
+
+    monkeypatch.setattr(TJ, "_expand", counted)
+    rng = np.random.default_rng(43)
+    build = att.UInt32Array.from_slice(rng.integers(0, 500, 20_000).astype(np.uint32), device="cpu")
+    probe = att.UInt32Array.from_slice(rng.integers(0, 500, 50_001).astype(np.uint32), device="cpu")
+    want = TC.join_indices(build, probe)
+    got = TC.join_indices(_to(build, cuda), _to(probe, cuda))
+    assert launches == [1]
+    assert _pair_set(got[0], got[1]) == _pair_set(want[0], want[1])
+
+
 def test_segmented_scan_nan_and_unsigned_extremes(cuda):
     v = torch.tensor([1.0, float("nan"), 3.0, -1.0, 2.0], device=cuda)
     f = torch.tensor([False, False, False, True, False], device=cuda)

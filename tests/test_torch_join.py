@@ -17,6 +17,7 @@ from arrow_tpu import compute as JC
 from arrow_tpu.table import RecordBatch as JBatch
 from arrow_tpu_torch import compute as TC
 from arrow_tpu_torch.compute import join as TJ
+from arrow_tpu_torch.compute import kernels as TCK
 from arrow_tpu_torch.compute.kernels import merge as TM
 from torch_helpers import assert_same, batch_to_torch, jax_to_torch
 
@@ -94,6 +95,24 @@ def test_join_indices_match_jax(case, emit, monkeypatch):
 def test_jax_merge_emit_agrees():
     """The JAX package's own merge-expand emit gives the same pair set."""
     assert _jax_pairs("u32_dups", "merge") == _jax_pairs("u32_dups")
+
+
+def test_expand_fills_three_planes_in_one_scan(monkeypatch):
+    """The merge-expand emit fills (key, probe row, lo) with one B2 call of
+    three planes, as the JAX package's ``segscan_pallas((kt, m1, m2), ...)``
+    does."""
+    monkeypatch.setenv("ARROW_TPU_JOIN_EMIT", "merge")
+    planes_per_call = []
+    multi = TCK.segmented_scan_multi
+
+    def spy(planes, *args):
+        planes_per_call.append(len(planes))
+        return multi(planes, *args)
+
+    monkeypatch.setattr(TCK, "segmented_scan_multi", spy)
+    build, probe = _case("u32_dups")
+    assert _pairs(*TC.join_indices(jax_to_torch(build), jax_to_torch(probe))) == _jax_pairs("u32_dups")
+    assert planes_per_call == [3]
 
 
 def test_radix_cosort_route(monkeypatch):

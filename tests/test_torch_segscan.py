@@ -1,5 +1,6 @@
 """Kernel B2 (inclusive segmented scan): the plain PyTorch version against
-arrow_tpu's segmented_scan_pallas (interpret mode on the CPU) and its XLA
+arrow_tpu's segmented_scan_pallas and segscan_pallas (interpret mode on the
+CPU; the latter for 2 and 3 planes that share one flag plane) and its XLA
 ladder.  The CUDA kernel is held against the plain version in
 test_torch_cuda.py.
 
@@ -12,8 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from arrow_tpu.compute.kernels.segscan import segmented_scan_pallas
+from arrow_tpu.compute.kernels.segscan import (
+    combine_add, combine_first, combine_max, segmented_scan_pallas, segscan_pallas,
+)
 from arrow_tpu.utils import scans as JS
+from arrow_tpu_torch.compute import kernels as CK
 from arrow_tpu_torch.compute.kernels import segscan as S
 
 N = 65536
@@ -106,3 +110,68 @@ def test_wrapper_routes_by_device_and_checks_args():
         S.segmented_scan(v, f, "mul")
     with pytest.raises(ValueError):
         S.segmented_scan(v.to(torch.int16), f, "add")
+
+
+MULTI_N = 16384
+MULTI_COMBINES = {"max": combine_max, "add": combine_add, "first": combine_first}
+
+
+@pytest.mark.parametrize("nplanes", [2, 3])
+@pytest.mark.parametrize("op", list(MULTI_COMBINES))
+def test_multi_plain_matches_pallas(op, nplanes):
+    """int32 planes sharing one flag plane, as the JAX join fills (key,
+    probe row, lo) in one segscan_pallas call; exact (int32 adds wrap in
+    both packages)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng([nplanes, len(op)])
+    planes = [rng.integers(-(2**31), 2**31, MULTI_N).astype(np.int32) for _ in range(nplanes)]
+    for density in (0.0, 0.001, 0.3):  # 0.0: no starts, the plain scan
+        flags = rng.random(MULTI_N) < density
+        want = segscan_pallas(
+            tuple(jnp.asarray(p) for p in planes), jnp.asarray(flags) if density else None,
+            MULTI_COMBINES[op], interpret=True,
+        )
+        tflags = torch.from_numpy(flags) if density else None
+        got = S.segmented_scan_multi_plain([torch.from_numpy(p) for p in planes], tflags, op)
+        assert len(got) == nplanes
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _bad_planes():
+    v = torch.arange(8, dtype=torch.int32)
+    return {
+        "none": [],
+        "four": [v] * 4,
+        "mixed_dtype": [v, v.to(torch.int64)],
+        "mixed_length": [v, v[:7]],
+        "mixed_device": [v, torch.zeros(8, dtype=torch.int32, device="meta")],
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_planes()))
+@pytest.mark.parametrize(
+    "fn", [S.segmented_scan_multi, S.segmented_scan_multi_plain, S.segmented_scan_multi_cuda],
+    ids=["wrapper", "plain", "cuda"],
+)
+def test_multi_rejects_bad_planes(fn, case):
+    with pytest.raises(ValueError):
+        fn(_bad_planes()[case], None, "max")
+
+
+def test_multi_routes_by_device():
+    """On CPU tensors the wrapper (and the operators' entry, inside
+    plain_versions() or not) gives the plain version on each plane; the
+    CUDA launcher refuses CPU tensors."""
+    rng = np.random.default_rng(11)
+    planes = [torch.from_numpy(rng.integers(-50, 50, 1000).astype(np.int32)) for _ in range(3)]
+    flags = torch.from_numpy(rng.random(1000) < 0.05)
+    want = [S.segmented_scan_plain(p, flags, "max") for p in planes]
+    for got in (S.segmented_scan_multi(planes, flags, "max"), CK.segmented_scan_multi(planes, flags, "max")):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with CK.plain_versions():
+        assert all(torch.equal(g, w) for g, w in zip(CK.segmented_scan_multi(planes, flags, "max"), want))
+    assert torch.equal(S.segmented_scan(planes[0], flags, "max"), want[0])
+    with pytest.raises(ValueError):
+        S.segmented_scan_multi_cuda(planes, flags, "max")
