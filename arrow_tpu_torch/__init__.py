@@ -16,6 +16,7 @@ from . import dtypes
 from .array import (
     ArrowArray,
     ArrowArrayBase,
+    BitBufferBuilder,
     BooleanArray,
     Buffer,
     Date32Array,
@@ -32,10 +33,11 @@ from .array import (
     UInt16Array,
     UInt32Array,
     UInt64Array,
+    as_scalar,
     make_array,
 )
 from .config import config, set_config
-from .dtypes import ArrowType
+from .dtypes import ArrowType, DataType
 from .errors import ArrowTorchError, CastingNotSupported, OperationNotSupported
 from .runtime import Device, default_device, set_default_device
 from .table import RecordBatch, Table
@@ -49,9 +51,11 @@ __all__ = [
     "ArrowArrayBase",
     "ArrowTorchError",
     "ArrowType",
+    "BitBufferBuilder",
     "BooleanArray",
     "Buffer",
     "CastingNotSupported",
+    "DataType",
     "Date32Array",
     "Device",
     "Float32Array",
@@ -70,6 +74,7 @@ __all__ = [
     "UInt16Array",
     "UInt32Array",
     "UInt64Array",
+    "as_scalar",
     "compute",
     "config",
     "default_device",

@@ -20,14 +20,15 @@ from .array import (
 )
 from .boolean import BooleanArray
 from .buffer import Buffer
-from .scalar import Scalar
-from .validity import NullBitBuffer, merge_validity
+from .scalar import Operand, Scalar, as_scalar
+from .validity import BitBufferBuilder, NullBitBuffer, merge_validity
 
 ArrowArray = ArrowArrayBase
 
 __all__ = [
     "ArrowArray",
     "ArrowArrayBase",
+    "BitBufferBuilder",
     "BooleanArray",
     "Buffer",
     "Date32Array",
@@ -38,12 +39,14 @@ __all__ = [
     "Int32Array",
     "Int64Array",
     "NullBitBuffer",
+    "Operand",
     "PrimitiveArray",
     "Scalar",
     "UInt8Array",
     "UInt16Array",
     "UInt32Array",
     "UInt64Array",
+    "as_scalar",
     "make_array",
     "merge_validity",
     "pad_len",

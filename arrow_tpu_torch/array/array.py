@@ -68,6 +68,10 @@ class ArrowArrayBase:
     def length(self) -> int:
         return self._length
 
+    @property
+    def data_type(self) -> dt.DataType:
+        return dt.DataType(self.dtype)
+
     def null_count(self) -> int:
         v = self.validity
         return 0 if v is None else self._length - int(B.popcount_words(v))
@@ -153,12 +157,33 @@ class PrimitiveArray(ArrowArrayBase):
         words = B.pack_bits_np(mask, pad_words(n)).view(np.int32)
         return make_array(data, device.put(words), n, dtype, device)
 
+    @classmethod
+    def from_torch(
+        cls,
+        data: torch.Tensor,
+        length: Optional[int] = None,
+        validity: Optional[torch.Tensor] = None,
+        dtype: Optional[dt.ArrowType] = None,
+        device=None,
+    ) -> "PrimitiveArray":
+        """Wrap an existing tensor in its storage dtype (padded or of the
+        exact length; zero-padded here to whole pad units)."""
+        n = int(data.shape[0]) if length is None else length
+        dtype = dtype or cls.DTYPE or dt.from_torch_dtype(data.dtype)
+        if data.shape[0] < pad_len(n):
+            data = torch.nn.functional.pad(data, (0, pad_len(n) - data.shape[0]))
+        return make_array(data, validity, n, dtype, device)
+
     # -- accessors ------------------------------------------------------------
 
     @property
     def data(self) -> torch.Tensor:
         """The padded value buffer (storage dtype)."""
         return self._data
+
+    @property
+    def padded_length(self) -> int:
+        return int(self._data.shape[0])
 
     @property
     def validity(self) -> Optional[torch.Tensor]:
@@ -180,6 +205,11 @@ class PrimitiveArray(ArrowArrayBase):
 
     def to_numpy(self) -> np.ndarray:
         return self.raw_values()
+
+    def clone(self) -> "PrimitiveArray":
+        """A metadata copy: the buffers are shared (no op of the port writes
+        into an array's buffers)."""
+        return make_array(self._data, self._validity, self._length, self.dtype, self.device)
 
     def __repr__(self) -> str:
         head = self.values()[:10]

@@ -61,10 +61,28 @@ class BooleanArray(ArrowArrayBase):
         vwords = B.pack_bits_np(valid, pad_words(n)).view(np.int32)
         return cls(device.put(words), device.put(vwords), n, device)
 
+    @classmethod
+    def from_words(
+        cls,
+        words: torch.Tensor,
+        length: int,
+        validity: Optional[torch.Tensor] = None,
+        device=None,
+    ) -> "BooleanArray":
+        return cls(words, validity, length, device)
+
     @property
     def data(self) -> torch.Tensor:
         """Packed int32 value words."""
         return self._data
+
+    @property
+    def padded_length(self) -> int:
+        return int(self._data.shape[0]) * B.WORD_BITS
+
+    def clone(self) -> "BooleanArray":
+        """A metadata copy: the buffers are shared."""
+        return BooleanArray(self._data, self._validity, self._length, self.device)
 
     @property
     def validity(self) -> Optional[torch.Tensor]:

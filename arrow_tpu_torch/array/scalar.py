@@ -3,11 +3,12 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Union
 
 import numpy as np
 
 from .. import dtypes as dt
+from .array import ArrowArrayBase
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,3 +31,20 @@ class Scalar:
                 dtype = dt.from_numpy_dtype(np.asarray(value).dtype)
         return cls(value, dtype)
 
+
+    def to_numpy(self):
+        if self.dtype is dt.ArrowType.BOOL:
+            return np.bool_(self.value)
+        return dt.info(self.dtype).numpy.type(self.value)
+
+
+#: an array or a scalar: what an op that accepts either takes
+Operand = Union[ArrowArrayBase, Scalar, int, float, bool]
+
+
+def as_scalar(x: Operand, dtype: dt.ArrowType | None = None) -> Scalar:
+    if isinstance(x, Scalar):
+        return x
+    if isinstance(x, ArrowArrayBase):
+        raise TypeError("array operand where scalar expected")
+    return Scalar.of(x, dtype)

@@ -95,14 +95,15 @@ def filter(
 ) -> Union[ArrowArrayBase, RecordBatch]:
     """Compact rows where mask is true (and valid).
 
-    method: "auto" = kernel B1 (any mix of 1/2/4/8-byte, bool and nullable
-    columns); "sort" = the stable-partition route.
+    method: "auto" and "pallas" (the JAX package's name for its hand-kernel
+    route) = kernel B1 (any mix of 1/2/4/8-byte, bool and nullable columns);
+    "sort" = the stable-partition route.
     """
     if mask.dtype is not dt.ArrowType.BOOL:
         raise OperationNotSupported("filter mask must be a BooleanArray")
     if len(data) != len(mask):
         raise OperationNotSupported("filter requires equal lengths")
-    if method not in ("auto", "sort"):
+    if method not in ("auto", "pallas", "sort"):
         raise OperationNotSupported(f"filter method {method!r} is not ported")
     cols: List[ArrowArrayBase] = (
         list(data.columns().values()) if isinstance(data, RecordBatch) else [data]

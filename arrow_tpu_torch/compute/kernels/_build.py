@@ -47,6 +47,7 @@ class Kernel:
     replaces: str  # file:line of the TPU kernel it replaces
     route: str = "cuda"
     launches: int = 0
+    passes: int = 0  # radix sorts only: the passes its calls made (kernel or plain version)
 
 
 #: every kernel of the port, by name
@@ -61,6 +62,7 @@ def register_kernel(kernel: Kernel) -> Kernel:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.passes = 0
 
 
 @dataclasses.dataclass(frozen=True)

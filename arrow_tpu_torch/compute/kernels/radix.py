@@ -4,9 +4,11 @@ Counterpart of ``arrow_tpu/compute/kernels/radix.py``: the chain of
 ``_radix_pass_call`` (B3, one bit a pass) behind ``radix_sort_chain[_parts]``,
 and its 2-bit form ``_radix4_pass_call`` (B4), which ``ARROW_TPU_RADIX_R=4``
 selects.  The CUDA kernel is ``arrow_tpu_torch/csrc/radix.cu``, templated on
-the digit width: 1 is B3's pass, 2 is B4's, 8 the default.  Beside it,
+the digit width: 1 is B3's pass, 2 is B4's, 8 the default: one histogram of
+every pass's digits, then one onesweep launch a pass.  Beside it,
 :func:`radix_sort_plain` is the same function in plain PyTorch: one stable
-``torch.sort`` of the digit and a gather per pass, at the same width.
+``torch.sort`` of the digit and a gather per pass, at the same width and the
+same digit positions.
 
 Contract: plane 0 is a 32- or 64-bit key whose bit pattern, read as
 unsigned, orders the rows (an unsigned-order code); the other planes are
@@ -14,8 +16,11 @@ payloads of 4 or 8 bytes.  The first `n` rows of every plane come out stably
 sorted by the key; rows from `n` on are zero.  The sort is by a set of key
 bits: with an int `nbits_or_bits`, the significant ones, where the keys' OR ^
 AND mask has a bit (as ``significant_bits_mask``; the others are equal in
-every key); with a sequence, the given bit positions.  Only digits that hold
-one of them are passed over, with the other bits masked off.
+every key); with a sequence, the given bit positions.  The passes' digits are
+aligned to those bits (:func:`_shifts`): each starts at the lowest bit not yet
+sorted by, so bits 12-19 are one 8-bit pass; the other bits are masked off.
+The wrappers add the passes a call made to ``KERNEL.passes`` beside its
+launch count.
 
 :func:`radix_sort` is the wrapper: the plain version for CPU tensors, the
 kernel for CUDA tensors, never one in place of the other.
@@ -59,6 +64,10 @@ def chain_digit_bits() -> int:
     return 2 if os.environ.get("ARROW_TPU_RADIX_R") == "4" else DEFAULT_DIGIT_BITS
 
 
+def _kernel(digit_bits: int) -> _build.Kernel:
+    return KERNEL_2BIT if digit_bits == 2 else KERNEL
+
+
 def _rows(planes, n: Optional[int]) -> int:
     return int(planes[0].shape[0]) if n is None else n
 
@@ -97,9 +106,17 @@ def _as_signed(mask: int, bits: int) -> int:
 
 
 def _shifts(sig: int, key_bits: int, digit_bits: int) -> List[int]:
-    """The shift of every digit that holds a bit of `sig`, LSD first."""
+    """The shifts of the passes that cover the bits of `sig`, LSD first: each
+    digit starts at the lowest bit not yet covered, or lower where it would
+    otherwise end past the key's top bit.  Such a digit holds bits that an
+    earlier pass sorted by, which an LSD chain does not mind."""
     mask = (1 << digit_bits) - 1
-    return [s for s in range(0, key_bits, digit_bits) if (sig >> s) & mask]
+    shifts, rest = [], sig
+    while rest:
+        lowest = (rest & -rest).bit_length() - 1
+        shifts.append(min(lowest, key_bits - digit_bits))
+        rest &= ~(mask << shifts[-1])
+    return shifts
 
 
 def _bits_mask(nbits_or_bits: Bits, sig_fn) -> int:
@@ -139,9 +156,9 @@ def radix_sort_plain(
     n: Optional[int] = None,
     digit_bits: int = DEFAULT_DIGIT_BITS,
 ) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch B3/B4: per digit that holds a bit of the sort, LSD
-    first, one stable sort of the digit (the other bits masked off) and a
-    gather of every plane."""
+    """Plain PyTorch B3/B4: per pass of :func:`_shifts`, LSD first, one
+    stable sort of the digit (the bits not sorted by masked off) and a gather
+    of every plane."""
     planes = tuple(planes)
     n = _rows(planes, n)
     _check_args(planes, nbits_or_bits, n, digit_bits)
@@ -150,7 +167,9 @@ def radix_sort_plain(
     cur = [p[:n] for p in planes]
     key_bits = 8 * key.element_size()
     dmask, kmask = (1 << digit_bits) - 1, _as_signed(sig, key_bits)
-    for s in _shifts(sig, key_bits, digit_bits) if n > 1 else []:
+    shifts = _shifts(sig, key_bits, digit_bits) if n > 1 else []
+    _kernel(digit_bits).passes += len(shifts)
+    for s in shifts:
         perm = torch.sort(((cur[0] & kmask) >> s) & dmask, stable=True).indices
         cur = [p[perm] for p in cur]
     return tuple(_zero_tail(c, p) for c, p in zip(cur, planes))
@@ -191,10 +210,10 @@ def radix_sort_cuda(
     buf_a = [torch.empty_like(p) for p in planes]
     buf_b = [torch.empty_like(p) for p in planes] if len(shifts) > 1 else buf_a
     lib = _build.load().cdll
-    lib.arrow_radix_scratch_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.arrow_radix_scratch_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     lib.arrow_radix_scratch_bytes.restype = ctypes.c_longlong
     scratch = torch.empty(
-        lib.arrow_radix_scratch_bytes(n, digit_bits), dtype=torch.uint8, device=key.device
+        lib.arrow_radix_scratch_bytes(n, digit_bits, len(shifts)), dtype=torch.uint8, device=key.device
     )
     fn = lib.arrow_radix_sort
     fn.argtypes = [
@@ -217,7 +236,8 @@ def radix_sort_cuda(
             scratch.data_ptr(), _build.stream_of(key),
         )
     _build.check(err, "radix_sort")
-    (KERNEL_2BIT if digit_bits == 2 else KERNEL).launches += 1
+    _kernel(digit_bits).launches += 1
+    _kernel(digit_bits).passes += len(shifts)
     out = buf_a if len(shifts) % 2 else buf_b
     for o in out:
         o[n:] = 0

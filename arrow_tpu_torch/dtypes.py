@@ -98,8 +98,20 @@ def item_size(t: ArrowType) -> int:
     return _REGISTRY[t].item_size
 
 
+def bit_width(t: ArrowType) -> int:
+    return _REGISTRY[t].bit_width
+
+
 def is_float(t: ArrowType) -> bool:
     return _REGISTRY[t].is_float
+
+
+def is_signed(t: ArrowType) -> bool:
+    return _REGISTRY[t].is_signed
+
+
+def is_temporal(t: ArrowType) -> bool:
+    return _REGISTRY[t].is_temporal
 
 
 def is_integer(t: ArrowType) -> bool:
@@ -131,6 +143,108 @@ def from_numpy_dtype(npdt) -> ArrowType:
         return _FROM_NUMPY[npdt]
     except KeyError:
         raise TypeError(f"no ArrowType for numpy dtype {npdt}") from None
+
+
+_FROM_TORCH: dict[torch.dtype, ArrowType] = {
+    torch.int8: ArrowType.INT8,
+    torch.int16: ArrowType.INT16,
+    torch.int32: ArrowType.INT32,
+    torch.int64: ArrowType.INT64,
+    torch.float32: ArrowType.FLOAT32,
+    torch.float64: ArrowType.FLOAT64,
+}
+
+
+def from_torch_dtype(tdt: torch.dtype) -> ArrowType:
+    """The Arrow type a bare tensor of `tdt` holds: the signed or float type
+    of that storage dtype (an unsigned column names its type itself)."""
+    try:
+        return _FROM_TORCH[tdt]
+    except KeyError:
+        raise TypeError(f"no ArrowType for torch dtype {tdt}") from None
+
+
+# ---------------------------------------------------------------------------
+# DataType objects: the user-facing dtype handles, their factories and
+# predicates (the same surface as arrow_tpu.dtypes)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DataType:
+    """User-facing dtype handle."""
+
+    arrow: ArrowType
+
+    @property
+    def bit_width(self) -> int:
+        return bit_width(self.arrow)
+
+    @property
+    def byte_width(self) -> int:
+        return item_size(self.arrow)
+
+    @property
+    def num_fields(self) -> int:
+        """Child-field count: 0 for every primitive type."""
+        return 0
+
+    def __repr__(self) -> str:
+        return f"DataType({self.arrow.value})"
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, DataType):
+            return self.arrow is other.arrow
+        if isinstance(other, ArrowType):
+            return self.arrow is other
+        return NotImplemented
+
+    def __hash__(self) -> int:
+        return hash(self.arrow)
+
+
+def _factory(t: ArrowType):
+    def make() -> DataType:
+        return DataType(t)
+
+    make.__name__ = make.__qualname__ = "bool_" if t is ArrowType.BOOL else t.value
+    make.__doc__ = f"The {t.value} DataType."
+    return make
+
+
+bool_ = _factory(ArrowType.BOOL)
+int8, int16, int32, int64 = (_factory(ArrowType(f"int{b}")) for b in (8, 16, 32, 64))
+uint8, uint16, uint32, uint64 = (_factory(ArrowType(f"uint{b}")) for b in (8, 16, 32, 64))
+float32, float64 = _factory(ArrowType.FLOAT32), _factory(ArrowType.FLOAT64)
+date32 = _factory(ArrowType.DATE32)
+
+
+def is_boolean(t: DataType) -> bool:
+    return t.arrow is ArrowType.BOOL
+
+
+def is_integer_dt(t: DataType) -> bool:
+    return is_integer(t.arrow)
+
+
+def is_signed_integer(t: DataType) -> bool:
+    return is_integer(t.arrow) and is_signed(t.arrow)
+
+
+def is_unsigned_integer(t: DataType) -> bool:
+    return is_integer(t.arrow) and not is_signed(t.arrow)
+
+
+def is_floating(t: DataType) -> bool:
+    return is_float(t.arrow)
+
+
+def is_temporal_dt(t: DataType) -> bool:
+    return is_temporal(t.arrow)
+
+
+def is_primitive(t: DataType) -> bool:
+    return t.arrow is not ArrowType.BOOL
 
 
 # ---------------------------------------------------------------------------

@@ -58,11 +58,21 @@ class RecordBatch:
         return self._length
 
     @property
+    def num_columns(self) -> int:
+        return len(self._columns)
+
+    @property
     def column_names(self) -> List[str]:
         return list(self._columns)
 
+    def column(self, name: str) -> ArrowArrayBase:
+        return self._columns[name]
+
     def __getitem__(self, name: str) -> ArrowArrayBase:
         return self._columns[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._columns
 
     def columns(self) -> Dict[str, ArrowArrayBase]:
         return dict(self._columns)

@@ -40,6 +40,16 @@ def prefix_sum(v: torch.Tensor) -> torch.Tensor:
     return CK.segmented_scan(v, None, "add")
 
 
+def segment_broadcast_first(vals: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """Every row takes the value `vals` has at its segment's first row."""
+    return CK.segmented_scan(vals, starts, "first")
+
+
+def segment_broadcast_last(vals: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """Every row takes the value `vals` has at its segment's last row."""
+    return torch.flip(CK.segmented_scan(torch.flip(vals, (0,)), torch.flip(ends, (0,)), "first"), (0,))
+
+
 def shift_cummax(v: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Cumulative max, forward or from the end (kernel B2, plain scan)."""
     if reverse:

@@ -17,7 +17,12 @@ Phases, each printing lines that start with its name:
    at rtol 1e-6, f64 at rtol 1e-12, and an f32-accumulating stand-in for the
    f64 add must fail that check); the segmented scan (B2) also on misaligned
    views and in a race check (ten repeats of two 2^27-row scans, bit for bit
-   alike), and timed at 2^27 rows on four calls; the split (B8) and the
+   alike), and timed at 2^27 rows on four calls; the radix sort (B3) also by
+   given bit positions with the number of passes it makes (bits 12-19 in
+   one), on keys that stress its look-back (the group-by's skew, one value in
+   99% of the rows, a descending arange, an all-equal key), on 8 planes, and
+   in a race check of its own (ten repeats of a 2^27-row sort by 31 bits and
+   of the skewed class sort); the split (B8) and the
    one-plane compaction (B9), which no operator calls, are also timed there
    at 2^27 rows;
 4. flagship: the flagship query (compare -> filter -> sort group-by) through
@@ -38,8 +43,8 @@ Phases, each printing lines that start with its name:
    values in [0, 200)) at 2^27 rows for each key distribution (1K, 1M,
    skewed and ~100M distinct keys): the route hash_aggregate's auto mode
    took, read from the launch counts (the dense-table kernel for 1K, the
-   radix sort and the region kernel for 1M and skew, the radix sort and the
-   segmented scans for ~100M), the answer against the
+   radix sort, in one pass, and the region kernel for 1M and skew, the radix
+   sort and the segmented scans for ~100M), the answer against the
    plain path and a numpy oracle (against the sort route for ~100M keys),
    peak device memory, each kernel call replayed against its plain version
    and timed; the query's time on auto's route against the sort route (at
@@ -90,6 +95,9 @@ B3_SIZES = (0, 1, 31, 8193, (1 << 20) + 17, 1 << 27)
 B3_WIDTHS = (1, 2, 8)
 B3_KEYS = ("int32", "uint32", "float32", "uint64", "int64")
 B3_DOMAINS = (2, 10_000, 1 << 32)
+B3_BITS_SIZES = ((1 << 20) + 17, 1 << 27)  # given bits, look-back stress, 8 planes
+B3_SHAPES = ("skew", "hot", "reversed")
+B3_RACE_REPEATS = 10
 B7_SIZES = (1, 31, 8193, (1 << 20) + 17, 1 << 27)
 B7_RUNS = (1, 7, 8192, "half")
 B5_DOMAINS = (1, 7, 1024, 4096)
@@ -102,6 +110,8 @@ GROUPBY_N = 1 << 27
 # kernels that the group-by query's auto route must launch, by key distribution
 GROUPBY_ROUTES = {"1k": ("groupby_dense",), "1m": ("radix_sort", "groupby_region"),
                   "skew": ("radix_sort", "groupby_region"), "100m": ("radix_sort", "segmented_scan")}
+# the partition route's class sort (bits 12-19) is one 8-bit pass
+GROUPBY_ONE_PASS = ("1m", "skew")
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's data-sheet memory rate
 CROSSOVER_SIZES = (1 << 24, 1 << 26, 1 << 27)
 # float adds differ from the plain ladder in summation order only
@@ -114,7 +124,7 @@ PROFILE_TOP = 8
 # the device functions of the hand-written kernels (arrow_tpu_torch/csrc)
 OWN_DEVICE_FUNCTIONS = ("tile_counts", "scan_tile_counts", "scatter_tiles",
                         "seg_lookback",
-                        "radix_histogram", "radix_scan_rows", "radix_scatter", "radix_or_and",
+                        "radix_histogram", "radix_scan_histogram", "radix_onesweep", "radix_or_and",
                         "merge_runs", "split_counts", "split_tiles", "dense_histogram",
                         "region_histogram")
 
@@ -430,8 +440,44 @@ def _b3_payloads(count, n, gen, device):
     return [make() for make in makers[:count]]
 
 
-def check_b3(device, gen):
-    """B3 at digit widths 1, 2 and 8 (2 is B4) against its plain version."""
+def _b3_shaped_key(shape, n, gen, device):
+    """An int32 key plane that stresses the look-back: "skew" is the group-by's
+    skewed distribution (a quarter of the rows in class 0), "hot" has one
+    value in 99% of the rows, "reversed" is a descending arange."""
+    import torch
+
+    if shape == "skew":
+        from arrow_tpu_torch import flagship
+
+        keys = flagship.make_groupby_columns(n, "skew", seed=0)["k"]
+        return torch.from_numpy(keys.view("int32")).to(device)
+    if shape == "hot":
+        cold = torch.randint(0, 1 << 31, (n,), generator=gen, device=device).to(torch.int32)
+        return torch.where(torch.rand(n, generator=gen, device=device) < 0.99,
+                           torch.full_like(cold, 0x00ABCDEF), cold)
+    return torch.arange(n - 1, -1, -1, dtype=torch.int32, device=device)
+
+
+def _b3_case(R, planes, bits, n, width, passes=None):
+    """One call of the kernel against its plain version: (all planes equal,
+    max abs err).  `passes`: the number of passes the kernel must make."""
+    import torch
+
+    counter = R.KERNEL_2BIT if width == 2 else R.KERNEL
+    counter.passes = 0
+    got = R.radix_sort(planes, bits, n, width)
+    made = counter.passes
+    want = R.radix_sort_plain(planes, bits, n, width)
+    torch.cuda.synchronize()
+    ok, err = _exact(got, want)
+    return ok and (passes is None or made == passes), err
+
+
+def check_b3(device, gen, smi):
+    """B3 at digit widths 1, 2 and 8 (2 is B4) against its plain version:
+    the significant bits of random keys; given bit positions; keys that
+    stress the look-back; 8 planes; a race check; the cost of the
+    significant-bits reduction."""
     import torch
 
     from arrow_tpu_torch.compute.kernels import radix as R
@@ -447,22 +493,106 @@ def check_b3(device, gen):
                     cases += 1
                     code = _b3_keys(key, n, domain, gen, device)
                     planes = [code, *_b3_payloads(1 + cases % (2 if full else 4), n, gen, device)]
-                    got = R.radix_sort(planes, 8 * code.element_size(), n, width)
-                    want = R.radix_sort_plain(planes, 8 * code.element_size(), n, width)
-                    torch.cuda.synchronize()
-                    ok = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
-                    if n:
-                        worst = max(worst, max(float((g.double() - w.double()).abs().max())
-                                               for g, w in zip(got, want)))
+                    ok, err = _b3_case(R, planes, 8 * code.element_size(), n, width)
+                    worst = max(worst, err)
                     if not ok:
                         failures.append(f"n={n} width={width} {key} domain={domain}")
-                    del planes, got, want
+                    del planes
         torch.cuda.empty_cache()
     print(f"kernels: radix_sort vs plain: {cases} cases (n in {list(B3_SIZES)}, digit widths "
           f"{list(B3_WIDTHS)} (2 is radix_sort_2bit), keys {list(B3_KEYS)} as sort codes, "
           f"key domains {list(B3_DOMAINS)}, 1-4 payload planes of 4 and 8 bytes), exact incl. "
           f"zero tail; max abs err {worst}; failures {failures}")
     require(not failures, "radix_sort disagrees with its plain version")
+
+    # given bit positions (the digits start where the bits do), keys that
+    # stress the look-back, and 8 planes of mixed widths
+    extra = 0
+    for n in B3_BITS_SIZES:
+        for width in B3_WIDTHS:
+            if n == B3_SIZES[-1] and width != 8:
+                continue
+            for key in ("uint32", "int64"):
+                top = 8 * (8 if key == "int64" else 4) - 1
+                for name, bits, passes in (("class bits", range(12, 20), {8: 1}), ("top bit", [top], {8: 1, 2: 1, 1: 1}),
+                                           ("scattered", [3, 17, 30], {8: 3, 1: 3})):
+                    extra += 1
+                    code = _b3_keys(key, n, 1 << 32, gen, device)
+                    planes = [code, *_b3_payloads(1 + extra % 3, n, gen, device)]
+                    ok, err = _b3_case(R, planes, bits, n, width, passes.get(width))
+                    worst = max(worst, err)
+                    if not ok:
+                        failures.append(f"bits {name}: n={n} width={width} {key}")
+                    del planes
+            for shape in B3_SHAPES:
+                extra += 1
+                planes = [_b3_shaped_key(shape, n, gen, device), *_b3_payloads(2, n, gen, device)]
+                ok, err = _b3_case(R, planes, range(12, 20) if shape == "skew" else 32, n, width,
+                                   1 if shape == "skew" and width == 8 else None)
+                worst = max(worst, err)
+                if not ok:
+                    failures.append(f"key shape {shape}: n={n} width={width}")
+                del planes
+            extra += 1
+            same = torch.full((n,), 0x01234567, dtype=torch.int32, device=device)
+            ok, err = _b3_case(R, [same, *_b3_payloads(1, n, gen, device)], 32, n, width, 0)
+            if not ok:
+                failures.append(f"all-equal key: n={n} width={width}")
+        torch.cuda.empty_cache()
+    n = B3_BITS_SIZES[0]
+    for key in ("uint32", "uint64"):
+        for width in B3_WIDTHS:
+            extra += 1
+            code = _b3_keys(key, n, 1 << 32, gen, device)
+            pay = _b3_payloads(4, n, gen, device)
+            planes = [code, *pay, pay[1].float(), pay[2] ^ 0x5555, pay[0] + 1]
+            require(len(planes) == R.MAX_PLANES, "the widest case is not MAX_PLANES planes")
+            ok, err = _b3_case(R, planes, 8 * code.element_size(), n, width)
+            worst = max(worst, err)
+            if not ok:
+                failures.append(f"8 planes: n={n} width={width} {key}")
+            del planes, pay
+    torch.cuda.empty_cache()
+    print(f"kernels: radix_sort vs plain: {extra} more cases (n in {list(B3_BITS_SIZES)}; given bits "
+          f"12-19 (one 8-bit pass), the top bit alone (the clamped digit), bits [3, 17, 30]; key shapes "
+          f"{list(B3_SHAPES)} and an all-equal key (no pass); 8 planes of 4 and 8 bytes at n={n}; "
+          f"widths {list(B3_WIDTHS)}, 8 only at n={B3_SIZES[-1]}), exact incl. zero tail and the number "
+          f"of passes; failures {failures}")
+    require(not failures, "radix_sort disagrees with its plain version")
+
+    # the race check: the look-back's order of publication varies from run to
+    # run; the sorted planes may not
+    n = B3_SIZES[-1]
+    race = {}
+    for name, key, bits in (
+        ("31 bits", torch.randint(0, 1 << 31, (n,), generator=gen, device=device).to(torch.int32), 32),
+        ("skew class sort", _b3_shaped_key("skew", n, gen, device), range(12, 20)),
+    ):
+        planes = [key, torch.arange(n, dtype=torch.int32, device=device)]
+        want = R.radix_sort_plain(planes, bits, n, 8)
+        first = R.radix_sort(planes, bits, n, 8)
+        torch.cuda.synchronize()
+        same = _exact(first, want)[0]
+        for _ in range(B3_RACE_REPEATS - 1):
+            again = R.radix_sort(planes, bits, n, 8)
+            torch.cuda.synchronize()
+            same &= _exact(again, first)[0]
+            del again
+        race[name] = same
+        del planes, want, first, key
+        torch.cuda.empty_cache()
+    print(f"kernels: radix_sort race check: {B3_RACE_REPEATS} repeats each of a 2-plane sort at n={n} by 31 "
+          f"significant bits (4 passes) and of the skewed keys' class sort (bits 12-19, 1 pass): each "
+          f"equal bit for bit to the first repeat and to the plain version: {race}")
+    require(all(race.values()), f"radix_sort differs between repeats or from plain: {race}")
+
+    key = torch.randint(0, 1 << 31, (n,), generator=gen, device=device).to(torch.int32)
+    or_and_ms = cuda_ms(lambda: R.significant_mask_cuda(key, n), CALLS_PER_SAMPLE)
+    print(f"kernels: radix_sort's significant-bits reduction (radix_or_and, its own read of the key and "
+          f"one host sync) at n={n}, 4-byte keys: {or_and_ms:.3f} ms a call, bound "
+          f"{4 * n / HBM_BYTES_PER_S * 1e3:.4f} ms ({smi})")
+    del key
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -703,7 +833,7 @@ def phase_kernels(smi):
     torch.cuda.empty_cache()
     errs["segmented_scan"] = check_b2(device, gen, smi)
     torch.cuda.empty_cache()
-    errs["radix_sort"] = errs["radix_sort_2bit"] = check_b3(device, gen)
+    errs["radix_sort"] = errs["radix_sort_2bit"] = check_b3(device, gen, smi)
     errs["merge_pass"] = check_b7(device, gen)
     torch.cuda.empty_cache()
     errs["groupby_dense"] = check_b5(device, gen)
@@ -839,8 +969,11 @@ def measure_call(name, args):
     Returns (its Measured, a description of the call)."""
     import torch
 
-    _mod, kernel, plain = _functions(name)
-    got, want = kernel(*args), plain(*args)
+    mod, kernel, plain = _functions(name)
+    want = plain(*args)
+    if name.startswith("radix_sort"):
+        mod.KERNEL.passes = mod.KERNEL_2BIT.passes = 0  # _describe reads the kernel call's passes
+    got = kernel(*args)
     torch.cuda.synchronize()
     ok, got_t, want_t, what = _describe(name, args, got, want)
     err = max((float((g.double() - w.double()).abs().max()) for g, w in zip(got_t, want_t) if g.numel()),
@@ -890,6 +1023,8 @@ def _describe(name, args, got, want):
     """(matches, outputs to measure the error on, a description of the call)."""
     import torch
 
+    from arrow_tpu_torch.compute.kernels import radix as R
+
     def dtypes(ts):
         return [str(t.dtype)[6:] for t in ts]
 
@@ -921,7 +1056,10 @@ def _describe(name, args, got, want):
     if name.startswith("radix_sort"):
         planes, bits, n, width = args
         n = planes[0].shape[0] if n is None else n
-        return ok, got, want, f"{len(planes)} planes {dtypes(planes)}, n={n}, {width}-bit digits"
+        by = f"its significant bits of {bits}" if isinstance(bits, int) else f"bits {list(bits)}"
+        made = (R.KERNEL_2BIT if width == 2 else R.KERNEL).passes
+        return ok, got, want, (f"{len(planes)} planes {dtypes(planes)}, n={n}, by {by}, {width}-bit digits, "
+                               f"{made} passes")
     if name == "groupby_dense":
         keys, _vals, nlimb, length = args
         return ok, got, want, f"n={keys.shape[0]}, length={length}, {nlimb} limbs, {int(got[0].sum())} rows counted"
@@ -1130,8 +1268,8 @@ def phase_sort_join(smi):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     kept, groups, joined, (sk, sv) = out
     print(f"sort_join n={n}: {kept.num_rows} rows kept, {groups.num_rows} groups, "
-          f"{joined.num_rows} joined rows; launches during the query {launches}; peak device "
-          f"memory {peak_gib:.2f} GiB")
+          f"{joined.num_rows} joined rows; launches during the query {launches}; radix_sort passes "
+          f"{_build.KERNELS['radix_sort'].passes}; peak device memory {peak_gib:.2f} GiB")
     for name in ("compact_multi", "segmented_scan", "radix_sort", "merge_pass"):
         require(launches[name] > 0, f"{name} was not launched by the sort-join query: {launches}")
     check_sort_join("sort_join", out, oracle, want_rows)
@@ -1255,10 +1393,14 @@ def phase_groupby(smi):
         out = flagship.groupby_query(batch)
         torch.cuda.synchronize()
         launches = {name: k.launches for name, k in _build.KERNELS.items()}
+        passes = _build.KERNELS["radix_sort"].passes
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         route = _route(launches)
         print(f"{label} n={n}: {out.num_rows} groups on the {route} route; launches during the query "
-              f"{launches}; peak device memory {peak_gib:.2f} GiB ({base_gib:.2f} GiB of it the batch)")
+              f"{launches}; radix_sort passes {passes}; peak device memory {peak_gib:.2f} GiB "
+              f"({base_gib:.2f} GiB of it the batch)")
+        if dist in GROUPBY_ONE_PASS:
+            require(passes == 1, f"{label}: the class sort took {passes} passes, not 1")
         for kernel in GROUPBY_ROUTES.get(dist, ()):
             require(launches[kernel] >= 1, f"{label}: {kernel} was not launched: {launches}")
         for name, count in launches.items():

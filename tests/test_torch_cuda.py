@@ -288,6 +288,85 @@ def test_radix_sort_kernel_prefix_and_bits(cuda):
             assert not got[0][n - 100 :].any()
 
 
+@pytest.mark.parametrize("digit_bits", [1, 2, 8])
+@pytest.mark.parametrize("name,key_bits,bits,passes", [
+    ("class bits", 32, list(range(12, 20)), 1), ("bit 31", 32, [31], 1), ("bit 63", 64, [63], 1),
+    ("scattered", 32, [3, 17, 30], 3), ("straddling 32", 64, [30, 31, 32, 33], 1), ("none", 32, [], 0),
+])
+def test_radix_sort_kernel_by_given_bits(cuda, name, key_bits, bits, passes, digit_bits):
+    """Digits aligned to the bits sorted by: bits 12-19 are one 8-bit pass,
+    a top bit takes the clamped digit."""
+    rng = np.random.default_rng(len(name) + digit_bits)
+    n = (1 << 16) + 17
+    planes = _radix_planes(rng, n, key_bits, 2**32, 3)
+    if key_bits == 64:  # random low halves too
+        planes[0] = planes[0] ^ torch.from_numpy(rng.integers(0, 2**32, n))
+    counter = R.KERNEL_2BIT if digit_bits == 2 else R.KERNEL
+    counter.passes = 0
+    got = R.radix_sort([p.to(cuda) for p in planes], bits, n - 5, digit_bits)
+    torch.cuda.synchronize()
+    if digit_bits == 8:
+        assert counter.passes == passes
+    want = R.radix_sort_plain(planes, bits, n - 5, digit_bits)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    mask = sum(1 << b for b in bits)
+    raw = planes[0].numpy().view(np.uint64 if key_bits == 64 else np.uint32)[: n - 5].astype(np.uint64)
+    np.testing.assert_array_equal(got[1].cpu().numpy()[: n - 5], np.argsort(raw & np.uint64(mask), kind="stable"))
+
+
+@pytest.mark.parametrize("shape", ["hot", "all equal", "reversed", "skew"])
+def test_radix_sort_kernel_look_back_stress(cuda, shape):
+    """Keys that stress the look-back: one digit value in 99% of the rows, an
+    all-equal key (no pass), a descending arange, the group-by's skew."""
+    rng = np.random.default_rng(len(shape))
+    n = (1 << 20) + 17
+    if shape == "hot":
+        k = np.where(rng.random(n) < 0.99, 0x00ABCDEF, rng.integers(0, 2**31, n)).astype(np.int32)
+    elif shape == "all equal":
+        k = np.full(n, 0x01234567, np.int32)
+    elif shape == "reversed":
+        k = np.arange(n - 1, -1, -1, dtype=np.int32)
+    else:
+        k = (rng.random(n) ** 4 * (1 << 20)).astype(np.int32)
+    planes = [torch.from_numpy(k), torch.arange(n, dtype=torch.int32)]
+    bits = list(range(12, 20)) if shape == "skew" else 32
+    R.KERNEL.passes = 0
+    got = R.radix_sort([p.to(cuda) for p in planes], bits, n)
+    torch.cuda.synchronize()
+    if shape in ("all equal", "skew"):
+        assert R.KERNEL.passes == (0 if shape == "all equal" else 1)
+    for g, w in zip(got, R.radix_sort_plain(planes, bits, n)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("digit_bits", [1, 2, 8])
+@pytest.mark.parametrize("key_bits", [32, 64])
+def test_radix_sort_kernel_eight_planes(cuda, key_bits, digit_bits):
+    rng = np.random.default_rng(key_bits + digit_bits)
+    n = (1 << 16) + 17
+    key, *pays = _radix_planes(rng, n, key_bits, 2**32, 4)
+    planes = [key, *pays, pays[1].float(), pays[2] ^ 0x5555, pays[0] + 1]
+    assert len(planes) == R.MAX_PLANES
+    got = R.radix_sort([p.to(cuda) for p in planes], key_bits, n, digit_bits)
+    for g, w in zip(got, R.radix_sort_plain(planes, key_bits, n, digit_bits)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_partition_route_class_sort_is_one_pass_on_cuda(cuda):
+    from arrow_tpu_torch import flagship
+
+    batch = flagship.make_groupby_batch(1 << 18, "1m", 0, cuda)
+    R.KERNEL.passes = 0
+    out = flagship.groupby_query(batch)
+    torch.cuda.synchronize()
+    assert R.KERNEL.passes == 1
+    with plain_versions():
+        plain = flagship.groupby_query(batch)
+    for name in out.column_names:
+        assert torch.equal(out[name].data, plain[name].data)
+
+
 # ---------------------------------------------------------------- kernel B7
 
 

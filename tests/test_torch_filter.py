@@ -2,6 +2,8 @@
 record batches with nullable 32-bit, 64-bit, narrow and bool columns, a
 nullable mask, both routes; exact, with zero tails."""
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -77,6 +79,43 @@ def test_single_array_filter_matches_jax(n):
     assert_same(JC.filter(bools, jm), TC.filter(jax_to_torch(bools), jax_to_torch(jm)))
 
 
+@pytest.mark.parametrize("form", ["array", "nullable array", "batch"])
+def test_method_pallas_names_the_kernel_route(form, monkeypatch):
+    """method="pallas", the JAX package's name for its hand-kernel route, is
+    the port's kernel B1 route; same rows as the JAX package's (whose kernel
+    runs interpreted on the CPU, on its 8192-row-padded buffers)."""
+    n = 8192
+    rng = np.random.default_rng(n)
+    a = at.Int32Array.from_slice(np.arange(n, dtype=np.int32))
+    if form == "array":
+        jm = at.kernels.gt_scalar(a, 100)
+        want = JC.filter(a, jm, method="pallas")
+        assert len(want) == 8091
+        got = TC.filter(jax_to_torch(a), jax_to_torch(jm), method="pallas")
+        assert_same(want, got)
+        return
+    nullable = at.Float32Array.from_optional_slice(
+        _optional(rng.standard_normal(n).astype(np.float32), rng.random(n) < 0.7)
+    )
+    jm = _mask(rng, n, 0.5, nullable=True)
+    calls = []
+    real = C3.compact_multi
+    # the module, which the function of the same name shadows on the package
+    monkeypatch.setattr(sys.modules["arrow_tpu_torch.compute.filter"], "compact_multi",
+                        lambda *args: calls.append(1) or real(*args))
+    if form == "nullable array":
+        assert_same(JC.filter(nullable, jm, method="pallas"),
+                    TC.filter(jax_to_torch(nullable), jax_to_torch(jm), method="pallas"))
+    else:
+        jb = JBatch({"a": a, "f": nullable})
+        want = JC.filter(jb, jm, method="pallas")
+        got = TC.filter(batch_to_torch(jb), jax_to_torch(jm), method="pallas")
+        assert got.num_rows == want.num_rows
+        for name in want.column_names:
+            assert_same(want[name], got[name])
+    assert calls, "method='pallas' did not go through compact_multi"
+
+
 def test_filter_indices_matches_jax():
     rng = np.random.default_rng(3)
     jm = _mask(rng, 3000, 0.3, nullable=True)
@@ -93,7 +132,7 @@ def test_filter_errors():
     with pytest.raises(att.OperationNotSupported):
         TC.filter(a, att.BooleanArray.from_slice([True], device="cpu"))
     with pytest.raises(att.OperationNotSupported):
-        TC.filter(a, m, method="pallas")
+        TC.filter(a, m, method="no-such-route")
 
 
 def test_batch_with_many_columns_takes_several_launch_groups():

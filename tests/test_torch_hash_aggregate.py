@@ -171,3 +171,22 @@ def test_radix_route_ineligible_falls_back(case, monkeypatch):
     _check(want, TC.hash_aggregate(tk, taggs))
     with pytest.raises(att.OperationNotSupported, match="radix groupby requires"):
         TC.hash_aggregate(tk, taggs, method="radix")
+
+
+@pytest.mark.parametrize("route", ["auto", "mxu", "partition", "radix", "sort"])
+def test_zero_rows_give_zero_groups(route, monkeypatch):
+    """A 0-row group-by returns 0 groups on every route (the JAX package
+    raises there: its range check reduces an empty array).  The partition
+    route is told its key domain, since no key says it; the radix route is
+    forced onto the CPU."""
+    keys = att.UInt32Array.from_slice(np.zeros(0, np.uint32), device="cpu")
+    vals = att.Int32Array.from_slice(np.zeros(0, np.int32), device="cpu")
+    kwargs = {"key_domain": (0, 1 << 20)} if route == "partition" else {}
+    if route == "radix":
+        monkeypatch.setenv("ARROW_TPU_FORCE_RADIX_AGG", "1")
+    out = TC.hash_aggregate(keys, [("s", vals, "sum"), ("c", vals, "count"), ("n", None, "count")],
+                            method=route, **kwargs)
+    assert out.num_rows == 0 and out.column_names == ["key", "s", "c", "n"]
+    assert out.to_pydict() == {"key": [], "s": [], "c": [], "n": []}
+    for name in out.column_names:
+        assert not out[name].data.any()
