@@ -15,6 +15,7 @@ CUDA device; they never fall back from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -78,10 +79,33 @@ def compact_multi_plain(
     return vouts, wouts, sel.sum(dtype=torch.int32)
 
 
-def _tile_scratch(lib, n: int, device) -> torch.Tensor:
-    """The per-tile scratch ``arrow_compact_multi`` and ``arrow_split_multi`` take."""
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of csrc/compaction3.cu) with its C entries' argument
+    and result types set."""
     lib.arrow_compact_scratch_bytes.argtypes = [ctypes.c_longlong]
     lib.arrow_compact_scratch_bytes.restype = ctypes.c_longlong
+    void_pp = ctypes.POINTER(ctypes.c_void_p)
+    lib.arrow_compact_multi.argtypes = [
+        void_pp, void_pp, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.arrow_compact_multi.restype = ctypes.c_int
+    lib.arrow_split_multi.argtypes = [
+        void_pp, void_pp, void_pp, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.arrow_split_multi.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    """The kernel library, declared once."""
+    return declare(_build.load().cdll)
+
+
+def _scratch(lib: ctypes.CDLL, n: int, device) -> torch.Tensor:
+    """The ticket and look-back descriptors that both C entries take."""
     return torch.empty(lib.arrow_compact_scratch_bytes(n), dtype=torch.uint8, device=device)
 
 
@@ -134,20 +158,12 @@ def launch_compact(
         outs.append(o.data_ptr())
         kinds.append(_KIND_WORDS)
         wouts.append(o)
-    lib = _build.load().cdll
-    scratch = _tile_scratch(lib, n, device)
+    lib = _lib()
+    scratch = _scratch(lib, n, device)
     count = torch.empty((), dtype=torch.int32, device=device)
-
-    fn = lib.arrow_compact_multi
-    fn.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
     k = len(kinds)
     with torch.cuda.device(device):
-        err = fn(
+        err = lib.arrow_compact_multi(
             (ctypes.c_void_p * k)(*ins), (ctypes.c_void_p * k)(*outs),
             (ctypes.c_int * k)(*kinds), k, mask_words.data_ptr(), n,
             scratch.data_ptr(), count.data_ptr(), _build.stream_of(mask_words),
@@ -253,23 +269,16 @@ def split_multi_cuda(
         raise ValueError("split_multi_cuda needs CUDA tensors")
     sel = [torch.empty_like(p) for p in vplanes]
     unsel = [torch.empty_like(p) for p in vplanes]
-    lib = _build.load().cdll
-    scratch = _tile_scratch(lib, n, device)
+    lib = _lib()
+    scratch = _scratch(lib, n, device)
     count = torch.empty((), dtype=torch.int32, device=device)
-    fn = lib.arrow_split_multi
-    fn.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
     k = len(vplanes)
 
     def ptrs(ts):
         return (ctypes.c_void_p * k)(*[t.data_ptr() for t in ts])
 
     with torch.cuda.device(device):
-        err = fn(
+        err = lib.arrow_split_multi(
             ptrs(vplanes), ptrs(sel), ptrs(unsel), k,
             None if mask_words is None else mask_words.data_ptr(), 0 if bit is None else bit, n,
             scratch.data_ptr(), count.data_ptr(), _build.stream_of(vplanes[0]),

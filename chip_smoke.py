@@ -51,8 +51,10 @@ Phases, each printing lines that start with its name:
    ~100M keys, 31 significant bits, that is the radix route against the sort
    route, which sets auto's choice between them), and on the plain path;
 7. profile: each query at each size under torch.profiler: device busy time,
-   the device's idle share of the query's wall time, and the device ops that
-   take the most time.
+   the device's idle share of the query's wall time (also without the idle
+   time spent in the profiler's own buffer requests), the device ops that
+   take the most time, the CUDA runtime calls that take the most host time,
+   and the longest idle gaps with the host events inside them.
 
 A replayed or timed kernel call is timed (CUDA events, the median of 5
 samples of 4 back-to-back calls, per call, in turns with its plain version)
@@ -83,8 +85,17 @@ import time
 
 HERE = pathlib.Path(__file__).resolve().parent
 FLAGSHIP_SIZES = (1 << 20, 1 << 27)
-B1_SIZES = (0, 1, 31, 8193, (1 << 20) + 17, 1 << 27)
-B1_PATTERNS = ("0", "0.01", "0.5", "0.99", "1", "every32")
+# B1's tiles are four parts: 32768 rows (8192 a part) of 4-byte planes,
+# 16384 (4096 a part) where a plane is 8 bytes wide
+B1_TILES = (16384, 32768)
+B1_SIZES = (0, 1, 31, 4095, 4096, 4097, 8191, 8192, 8193, 16383, 16384, 16385, 32767, 32768, 32769,
+            5 * 32768 + 3, (1 << 20) + 17, 1 << 27)
+# random masks of a selectivity, and patterns that stress the tile edges:
+# only the first row, only the last, every other row, the second 8192-row
+# block alone
+B1_PATTERNS = ("0", "0.01", "0.5", "0.99", "1", "every32", "first", "last", "alternate", "block")
+B1_MISALIGNED_N = (8193, (1 << 20) + 17)
+B1_RACE_REPEATS = 10
 B2_SIZES = (1, 8193, (1 << 20) + 17, 1 << 27)
 B2_FLAGS = {"none": 0.0, "sparse": 0.001, "dense": 0.3}
 B2_TYPES = ("int32", "uint32", "float32", "int64", "uint64", "float64")
@@ -103,7 +114,7 @@ B7_RUNS = (1, 7, 8192, "half")
 B5_DOMAINS = (1, 7, 1024, 4096)
 B6_CLASSES = (1, 2, 256, 1024)
 B6_ORDERS = ("skew", "unsorted", "grouped")
-B8_FORMS = ("0", "0.01", "0.5", "0.99", "1", "bit0", "bit31")
+B8_FORMS = ("0", "0.01", "0.5", "0.99", "1", "first", "last", "alternate", "block", "bit0", "bit31")
 TIMED_N = 1 << 27  # where B8 and B9 are timed
 SORT_JOIN_N = 1 << 27
 GROUPBY_N = 1 << 27
@@ -121,12 +132,11 @@ REPS = 5
 # wrapper's host work overlaps the device work of the call before it
 CALLS_PER_SAMPLE = 4
 PROFILE_TOP = 8
+PROFILE_GAPS = 4  # the longest device-idle gaps of a profiled query, printed
 # the device functions of the hand-written kernels (arrow_tpu_torch/csrc)
-OWN_DEVICE_FUNCTIONS = ("tile_counts", "scan_tile_counts", "scatter_tiles",
-                        "seg_lookback",
+OWN_DEVICE_FUNCTIONS = ("compact_pass", "seg_lookback",
                         "radix_histogram", "radix_scan_histogram", "radix_onesweep", "radix_or_and",
-                        "merge_runs", "split_counts", "split_tiles", "dense_histogram",
-                        "region_histogram")
+                        "merge_runs", "dense_histogram", "region_histogram")
 
 
 class PhaseFailed(RuntimeError):
@@ -216,43 +226,136 @@ def phase_build():
 def _rand_mask(n, pattern, gen, device):
     import torch
 
-    if pattern == "every32":
-        return torch.arange(n, device=device) % 32 == 0
+    rows = torch.arange(n, device=device)
+    shaped = {"every32": lambda: rows % 32 == 0, "first": lambda: rows == 0, "last": lambda: rows == n - 1,
+              "alternate": lambda: rows % 2 == 0, "block": lambda: (rows >= 8192) & (rows < 16384)}
+    if pattern in shaped:
+        return shaped[pattern]()
     return torch.rand(n, generator=gen, device=device) < float(pattern)
 
 
+def _b1_planes(kind, n, gen, device, offset=0):
+    """(value planes, bitmap planes) of a B1 case: "4-byte" (two 4-byte
+    planes: 8192-row tiles), "mixed" (4- and 8-byte planes and a bitmap plane:
+    4096-row tiles) or "16 planes" (4-, 8-byte and bitmap planes mixed).
+    With `offset`, each plane is a view that starts `offset` rows (bitmap
+    planes: words) into a larger tensor."""
+    import torch
+
+    from arrow_tpu_torch.utils import bits as B
+
+    def i32():
+        return torch.randint(-(2**31), 2**31, (n + offset,), dtype=torch.int32, generator=gen, device=device)
+
+    def f32():
+        return torch.randn(n + offset, generator=gen, device=device)
+
+    def i64():
+        return torch.randint(-(2**62), 2**62, (n + offset,), generator=gen, device=device)
+
+    def f64():
+        return torch.randn(n + offset, dtype=torch.float64, generator=gen, device=device)
+
+    def bitmap():
+        return B.pack_bits(torch.rand(n + 32 * offset, generator=gen, device=device) < 0.5)
+
+    makers = {"4-byte": ((i32, f32), ()), "mixed": ((i32, f64), (bitmap,)),
+              "16 planes": ((i32, i64, f32, f64, i32, i64, f32, f64, i32, i64, f32, f64), (bitmap,) * 4)}[kind]
+    return ([m()[offset:] for m in makers[0]], [m()[offset:] for m in makers[1]])
+
+
+def _b1_case(C3, vplanes, wplanes, mask, n):
+    """One B1 call against its plain version: (exact incl. zero tail and
+    count, max abs err)."""
+    import torch
+
+    kv, kw, kc = C3.compact_multi(vplanes, wplanes, mask, n)
+    pv, pw, pc = C3.compact_multi_plain(vplanes, wplanes, mask, n)
+    torch.cuda.synchronize()
+    ok, err = _exact(kv + kw, pv + pw)
+    return ok and int(kc) == int(pc), err
+
+
 def check_b1(device, gen):
+    """B1 over lengths at and around its tile sizes, random and shaped masks
+    and two plane sets; 16 mixed planes; views one row in; a race check."""
     import torch
 
     from arrow_tpu_torch.compute.kernels import compaction3 as C3
     from arrow_tpu_torch.utils import bits as B
 
-    worst = 0.0
-    failures = []
+    worst, cases, failures = 0.0, 0, []
     for n in B1_SIZES:
-        planes = [
-            torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, generator=gen, device=device),
-            torch.randn(n, dtype=torch.float64, generator=gen, device=device),
-        ]
-        words = [B.pack_bits(torch.rand(n, generator=gen, device=device) < 0.5)]
-        for pattern in B1_PATTERNS:
-            mask = B.pack_bits(_rand_mask(n, pattern, gen, device))
-            kv, kw, kc = C3.compact_multi(planes, words, mask, n)
-            pv, pw, pc = C3.compact_multi_plain(planes, words, mask, n)
-            torch.cuda.synchronize()
-            ok = int(kc) == int(pc)
-            for k, p in zip(kv + kw, pv + pw):
-                ok &= bool(torch.equal(k, p))
-                if n:
-                    worst = max(worst, float((k.double() - p.double()).abs().max()))
+        for kind in ("4-byte", "mixed"):
+            vplanes, wplanes = _b1_planes(kind, n, gen, device)
+            for pattern in B1_PATTERNS:
+                cases += 1
+                ok, err = _b1_case(C3, vplanes, wplanes, B.pack_bits(_rand_mask(n, pattern, gen, device)), n)
+                worst = max(worst, err)
+                if not ok:
+                    failures.append(f"n={n} {kind} mask={pattern}")
+            del vplanes, wplanes
+        torch.cuda.empty_cache()
+    for n in (*B1_TILES, B1_MISALIGNED_N[-1]):
+        vplanes, wplanes = _b1_planes("16 planes", n, gen, device)
+        require(len(vplanes) + len(wplanes) == C3.MAX_PLANES, "the widest case is not MAX_PLANES planes")
+        for pattern in ("0.5", "first", "last", "alternate"):
+            cases += 1
+            ok, err = _b1_case(C3, vplanes, wplanes, B.pack_bits(_rand_mask(n, pattern, gen, device)), n)
+            worst = max(worst, err)
             if not ok:
-                failures.append(f"n={n} mask={pattern} count {int(kc)} vs {int(pc)}")
-        del planes, words
-    print(f"kernels: compact_multi vs plain: {len(B1_SIZES) * len(B1_PATTERNS)} cases "
-          f"(n in {list(B1_SIZES)}, masks {list(B1_PATTERNS)}, 4- and 8-byte value planes + a "
-          f"bitmap plane), exact incl. zero tail; max abs err {worst}; failures {failures}")
+                failures.append(f"16 planes n={n} mask={pattern}")
+    for n in B1_MISALIGNED_N:  # views one row (bitmaps and mask: one word) in
+        for kind in ("4-byte", "mixed", "16 planes"):
+            vplanes, wplanes = _b1_planes(kind, n, gen, device, offset=1)
+            require(all(p.data_ptr() % 16 for p in vplanes + wplanes), "the views are aligned")
+            for pattern in ("0.5", "first", "last", "alternate", "block"):
+                cases += 1
+                mask = torch.cat([torch.zeros(1, dtype=torch.int32, device=device),
+                                  B.pack_bits(_rand_mask(n, pattern, gen, device))])[1:]
+                ok, err = _b1_case(C3, vplanes, wplanes, mask, n)
+                worst = max(worst, err)
+                if not ok:
+                    failures.append(f"misaligned n={n} {kind} mask={pattern}")
+            del vplanes, wplanes
+    print(f"kernels: compact_multi vs plain: {cases} cases (n in {list(B1_SIZES)}, masks {list(B1_PATTERNS)}, "
+          f"two 4-byte planes or 4- and 8-byte value planes + a bitmap plane; {C3.MAX_PLANES} mixed planes at n in "
+          f"{[*B1_TILES, B1_MISALIGNED_N[-1]]}; views one row in, mask and bitmaps one word in, at n in "
+          f"{list(B1_MISALIGNED_N)}), exact incl. zero tail and count; max abs err {worst}; failures {failures}")
     require(not failures, "compact_multi disagrees with its plain version")
+
+    # the race check: the look-back's order of publication varies from run to
+    # run; the output may not
+    n = B1_SIZES[-1]
+    planes = [torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, generator=gen, device=device),
+              torch.randn(n, generator=gen, device=device), torch.arange(n, dtype=torch.int32, device=device)]
+    mask = B.pack_bits(_rand_mask(n, "0.5", gen, device))
+    race = {}
+    for name, run in (("compact_multi", lambda: C3.compact_multi(planes, [], mask, n)),
+                      ("split_multi", lambda: C3.split_multi(planes, mask))):
+        first = run()
+        same = True
+        for _ in range(B1_RACE_REPEATS - 1):
+            again = run()
+            torch.cuda.synchronize()
+            same &= _exact(_flat(again), _flat(first))[0]
+            del again
+        want = (C3.compact_multi_plain(planes, [], mask, n) if name == "compact_multi"
+                else C3.split_multi_plain(planes, mask))
+        race[name] = same and _exact(_flat(first), _flat(want))[0]
+        del first, want
+    print(f"kernels: compact_multi and split_multi race check: {B1_RACE_REPEATS} repeats each of a 3-plane "
+          f"compaction and a 3-plane split by a 0.5 mask at n={n}: each equal bit for bit to the first repeat "
+          f"and to the plain version, count included: {race}")
+    require(all(race.values()), f"compaction or split differs between repeats or from plain: {race}")
+    del planes, mask
+    torch.cuda.empty_cache()
     return worst
+
+
+def _flat(result):
+    """A compaction's or split's outputs and count as one tuple of tensors."""
+    return (*result[0], *result[1], result[2].reshape(1))
 
 
 def _b2_values(name, n, gen, device):
@@ -737,21 +840,26 @@ def check_b6(device, gen):
     return worst
 
 
-def _split_args(n, form, gen, device):
+def _split_args(n, form, gen, device, offset=0):
     """Three 4-byte planes and the selection of `form`: a mask of that
-    selectivity, or "bitK" (the rows whose plane-0 bit K is zero)."""
+    selectivity or shape, or "bitK" (the rows whose plane-0 bit K is zero).
+    With `offset`, the planes and the mask are views that start `offset` rows
+    (the mask: words) into larger tensors."""
     import torch
 
     from arrow_tpu_torch.utils import bits as B
 
     planes = [
-        torch.randint(-(2**31), 2**31, (n,), generator=gen, device=device).to(torch.int32),
-        torch.randn(n, generator=gen, device=device),
-        torch.arange(n, dtype=torch.int32, device=device),
+        torch.randint(-(2**31), 2**31, (n + offset,), generator=gen, device=device).to(torch.int32),
+        torch.randn(n + offset, generator=gen, device=device),
+        torch.arange(n + offset, dtype=torch.int32, device=device),
     ]
+    planes = [p[offset:] for p in planes]
     if form.startswith("bit"):
         return planes, None, int(form[3:])
-    return planes, B.pack_bits(_rand_mask(n, form, gen, device)), None
+    mask = B.pack_bits(_rand_mask(n, form, gen, device))
+    lead = torch.zeros(offset, dtype=torch.int32, device=device)
+    return planes, torch.cat([lead, mask])[offset:], None
 
 
 def check_b8(device, gen, smi):
@@ -775,9 +883,21 @@ def check_b8(device, gen, smi):
                 failures.append(f"n={n} form={form}")
             del args, got, want
         torch.cuda.empty_cache()
+    n = B1_MISALIGNED_N[-1]  # views one row (the mask one word) in
+    for form in ("0.5", "alternate", "bit0"):
+        cases += 1
+        planes, mask, bit = _split_args(n, form, gen, device, offset=1)
+        require(all(p.data_ptr() % 16 for p in planes), "the views are aligned")
+        got, want = C3.split_multi(planes, mask, bit), C3.split_multi_plain(planes, mask, bit)
+        torch.cuda.synchronize()
+        ok, err = _exact(_flat(got), _flat(want))
+        worst = max(worst, err)
+        if not ok:
+            failures.append(f"misaligned n={n} form={form}")
+        del planes, mask, got, want
     print(f"kernels: split_multi vs plain: {cases} cases (n in {list(B1_SIZES)}, selections "
-          f"{list(B8_FORMS)}, three 4-byte planes), exact incl. both zero tails; max abs err {worst}; "
-          f"failures {failures}")
+          f"{list(B8_FORMS)}, three 4-byte planes; views one row in at n={n}), exact incl. both zero tails "
+          f"and the count; max abs err {worst}; failures {failures}")
     require(not failures, "split_multi disagrees with its plain version")
     timed = {}
     for form in ("0.5", "bit0"):
@@ -985,7 +1105,33 @@ def measure_call(name, args):
     library_ms = cuda_ms(lib, CALLS_PER_SAMPLE) if lib is not None else None
     del lib
     bound_ms = call_bytes(name, args) / HBM_BYTES_PER_S * 1e3
+    if name in ("compact_multi", "compact"):
+        what += f"; {sector_shares(name, args)}"
     return Measured(err, ms, plain_ms, library_ms, bound_ms), what
+
+
+def sector_shares(name, args) -> str:
+    """The share of each value plane's 32-byte sectors (of the first n rows)
+    that hold a selected row: a compaction must fetch those, whatever its
+    bound counts.  Bitmap planes are read whole."""
+    import torch
+
+    from arrow_tpu_torch.utils import bits as B
+
+    vplanes, wplanes, mask, n = args if name == "compact_multi" else ([args[0]], [], args[1], None)
+    n = n if n is not None else (vplanes[0].shape[0] if vplanes else mask.shape[0] * 32)
+    sel = B.unpack_bits(mask[: B.num_words(n)], n)
+    shares = []
+    for p in vplanes:
+        per = 32 // p.element_size()  # rows a sector
+        lead = (p.data_ptr() % 32) // p.element_size()  # rows of the first sector before row 0
+        padded = torch.zeros(lead + n + per, dtype=torch.bool, device=sel.device)
+        padded[lead:lead + n] = sel
+        sectors = (lead + n + per - 1) // per
+        shares.append(f"{float(padded[:sectors * per].view(sectors, per).any(1).float().mean()):.4f}"
+                      if n else "-")
+    bitmaps = f" (and {len(wplanes)} bitmap planes, read whole)" if wplanes else ""
+    return f"32-byte sectors holding a selected row, by value plane: {', '.join(shares)}{bitmaps}"
 
 
 def _kernel_module(name):
@@ -1133,6 +1279,14 @@ def _run_flagship(n, smi):
     print(f"flagship n={n}: matches the plain path (keys, counts exact; sums max rel err "
           f"{rel_plain:.3g} <= 1e-6) and numpy (rows, keys, counts exact; sums max rel err "
           f"{rel_np:.3g} <= 1e-5)")
+
+    if n == FLAGSHIP_SIZES[-1]:
+        with recorded_calls() as calls:  # the query once more, its kernel calls kept for replay
+            flagship.flagship_query(batch)
+            torch.cuda.synchronize()
+        replay_calls(calls, smi, f"flagship n={n}")
+        del calls
+        torch.cuda.empty_cache()
 
     steps = {}
     mask = flagship.compare_step(batch)
@@ -1445,14 +1599,107 @@ def phase_groupby(smi):
     return launches_all, measured
 
 
-def phase_profile(smi):
-    """Each query at each size under torch.profiler.  Device busy time is the union
-    of the device's kernel, copy and set intervals inside the query's host
-    interval (the query and a synchronize); the idle share is the rest of that
-    interval.  The profiler's own host overhead lengthens the interval, so the
-    idle share of a profiled query is an upper bound."""
+def idle_gaps(device, t0, t1):
+    """The stretches [start, end) of [t0, t1) that no device interval covers
+    (device: (start, end, name) sorted by start)."""
+    gaps, cur = [], t0
+    for s, e, _ in device:
+        if s > cur:
+            gaps.append((cur, s))
+        cur = max(cur, e)
+    if t1 > cur:
+        gaps.append((cur, t1))
+    return gaps
+
+
+def _overlap(a0, a1, b0, b1):
+    return min(a1, b1) - max(a0, b0)
+
+
+def profile_query(label, n, query, batch, smi):
+    """One run of query(batch) under torch.profiler, after a warm-up run.
+    Device busy time is the union of the device's kernel, copy and set
+    intervals inside the query's host interval (the query and a
+    synchronize); the idle share is the rest of that interval.  The
+    profiler's own host overhead lengthens the interval, so the idle share
+    of a profiled query is an upper bound; the idle time in which the host
+    was inside the profiler's own "Activity Buffer Request" is printed
+    apart.  Prints them, the device ops that take the most time, the CUDA
+    runtime calls that take the most host time, and the longest idle gaps
+    with the innermost host events that cover at least half of each;
+    returns (interval, busy) in ms, or None when the profiler saw no device
+    activity."""
     import torch
     from torch.autograd import DeviceType
+
+    query(batch)  # warm the allocator
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("the_query"):
+            query(batch)
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = [e.time_range for e in events
+              if e.name == "the_query" and e.device_type == DeviceType.CPU]
+    require(len(window) == 1, f"profile: {len(window)} query ranges in the trace")
+    t0, t1 = window[0].start, window[0].end
+    device = sorted(
+        (max(e.time_range.start, t0), min(e.time_range.end, t1), e.name) for e in events
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        and e.name != "the_query" and e.time_range.end > t0 and e.time_range.start < t1
+    )
+    if not device:
+        print(f"profile {label} n={n}: the profiler saw no device activity; device busy time and "
+              f"idle share not measured")
+        return None
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e, _ in device:  # union of the intervals
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    by_name = {}
+    for s, e, name in device:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+    own = sum(us for name, us in by_name.items()
+              if any(f"::{f}(" in name or f"::{f}<" in name for f in OWN_DEVICE_FUNCTIONS))
+    wall = t1 - t0
+    print(f"profile {label} n={n} ({smi}): query interval {wall / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall:.3f}; {len(device)} device ops; "
+          f"the hand-written kernels {own / 1e3:.3f} ms of the busy time")
+    for name, us in top:
+        print(f"profile {label} n={n}:   {us / 1e3:8.3f} ms  {name[:110]}")
+    host = [(e.time_range.start, e.time_range.end, e.name) for e in events
+            if e.device_type == DeviceType.CPU and e.name != "the_query"
+            and e.time_range.end > t0 and e.time_range.start < t1]
+    runtime = {}
+    for s, e, name in host:
+        if name.startswith("cuda"):
+            us, calls = runtime.get(name, (0.0, 0))
+            runtime[name] = (us + e - s, calls + 1)
+    print(f"profile {label} n={n}: host time in CUDA runtime calls: " + ", ".join(
+        f"{name} {us / 1e3:.3f} ms ({calls})" for name, (us, calls) in
+        sorted(runtime.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]))
+    gaps = idle_gaps(device, t0, t1)
+    requests = sum(min(ge - gs, sum(max(0.0, _overlap(gs, ge, hs, he)) for hs, he, name in host
+                                    if name == "Activity Buffer Request")) for gs, ge in gaps)
+    print(f"profile {label} n={n}: the profiler's buffer requests {requests / 1e3:.3f} ms of the idle time; "
+          f"idle share without them {1 - (busy + requests) / wall:.3f}")
+    for gs, ge in sorted(gaps, key=lambda g: g[0] - g[1])[:PROFILE_GAPS]:
+        inside = sorted((he - hs, name, _overlap(gs, ge, hs, he)) for hs, he, name in host
+                        if _overlap(gs, ge, hs, he) >= 0.5 * (ge - gs))[:3]
+        print(f"profile {label} n={n}: device idle {(ge - gs) / 1e3:.3f} ms from +{(gs - t0) / 1e3:.3f} ms; "
+              f"host in " + (", ".join(f"{name[:60]} ({ov / 1e3:.3f} ms)" for _, name, ov in inside) or "no op"))
+    return wall / 1e3, busy / 1e3
+
+
+def phase_profile(smi):
+    """Each query at each size under torch.profiler (profile_query)."""
+    import torch
 
     from arrow_tpu_torch import flagship
 
@@ -1463,47 +1710,7 @@ def phase_profile(smi):
                         lambda n, seed, device, dist=dist: flagship.make_groupby_batch(n, dist, seed, device)))
     for label, n, query, make in queries:
         batch = make(n, seed=0, device="cuda")
-        query(batch)  # warm the allocator
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            with torch.profiler.record_function("the_query"):
-                query(batch)
-                torch.cuda.synchronize()
-        events = prof.events()
-        window = [e.time_range for e in events
-                  if e.name == "the_query" and e.device_type == DeviceType.CPU]
-        require(len(window) == 1, f"profile: {len(window)} query ranges in the trace")
-        t0, t1 = window[0].start, window[0].end
-        device = sorted(
-            (max(e.time_range.start, t0), min(e.time_range.end, t1), e.name) for e in events
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-            and e.name != "the_query" and e.time_range.end > t0 and e.time_range.start < t1
-        )
-        if not device:
-            print(f"profile {label} n={n}: the profiler saw no device activity; device busy time and "
-                  f"idle share not measured")
-            continue
-        busy, cur_s, cur_e = 0.0, None, None
-        for s, e, _ in device:  # union of the intervals
-            if cur_e is None or s > cur_e:
-                busy += 0.0 if cur_e is None else cur_e - cur_s
-                cur_s, cur_e = s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy += cur_e - cur_s
-        by_name = {}
-        for s, e, name in device:
-            by_name[name] = by_name.get(name, 0.0) + (e - s)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
-        own = sum(us for name, us in by_name.items()
-                  if any(f"::{f}(" in name or f"::{f}<" in name for f in OWN_DEVICE_FUNCTIONS))
-        wall = t1 - t0
-        print(f"profile {label} n={n} ({smi}): query interval {wall / 1e3:.3f} ms, device busy "
-              f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall:.3f}; {len(device)} device ops; "
-              f"the hand-written kernels {own / 1e3:.3f} ms of the busy time")
-        for name, us in top:
-            print(f"profile {label} n={n}:   {us / 1e3:8.3f} ms  {name[:110]}")
+        profile_query(label, n, query, batch, smi)
         del batch
         torch.cuda.empty_cache()
 

@@ -10,6 +10,7 @@ from arrow_tpu.compute.kernels.compaction3 import compact_multi_pallas
 from arrow_tpu.utils import bits as JB
 from arrow_tpu_torch.compute.kernels import compaction3 as C3
 from arrow_tpu_torch.utils import bits as TB
+from torch_helpers import EDGE_PATTERNS, edge_pattern
 
 SELECTIVITIES = [0.0, 0.01, 0.5, 0.99, 1.0]
 
@@ -25,28 +26,40 @@ def _inputs(rng, n, sel):
     return vals, words, mask
 
 
-@pytest.mark.parametrize("n", [8192, 65536])
-def test_plain_matches_pallas(n):
+def _assert_matches_pallas(vals, words, mask, n):
     import jax.numpy as jnp
 
+    jv, jw, jc = compact_multi_pallas(
+        tuple(jnp.asarray(v) for v in vals),
+        tuple(jnp.asarray(w) for w in words),
+        jnp.asarray(mask),
+    )
+    tv, tw, tc = C3.compact_multi_plain(
+        [torch.from_numpy(v.view(np.int32) if v.dtype == np.uint32 else v) for v in vals],
+        [torch.from_numpy(w.view(np.int32)) for w in words],
+        torch.from_numpy(mask.view(np.int32)),
+    )
+    assert int(tc) == int(jc)
+    for j, t in zip(jv, tv):  # first n rows exact, zeros from the count on
+        np.testing.assert_array_equal(t.numpy().view(np.uint8), np.asarray(j)[:n].view(np.uint8))
+    for j, t in zip(jw, tw):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j)[:n])
+
+
+@pytest.mark.parametrize("n", [8192, 65536])
+def test_plain_matches_pallas(n):
     for i, sel in enumerate(SELECTIVITIES):
         rng = np.random.default_rng([n, i])
         vals, words, mask = _inputs(rng, n, sel)
-        jv, jw, jc = compact_multi_pallas(
-            tuple(jnp.asarray(v) for v in vals),
-            tuple(jnp.asarray(w) for w in words),
-            jnp.asarray(mask),
-        )
-        tv, tw, tc = C3.compact_multi_plain(
-            [torch.from_numpy(v.view(np.int32) if v.dtype == np.uint32 else v) for v in vals],
-            [torch.from_numpy(w.view(np.int32)) for w in words],
-            torch.from_numpy(mask.view(np.int32)),
-        )
-        assert int(tc) == int(jc)
-        for j, t in zip(jv, tv):  # first n rows exact, zeros from the count on
-            np.testing.assert_array_equal(t.numpy().view(np.uint8), np.asarray(j)[:n].view(np.uint8))
-        for j, t in zip(jw, tw):
-            np.testing.assert_array_equal(t.numpy(), np.asarray(j)[:n])
+        _assert_matches_pallas(vals, words, mask, n)
+
+
+@pytest.mark.parametrize("pattern", EDGE_PATTERNS)
+@pytest.mark.parametrize("n", [8192, 16384])
+def test_plain_matches_pallas_on_edge_patterns(n, pattern):
+    rng = np.random.default_rng([n, len(pattern)])
+    vals, words, _ = _inputs(rng, n, 0.5)
+    _assert_matches_pallas(vals, words, JB.pack_bits_np(edge_pattern(pattern, n), n // 32), n)
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 8193])

@@ -71,28 +71,105 @@ def _same(a, b, rtol=None):
 # ---------------------------------------------------------------- kernel B1
 
 
-@pytest.mark.parametrize("n", [0, 1, 31, 8193, (1 << 20) + 17])
-@pytest.mark.parametrize("pattern", ["none", "0.01", "0.5", "0.99", "all", "every32"])
-def test_compact_multi_kernel_matches_plain(cuda, n, pattern):
-    rng = np.random.default_rng(n)
+# B1's tiles are four parts: 32768 rows (8192 a part) of 4-byte planes,
+# 16384 (4096 a part) where a plane is 8 bytes wide: lengths around each,
+# and many tiles
+B1_LENGTHS = [0, 1, 31, 4095, 4096, 4097, 8191, 8192, 8193, 16383, 16384, 16385, 32767, 32768, 32769,
+              5 * 32768 + 3, (1 << 20) + 17]
+B1_PATTERNS = ["none", "0.01", "0.5", "0.99", "all", "every32", "first", "last", "alternate", "block"]
+
+
+def _b1_flags(rng, pattern, n):
+    """A selection: random at a selectivity, or a shape that stresses the
+    tile edges (only the first row, only the last, every other row, the
+    second 8192-row block alone)."""
     rows = np.arange(n)
-    flags = {"none": np.zeros(n, bool), "all": np.ones(n, bool), "every32": rows % 32 == 0}.get(pattern)
-    if flags is None:
-        flags = rng.random(n) < float(pattern)
-    planes = [
-        torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32)).to(cuda),
-        torch.from_numpy(rng.standard_normal(n)).to(cuda),
-    ]
-    words = [torch.from_numpy(TB.pack_bits_np(rng.random(n) < 0.5).view(np.int32)).to(cuda)]
-    mask = torch.from_numpy(TB.pack_bits_np(flags).view(np.int32)).to(cuda)
+    shaped = {"none": rows < 0, "all": rows >= 0, "every32": rows % 32 == 0, "first": rows == 0,
+              "last": rows == n - 1, "alternate": rows % 2 == 0, "block": (rows >= 8192) & (rows < 16384)}
+    return shaped[pattern] if pattern in shaped else rng.random(n) < float(pattern)
+
+
+def _b1_planes(rng, kind, n, device, offset=0):
+    """(value planes, bitmap planes): "4-byte", "mixed" (4- and 8-byte value
+    planes and a bitmap plane) or "16 planes"; with `offset`, views that start
+    that many rows (bitmap planes: words) into a larger tensor."""
+    def i32():
+        return rng.integers(-(2**31), 2**31, n + offset).astype(np.int32)
+
+    def f32():
+        return rng.standard_normal(n + offset).astype(np.float32)
+
+    def i64():
+        return rng.integers(-(2**63), 2**63 - 1, n + offset, dtype=np.int64)
+
+    def f64():
+        return rng.standard_normal(n + offset)
+
+    def bitmap():
+        return TB.pack_bits_np(rng.random(n + 32 * offset) < 0.5).view(np.int32)
+
+    makers = {"4-byte": ((i32, f32), ()), "mixed": ((i32, f64), (bitmap,)),
+              "16 planes": ((i32, i64, f32, f64) * 3, (bitmap,) * 4)}[kind]
+    return ([torch.from_numpy(m()).to(device)[offset:] for m in makers[0]],
+            [torch.from_numpy(m()).to(device)[offset:] for m in makers[1]])
+
+
+def _check_compact_multi(planes, words, mask, n, want_count):
     before = C3.KERNEL.launches
     kv, kw, kc = C3.compact_multi(planes, words, mask, n)
     torch.cuda.synchronize()
     assert C3.KERNEL.launches == before + 1
     pv, pw, pc = C3.compact_multi_plain(planes, words, mask, n)
-    assert int(kc) == int(pc) == int(flags.sum())
+    assert int(kc) == int(pc) == want_count
     for k, p in zip(kv + kw, pv + pw):
         assert k.is_cuda and torch.equal(k, p)
+
+
+def _compact_multi_case(n, pattern, kind, device):
+    rng = np.random.default_rng(n)
+    flags = _b1_flags(rng, pattern, n)
+    planes, words = _b1_planes(rng, kind, n, device)
+    mask = torch.from_numpy(TB.pack_bits_np(flags).view(np.int32)).to(device)
+    _check_compact_multi(planes, words, mask, n, int(flags.sum()))
+
+
+@pytest.mark.parametrize("n", B1_LENGTHS)
+@pytest.mark.parametrize("pattern", B1_PATTERNS)
+def test_compact_multi_kernel_matches_plain(cuda, n, pattern):
+    """An i32 and an f64 plane and a bitmap plane."""
+    _compact_multi_case(n, pattern, "mixed", cuda)
+
+
+@pytest.mark.parametrize("n", B1_LENGTHS)
+@pytest.mark.parametrize("pattern", B1_PATTERNS)
+def test_compact_multi_kernel_four_byte_planes(cuda, n, pattern):
+    """An i32 and an f32 plane: the launch's widest plane is 4 bytes."""
+    _compact_multi_case(n, pattern, "4-byte", cuda)
+
+
+@pytest.mark.parametrize("n", [16384, 32768, 5 * 32768 + 3])
+@pytest.mark.parametrize("pattern", ["0.5", "first", "last", "alternate"])
+def test_compact_multi_kernel_sixteen_mixed_planes(cuda, n, pattern):
+    rng = np.random.default_rng(n + 16)
+    flags = _b1_flags(rng, pattern, n)
+    planes, words = _b1_planes(rng, "16 planes", n, cuda)
+    assert len(planes) + len(words) == C3.MAX_PLANES
+    mask = torch.from_numpy(TB.pack_bits_np(flags).view(np.int32)).to(cuda)
+    _check_compact_multi(planes, words, mask, n, int(flags.sum()))
+
+
+@pytest.mark.parametrize("n", [8193, (1 << 20) + 17])
+@pytest.mark.parametrize("pattern", ["0.5", "first", "last", "alternate", "block"])
+@pytest.mark.parametrize("kind", ["4-byte", "mixed", "16 planes"])
+def test_compact_multi_kernel_misaligned_views(cuda, n, pattern, kind):
+    """Planes, bitmaps and the mask as views one row (or word) in: 16-byte
+    loads meet bases that are not 16-byte aligned."""
+    rng = np.random.default_rng(n + 1)
+    flags = _b1_flags(rng, pattern, n)
+    planes, words = _b1_planes(rng, kind, n, cuda, offset=1)
+    assert all(p.data_ptr() % 16 for p in planes + words)
+    mask = torch.from_numpy(np.concatenate([[0], TB.pack_bits_np(flags).view(np.int32)]).astype(np.int32))
+    _check_compact_multi(planes, words, mask.to(cuda)[1:], n, int(flags.sum()))
 
 
 def test_compact_multi_rejects_what_it_does_not_take(cuda):
@@ -659,19 +736,21 @@ def test_sort_join_query_on_cuda(cuda):
 # ------------------------------------------------- kernels B8 and B9
 
 
-@pytest.mark.parametrize("n", [0, 1, 31, 8193, (1 << 20) + 17])
-@pytest.mark.parametrize("form", ["0", "0.01", "0.5", "0.99", "1", "bit0", "bit17", "bit31"])
-def test_split_multi_kernel_matches_plain(cuda, n, form):
-    rng = np.random.default_rng(n + len(form))
+def _split_case(rng, n, form, device, offset=0):
+    """Three 4-byte planes (views `offset` rows in) and the split's selection."""
     planes = [
-        torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32)).to(cuda),
-        torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda),
-        torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(cuda),
+        torch.from_numpy(rng.integers(-(2**31), 2**31, n + offset).astype(np.int32)).to(device)[offset:],
+        torch.from_numpy(rng.standard_normal(n + offset).astype(np.float32)).to(device)[offset:],
+        torch.from_numpy(rng.integers(0, 2**32, n + offset, dtype=np.uint64).astype(np.uint32).view(np.int32))
+        .to(device)[offset:],
     ]
     if form.startswith("bit"):
-        kw = {"bit": int(form[3:])}
-    else:
-        kw = {"mask_words": torch.from_numpy(TB.pack_bits_np(rng.random(n) < float(form)).view(np.int32)).to(cuda)}
+        return planes, {"bit": int(form[3:])}
+    words = np.concatenate([np.zeros(offset, np.int32), TB.pack_bits_np(_b1_flags(rng, form, n)).view(np.int32)])
+    return planes, {"mask_words": torch.from_numpy(words.astype(np.int32)).to(device)[offset:]}
+
+
+def _check_split_multi(planes, kw):
     before = C3.SPLIT_KERNEL.launches
     ks, ku, kc = C3.split_multi(planes, **kw)
     torch.cuda.synchronize()
@@ -682,12 +761,28 @@ def test_split_multi_kernel_matches_plain(cuda, n, form):
         assert k.is_cuda and torch.equal(k, p)
 
 
-@pytest.mark.parametrize("n", [0, 1, 31, 8193, (1 << 20) + 17])
-@pytest.mark.parametrize("pattern", ["0", "0.01", "0.5", "1"])
+@pytest.mark.parametrize("n", [0, 1, 31, 8192, 8193, 32767, 32768, 32769, 5 * 32768 + 3, (1 << 20) + 17])
+@pytest.mark.parametrize("form", ["0", "0.01", "0.5", "0.99", "1", "first", "last", "alternate", "block",
+                                  "bit0", "bit17", "bit31"])
+def test_split_multi_kernel_matches_plain(cuda, n, form):
+    rng = np.random.default_rng(n + len(form))
+    _check_split_multi(*_split_case(rng, n, form, cuda))
+
+
+@pytest.mark.parametrize("form", ["0.5", "alternate", "last", "bit0"])
+def test_split_multi_kernel_misaligned_views(cuda, form):
+    rng = np.random.default_rng(len(form))
+    planes, kw = _split_case(rng, (1 << 20) + 17, form, cuda, offset=1)
+    assert all(p.data_ptr() % 16 for p in planes)
+    _check_split_multi(planes, kw)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 8192, 8193, 32767, 32768, 32769, 5 * 32768 + 3, (1 << 20) + 17])
+@pytest.mark.parametrize("pattern", ["0", "0.01", "0.5", "1", "first", "last", "alternate", "block"])
 def test_compact_kernel_matches_plain(cuda, n, pattern):
     rng = np.random.default_rng(n)
     data = torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32)).to(cuda)
-    mask = torch.from_numpy(TB.pack_bits_np(rng.random(n) < float(pattern)).view(np.int32)).to(cuda)
+    mask = torch.from_numpy(TB.pack_bits_np(_b1_flags(rng, pattern, n)).view(np.int32)).to(cuda)
     before = C1.KERNEL.launches, C3.KERNEL.launches
     out, count = C1.compact(data, mask)
     torch.cuda.synchronize()

@@ -14,6 +14,7 @@ from arrow_tpu.compute.kernels.compaction3 import split_multi_pallas
 from arrow_tpu.utils import bits as JB
 from arrow_tpu_torch.compute.kernels import compaction as C1
 from arrow_tpu_torch.compute.kernels import compaction3 as C3
+from torch_helpers import EDGE_PATTERNS, edge_pattern
 
 N = 16384
 SELECTIVITIES = [0.0, 0.03, 0.5, 1.0]
@@ -56,6 +57,23 @@ def test_split_mask_form_matches_pallas(sel_p):
     _assert_split(jout, tout, N)
     np.testing.assert_array_equal(tout[0][0].numpy()[: mask.sum()], a[mask])
     np.testing.assert_array_equal(tout[1][1].numpy()[: N - mask.sum()], b[~mask])
+
+
+@pytest.mark.parametrize("pattern", EDGE_PATTERNS)
+@pytest.mark.parametrize("n", [8192, 16384])
+def test_split_mask_form_matches_pallas_on_edge_patterns(n, pattern):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng([n, len(pattern)])
+    a = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    b = rng.standard_normal(n).astype(np.float32)
+    mask = edge_pattern(pattern, n)
+    mw = JB.pack_bits_np(mask, n // 32)
+    jout = split_multi_pallas((jnp.asarray(a), jnp.asarray(b.view(np.int32))), jnp.asarray(mw))
+    tout = C3.split_multi_plain(_torch(a, b), torch.from_numpy(mw.view(np.int32)))
+    _assert_split(jout, tout, n)
+    np.testing.assert_array_equal(tout[0][0].numpy()[: mask.sum()], a[mask])
+    np.testing.assert_array_equal(tout[1][1].numpy()[: n - mask.sum()], b[~mask])
 
 
 @pytest.mark.parametrize("bit", [0, 13, 31])

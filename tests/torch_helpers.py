@@ -13,6 +13,18 @@ from arrow_tpu import io as jio
 from arrow_tpu_torch import io as tio
 
 
+# selections that stress a tiled compaction's edges (see edge_pattern)
+EDGE_PATTERNS = ["first", "last", "alternate", "block", "all", "none"]
+
+
+def edge_pattern(name, n):
+    """A selection of n rows: only the first row, only the last, every other
+    row, the last 8192-row block alone, all rows or no rows."""
+    rows = np.arange(n)
+    return {"first": rows == 0, "last": rows == n - 1, "alternate": rows % 2 == 0,
+            "block": rows >= n - 8192, "all": rows >= 0, "none": rows < 0}[name]
+
+
 def jax_to_torch(arr, device="cpu"):
     """A JAX-package array -> the port's array, through Arrow buffers."""
     b = jio.to_arrow_buffers(arr)
