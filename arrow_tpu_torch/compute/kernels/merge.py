@@ -13,6 +13,7 @@ kernel for CUDA tensors, never one in place of the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -70,6 +71,26 @@ def merge_pass_plain(planes: Sequence[torch.Tensor], run_len: int, unique_payloa
     return tuple(p[perm] for p in planes)
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of csrc/merge.cu) with its C entries' argument and
+    result types set."""
+    lib.arrow_merge_scratch_bytes.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+    lib.arrow_merge_scratch_bytes.restype = ctypes.c_longlong
+    void_pp = ctypes.POINTER(ctypes.c_void_p)
+    lib.arrow_merge_pass.argtypes = [
+        void_pp, void_pp, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.arrow_merge_pass.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    """The kernel library, declared once."""
+    return declare(_build.load().cdll)
+
+
 def merge_pass_cuda(planes: Sequence[torch.Tensor], run_len: int, unique_payload: bool = False) -> Planes:
     """Launch the B7 CUDA kernel (see :func:`merge_pass_plain`)."""
     planes = tuple(p.contiguous() for p in planes)
@@ -78,22 +99,17 @@ def merge_pass_cuda(planes: Sequence[torch.Tensor], run_len: int, unique_payload
     if device.type != "cuda":
         raise ValueError("merge_pass_cuda needs CUDA tensors")
     n = planes[0].shape[0]
-    outs = tuple(torch.empty_like(p) for p in planes)
+    outs = tuple(torch.empty(n, dtype=torch.int32, device=device) for _ in planes)  # 16-byte aligned
     if n == 0:
         return outs
-    lib = _build.load().cdll
-    fn = lib.arrow_merge_pass
-    fn.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    lib = _lib()
+    scratch = torch.empty(lib.arrow_merge_scratch_bytes(n, run_len), dtype=torch.uint8, device=device)
     k = len(planes)
     with torch.cuda.device(device):
-        err = fn(
+        err = lib.arrow_merge_pass(
             (ctypes.c_void_p * k)(*[p.data_ptr() for p in planes]),
             (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
-            k, n, run_len, int(unique_payload), _build.stream_of(planes[0]),
+            k, n, run_len, int(unique_payload), scratch.data_ptr(), _build.stream_of(planes[0]),
         )
     _build.check(err, "merge_pass")
     KERNEL.launches += 1

@@ -22,9 +22,13 @@ Phases, each printing lines that start with its name:
    one), on keys that stress its look-back (the group-by's skew, one value in
    99% of the rows, a descending arange, an all-equal key), on 8 planes, and
    in a race check of its own (ten repeats of a 2^27-row sort by 31 bits and
-   of the skewed class sort); the split (B8) and the
-   one-plane compaction (B9), which no operator calls, are also timed there
-   at 2^27 rows;
+   of the skewed class sort); the merge (B7) also at lengths and run lengths
+   around its 3712-row tile, on run pairs of edge shapes (A below B, B below
+   A, all keys equal, alternating keys, equal keys across the middle, the
+   join's two call shapes), on 8 planes, on views one row in and in a race
+   check (ten repeats of the join's expand call at 2^27 rows); the split
+   (B8) and the one-plane compaction (B9), which no operator calls, are also
+   timed there at 2^27 rows;
 4. flagship: the flagship query (compare -> filter -> sort group-by) through
    the public API at 2^20 and 2^27 rows, checked against the same query on
    the plain versions and against a numpy oracle; the kernels' launch counts
@@ -109,8 +113,14 @@ B3_DOMAINS = (2, 10_000, 1 << 32)
 B3_BITS_SIZES = ((1 << 20) + 17, 1 << 27)  # given bits, look-back stress, 8 planes
 B3_SHAPES = ("skew", "hot", "reversed")
 B3_RACE_REPEATS = 10
-B7_SIZES = (1, 31, 8193, (1 << 20) + 17, 1 << 27)
-B7_RUNS = (1, 7, 8192, "half")
+# B7's tiles are 3712 output rows (a tile of whole pairs where a pair is shorter)
+B7_TILE = 3712
+B7_SIZES = (1, 31, B7_TILE - 1, B7_TILE, B7_TILE + 1, 8193, 5 * B7_TILE + 3, (1 << 20) + 17, 1 << 27)
+B7_RUNS = (1, 7, B7_TILE // 2 - 1, B7_TILE // 2, B7_TILE // 2 + 1, B7_TILE, 8192, "half")
+# run pairs that stress the tile edges (see _b7_pattern), checked at B7_PATTERN_N rows
+B7_PATTERNS = ("a_below", "b_below", "all_equal", "alternate", "straddle", "expand", "rank_fill")
+B7_PATTERN_N = (1 << 20) + 17
+B7_RACE_REPEATS = 10
 B5_DOMAINS = (1, 7, 1024, 4096)
 B6_CLASSES = (1, 2, 256, 1024)
 B6_ORDERS = ("skew", "unsorted", "grouped")
@@ -136,7 +146,7 @@ PROFILE_GAPS = 4  # the longest device-idle gaps of a profiled query, printed
 # the device functions of the hand-written kernels (arrow_tpu_torch/csrc)
 OWN_DEVICE_FUNCTIONS = ("compact_pass", "seg_lookback",
                         "radix_histogram", "radix_scan_histogram", "radix_onesweep", "radix_or_and",
-                        "merge_runs", "dense_histogram", "region_histogram")
+                        "merge_partition", "merge_tiles", "dense_histogram", "region_histogram")
 
 
 class PhaseFailed(RuntimeError):
@@ -721,36 +731,130 @@ def _b7_runs(n, run_len, unique, payloads, gen, device):
     return [torch.cat(parts_k), torch.cat(parts_r), *extra]
 
 
+def _b7_pattern(name, n, run_len, unique, gen, device):
+    """int32 planes of n rows whose every run pair (A, B) has one shape: A
+    entirely below B or above it; all keys equal; strictly alternating keys;
+    a run of equal keys straddling the pair's middle (A's last and B's first
+    quarter); the join's expand call (A strictly increasing run ends, then
+    sentinels; B an arange); its rank-fill call (A an arange; B sorted ranks
+    with duplicates, then sentinels).  Plane 1 holds row ids (the unique
+    payload); without `unique`, plane 2 random values."""
+    import torch
+
+    from arrow_tpu_torch.compute.kernels.merge import SENT
+
+    rows = torch.arange(n, device=device)
+    pair = 2 * run_len
+    lo = rows // pair * pair
+    la = torch.clamp(n - lo, max=run_len)  # the pair's A rows
+    lb = torch.clamp(n - lo - la, max=run_len)
+    in_b = rows - lo >= la
+    r = torch.where(in_b, rows - lo - la, rows - lo)  # the row's index in its run
+    length = torch.where(in_b, lb, la)
+    if name == "a_below":
+        key = torch.where(in_b, 2 * la + 2 * r, 2 * r - 5)
+    elif name == "b_below":
+        key = torch.where(in_b, r - 1000, lb + r)
+    elif name == "all_equal":
+        key = torch.full_like(rows, 7)
+    elif name == "alternate":
+        key = 2 * r + in_b
+    elif name == "straddle":  # 100 across the middle; below it in A, above it in B
+        key = torch.where(in_b, torch.where(r < length // 4, 100, 101 + r), torch.where(
+            r >= length - length // 4, 100, r - length))
+    elif name == "expand":  # A: strictly increasing ends (steps of 1-3) on its first half
+        step = torch.randint(1, 4, (n,), generator=gen, device=device)
+        ends = torch.cumsum(torch.where(in_b, 0, step), 0)
+        ends = ends - torch.where(lo > 0, ends[torch.clamp(lo - 1, min=0)], 0)
+        key = torch.where(in_b, r, torch.where(r < la // 2, ends, SENT))
+    elif name == "rank_fill":  # B: ranks r // 3 (each three times) on its first two thirds
+        key = torch.where(in_b, torch.where(r < length - length // 3, r // 3, SENT), r)
+    else:
+        raise ValueError(f"no merge pattern {name!r}")
+    planes = [key.to(torch.int32), rows.to(torch.int32)]
+    if not unique:
+        planes.append(torch.randint(-(2**31), 2**31, (n,), generator=gen, device=device, dtype=torch.int64)
+                      .to(torch.int32))
+    return planes
+
+
 def check_b7(device, gen):
-    """B7 over run lengths, ragged last runs and byes, both modes."""
+    """B7 over lengths and run lengths around its tile, ragged last runs and
+    byes, both modes; run pairs of edge shapes; 8 planes; views one row in;
+    a race check."""
     import torch
 
     from arrow_tpu_torch.compute.kernels import merge as M
 
     worst, cases, failures = 0.0, 0, []
+
+    def case(label, planes, run_len, unique):
+        nonlocal worst, cases
+        cases += 1
+        got, want = M.merge_pass(planes, run_len, unique), M.merge_pass_plain(planes, run_len, unique)
+        torch.cuda.synchronize()
+        ok, err = _exact(got, want)
+        worst = max(worst, err)
+        if not ok:
+            failures.append(label)
+
     for n in B7_SIZES:
         for run in B7_RUNS:
             run_len = max(1, n // 2) if run == "half" else run
             if n == B7_SIZES[-1] and run_len < 8192:
-                continue  # runs of 1 and 7 rows are checked up to 2^20 rows
+                continue  # shorter runs are checked up to 2^20 rows
             for unique in (False, True):
-                cases += 1
                 planes = _b7_runs(n, run_len, unique, 1 + cases % 3, gen, device)
-                got = M.merge_pass(planes, run_len, unique)
-                want = M.merge_pass_plain(planes, run_len, unique)
-                torch.cuda.synchronize()
-                ok = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
-                worst = max(worst, max(float((g.double() - w.double()).abs().max())
-                                       for g, w in zip(got, want)))
-                if not ok:
-                    failures.append(f"n={n} run_len={run_len} unique={unique}")
-                del planes, got, want
+                case(f"n={n} run_len={run_len} unique={unique}", planes, run_len, unique)
+                del planes
         torch.cuda.empty_cache()
+    n = B7_PATTERN_N
+    for name in B7_PATTERNS:
+        for run_len in ((n + 1) // 2, 8192):
+            for unique in (False, True):
+                planes = _b7_pattern(name, n, run_len, unique, gen, device)
+                case(f"{name} n={n} run_len={run_len} unique={unique}", planes, run_len, unique)
+    for n in (B7_TILE + 1, B7_PATTERN_N):
+        for run_len in (B7_TILE // 2 + 1, (n + 1) // 2):
+            base = _b7_runs(n, run_len, False, 2, gen, device)
+            extra = [torch.randint(-(2**31), 2**31, (n,), generator=gen, device=device, dtype=torch.int64)
+                     .to(torch.int32) for _ in range(M.MAX_PLANES - len(base))]
+            case(f"8 planes n={n} run_len={run_len}", base + extra, run_len, False)
+    n = B7_PATTERN_N
+    for run_len in (B7_TILE // 2 + 1, B7_TILE, (n + 1) // 2):
+        for unique in (False, True):  # views one row in: contiguous, not 16-byte aligned
+            planes = [torch.cat([torch.zeros(1, dtype=torch.int32, device=device), p])[1:]
+                      for p in _b7_runs(n, run_len, unique, 3, gen, device)]
+            require(all(p.data_ptr() % 16 for p in planes), "the views are aligned")
+            case(f"misaligned n={n} run_len={run_len} unique={unique}", planes, run_len, unique)
+    del planes
+    torch.cuda.empty_cache()
     print(f"kernels: merge_pass vs plain: {cases} cases (n in {list(B7_SIZES)}, run_len in "
-          f"{list(B7_RUNS)} (1 and 7 up to 2^20+17 rows), ragged last runs and byes, keys of "
+          f"{list(B7_RUNS)} (below 8192 up to 2^20+17 rows), ragged last runs and byes, keys of "
           f"INT32_MIN/-1/0/3/INT32_MAX-1/INT32_MAX (the sentinel), 1-3 payload planes, "
-          f"unique-payload mode), exact; max abs err {worst}; failures {failures}")
+          f"unique-payload mode; run pairs {list(B7_PATTERNS)} at n={B7_PATTERN_N} in one pair and in "
+          f"8192-row runs, both modes; {M.MAX_PLANES} planes; views one row in), exact; max abs err {worst}; "
+          f"failures {failures}")
     require(not failures, "merge_pass disagrees with its plain version")
+
+    # the race check: a tile's sources and co-ranks may depend on nothing but
+    # its inputs; ten repeats of the expand call's shape must agree bit for bit
+    n = SORT_JOIN_N
+    planes = _b7_pattern("expand", n, n // 2, False, gen, device)
+    first = M.merge_pass(planes, n // 2)
+    same = True
+    for _ in range(B7_RACE_REPEATS - 1):
+        again = M.merge_pass(planes, n // 2)
+        torch.cuda.synchronize()
+        same &= _exact(again, first)[0]
+        del again
+    race = same and _exact(first, M.merge_pass_plain(planes, n // 2))[0]
+    print(f"kernels: merge_pass race check: {B7_RACE_REPEATS} repeats of the expand call's shape (3 planes, one "
+          f"pair of 2^26-row runs) at n={n}: each equal bit for bit to the first repeat and to the plain "
+          f"version: {race}")
+    require(race, "merge_pass differs between repeats or from plain")
+    del planes, first
+    torch.cuda.empty_cache()
     return worst
 
 

@@ -33,6 +33,7 @@ from arrow_tpu_torch.compute.kernels.groupby_region import KERNEL as REGION_KERN
 from arrow_tpu_torch.compute.kernels.groupby_region import groupby_region, groupby_region_plain
 from arrow_tpu_torch.utils import bits as TB
 from arrow_tpu_torch.utils import scans as TS
+from torch_helpers import MERGE_PATTERNS, merge_edge_planes
 
 TSORT = importlib.import_module("arrow_tpu_torch.compute.sort")  # the module, not compute.sort()
 
@@ -474,6 +475,62 @@ def test_merge_pass_kernel_matches_plain(cuda, n, run_len, unique):
     want = M.merge_pass_plain(planes, run_len, unique)
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+# B7's tiles are 3712 output rows, within a pair where a pair holds a tile
+B7_TILE = 3712
+
+
+def _check_merge(planes, run_len, unique, device, offset=0):
+    """B7 on `planes` moved to `device`, as views `offset` rows into larger
+    tensors, against its plain version on the CPU."""
+    views = [torch.cat([torch.zeros(offset, dtype=torch.int32), p]).to(device)[offset:] for p in planes]
+    if offset:
+        assert all(v.data_ptr() % 16 for v in views)  # contiguous, not 16-byte aligned
+    before = M.KERNEL.launches
+    got = M.merge_pass(views, run_len, unique)
+    torch.cuda.synchronize()
+    assert M.KERNEL.launches == before + 1
+    want = M.merge_pass_plain(planes, run_len, unique)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", [B7_TILE - 1, B7_TILE, B7_TILE + 1, 5 * B7_TILE + 3, (1 << 20) + 17])
+@pytest.mark.parametrize("run_len", [B7_TILE // 2 - 1, B7_TILE // 2, B7_TILE // 2 + 1, B7_TILE, "half"])
+@pytest.mark.parametrize("unique", [False, True])
+def test_merge_pass_kernel_around_its_tile(cuda, n, run_len, unique):
+    run_len = max(1, n // 2) if run_len == "half" else run_len
+    _check_merge(_runs(np.random.default_rng(n + run_len), n, run_len, unique), run_len, unique, cuda)
+
+
+@pytest.mark.parametrize("pattern", MERGE_PATTERNS)
+@pytest.mark.parametrize("run_len", ["one pair", 8192])
+@pytest.mark.parametrize("unique", [False, True])
+def test_merge_pass_kernel_edge_patterns(cuda, pattern, run_len, unique):
+    n = (1 << 20) + 17
+    run_len = (n + 1) // 2 if run_len == "one pair" else run_len
+    planes = [torch.from_numpy(p) for p in merge_edge_planes(pattern, n, run_len, unique, seed=n)]
+    _check_merge(planes, run_len, unique, cuda)
+
+
+@pytest.mark.parametrize("n", [B7_TILE + 1, (1 << 20) + 17])
+@pytest.mark.parametrize("run_len", [B7_TILE // 2 + 1, "half"])
+def test_merge_pass_kernel_eight_planes(cuda, n, run_len):
+    run_len = max(1, n // 2) if run_len == "half" else run_len
+    rng = np.random.default_rng(n)
+    planes = _runs(rng, n, run_len, False)
+    planes += [torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32))
+               for _ in range(M.MAX_PLANES - len(planes))]
+    _check_merge(planes, run_len, False, cuda)
+
+
+@pytest.mark.parametrize("run_len", [B7_TILE // 2 + 1, B7_TILE, "half"])
+@pytest.mark.parametrize("unique", [False, True])
+def test_merge_pass_kernel_misaligned_views(cuda, run_len, unique):
+    n = (1 << 20) + 17
+    run_len = (n + 1) // 2 if run_len == "half" else run_len
+    _check_merge(_runs(np.random.default_rng(run_len), n, run_len, unique), run_len, unique, cuda, offset=1)
 
 
 def test_sort_kv_on_cuda_matches_cpu(cuda):

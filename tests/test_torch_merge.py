@@ -2,7 +2,8 @@
 ``sort_kv`` against arrow_tpu's ``merge_pass_pallas`` / ``sort_kv_pallas``
 in interpret mode, at n in {8192, 3 x 8192} (a bye in the last pair), with
 heavy duplicates, the int32 extremes, payload planes and the unique-payload
-mode.  Exact."""
+mode, and on one pair of 8192-row runs of each edge shape of
+``torch_helpers.merge_edge_planes``.  Exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +13,7 @@ import torch
 from arrow_tpu.compute.kernels.merge import merge_pass_pallas, sort_kv_pallas
 from arrow_tpu_torch.compute import kernels as TCK
 from arrow_tpu_torch.compute.kernels import merge as M
+from torch_helpers import MERGE_PATTERNS, merge_edge_planes
 
 RUN = 8192
 
@@ -33,6 +35,16 @@ def _sorted_runs(rng, n, unique, nplanes):
 def test_merge_pass_plain_matches_pallas(n, unique, nplanes):
     rng = np.random.default_rng(n + nplanes)
     planes = _sorted_runs(rng, n, unique, nplanes)
+    want = merge_pass_pallas(tuple(jnp.asarray(p) for p in planes), RUN, unique_payload=unique, interpret=True)
+    got = M.merge_pass_plain([torch.from_numpy(p) for p in planes], RUN, unique)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("pattern", MERGE_PATTERNS)
+@pytest.mark.parametrize("unique", [False, True])
+def test_merge_pass_plain_matches_pallas_on_edge_patterns(pattern, unique):
+    planes = merge_edge_planes(pattern, 2 * RUN, RUN, unique)
     want = merge_pass_pallas(tuple(jnp.asarray(p) for p in planes), RUN, unique_payload=unique, interpret=True)
     got = M.merge_pass_plain([torch.from_numpy(p) for p in planes], RUN, unique)
     for g, w in zip(got, want):

@@ -9,7 +9,6 @@ from __future__ import annotations
 import numpy as np
 
 import arrow_tpu_torch as att
-from arrow_tpu import io as jio
 from arrow_tpu_torch import io as tio
 
 
@@ -25,8 +24,59 @@ def edge_pattern(name, n):
             "block": rows >= n - 8192, "all": rows >= 0, "none": rows < 0}[name]
 
 
+# run pairs that stress a merge's tile edges (see merge_edge_planes)
+MERGE_PATTERNS = ["a_below", "b_below", "all_equal", "alternate", "straddle", "expand", "rank_fill"]
+SENT = 0x7FFFFFFF  # the merge sentinel, the largest sortable key
+
+
+def merge_edge_planes(name, n, run_len, unique, seed=0):
+    """int32 planes of n rows holding sorted runs of run_len rows, every pair
+    (A, B) of one shape: A entirely below B or above it; all keys equal;
+    strictly alternating keys; a run of equal keys that straddles the pair's
+    middle (A's last and B's first quarter); the join's expand call (A
+    strictly increasing run ends, then sentinels; B an arange); its rank-fill
+    call (A an arange; B sorted ranks with duplicates, then sentinels).
+    Plane 1 holds row ids (increasing in every run, so unique-payload mode
+    takes it as the tiebreak); without `unique`, plane 2 random values."""
+    rng = np.random.default_rng(seed)
+    keys = np.empty(n, np.int64)
+    for lo in range(0, n, 2 * run_len):
+        la = min(run_len, n - lo)
+        lb = min(run_len, n - lo - la)
+        a, b = np.arange(la), np.arange(lb)
+        if name == "a_below":
+            ka, kb = 2 * a - 5, 2 * la + 2 * b
+        elif name == "b_below":
+            ka, kb = lb + a, b - 1000
+        elif name == "all_equal":
+            ka, kb = np.full(la, 7), np.full(lb, 7)
+        elif name == "alternate":
+            ka, kb = 2 * a, 2 * b + 1
+        elif name == "straddle":
+            ka = np.where(a >= la - la // 4, 100, np.sort(rng.integers(-50, 100, la)))
+            kb = np.where(b < lb // 4, 100, np.sort(rng.integers(101, 250, lb)))
+        elif name == "expand":
+            live = la // 2
+            ends = np.sort(rng.choice(max(lb, live) + 1, live, replace=False))
+            ka, kb = np.concatenate([ends, np.full(la - live, SENT)]), b
+        elif name == "rank_fill":
+            live = lb - lb // 3
+            ka = a
+            kb = np.concatenate([np.sort(rng.integers(0, max(la, 1), live)), np.full(lb - live, SENT)])
+        else:
+            raise ValueError(f"no merge pattern {name!r}")
+        keys[lo:lo + la], keys[lo + la:lo + la + lb] = ka, kb
+    rows = np.arange(n, dtype=np.int32)
+    planes = [keys.astype(np.int32), rows]
+    if not unique:
+        planes.append(rng.integers(-(2**31), 2**31, n).astype(np.int32))
+    return planes
+
+
 def jax_to_torch(arr, device="cpu"):
     """A JAX-package array -> the port's array, through Arrow buffers."""
+    from arrow_tpu import io as jio
+
     b = jio.to_arrow_buffers(arr)
     return tio.from_arrow_buffers(
         b["data"], b["length"], b["validity"], att.ArrowType(arr.dtype.value), device
@@ -34,6 +84,8 @@ def jax_to_torch(arr, device="cpu"):
 
 
 def batch_to_torch(batch, device="cpu"):
+    from arrow_tpu import io as jio
+
     bufs = {}
     for name, col in batch.columns().items():
         bufs[name] = {**jio.to_arrow_buffers(col), "dtype": col.dtype.value}
@@ -57,6 +109,8 @@ def assert_zero_tail(arr):
 def assert_same(jarr, tarr, rtol=None):
     """Equal Arrow buffers: length, null count, validity bytes, and the value
     bytes (floats within `rtol` when given, NaN matching NaN)."""
+    from arrow_tpu import io as jio
+
     je, te = jio.to_arrow_buffers(jarr), tio.to_arrow_buffers(tarr)
     assert jarr.dtype.value == tarr.dtype.value
     assert je["length"] == te["length"]
@@ -73,4 +127,4 @@ def assert_same(jarr, tarr, rtol=None):
     assert_zero_tail(tarr)
 
 
-__all__ = ["assert_same", "assert_zero_tail", "batch_to_torch", "jax_to_torch"]
+__all__ = ["assert_same", "assert_zero_tail", "batch_to_torch", "jax_to_torch", "merge_edge_planes"]
