@@ -10,6 +10,8 @@ the CPU.  Imports torch and numpy, never jax.
     batch = att.RecordBatch.from_numpy({"k": keys, "v": vals}, device="cuda")
     kept = C.filter(batch, K.gt_scalar(batch["v"], 0.0))
     C.hash_aggregate(kept["k"], [("total", kept["v"], "sum"), ("n", None, "count")])
+    with att.ComputePipeline() as pipe:  # ops recorded, then run in one finish()
+        r = K.mul_scalar_op(K.add_scalar_op(batch["v"], 1.0, pipe), 2.0, pipe)
 """
 
 from . import dtypes
@@ -39,7 +41,7 @@ from .array import (
 from .config import config, set_config
 from .dtypes import ArrowType, DataType
 from .errors import ArrowTorchError, CastingNotSupported, OperationNotSupported
-from .runtime import Device, default_device, set_default_device
+from .runtime import ComputePipeline, Device, LazyArray, default_device, set_default_device
 from .table import RecordBatch, Table
 
 from . import compute, io, kernels  # noqa: E402  (after the array types)
@@ -55,6 +57,7 @@ __all__ = [
     "BooleanArray",
     "Buffer",
     "CastingNotSupported",
+    "ComputePipeline",
     "DataType",
     "Date32Array",
     "Device",
@@ -64,6 +67,7 @@ __all__ = [
     "Int16Array",
     "Int32Array",
     "Int64Array",
+    "LazyArray",
     "NullBitBuffer",
     "OperationNotSupported",
     "PrimitiveArray",

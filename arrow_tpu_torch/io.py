@@ -1,9 +1,14 @@
-"""Host IO: Arrow-layout export and import (counterpart of ``arrow_tpu/io.py``).
+"""Host IO: Arrow-layout export/import and table persistence (counterpart
+of ``arrow_tpu/io.py``).
 
 ``to_arrow_buffers`` gives the same host dict, byte for byte, as
 ``arrow_tpu.io.to_arrow_buffers``; ``from_arrow_buffers`` takes that dict's
 buffers (from either package) and builds an array on a given device.  This is
-how state crosses between the two packages.
+how state crosses between the two packages.  ``save_table``/``load_table``
+keep a RecordBatch in an ``.npz`` file of the JAX package's layout (per
+column ``d::name`` the Arrow data bytes, ``t::name`` the type name,
+``v::name`` the validity bitmap bytes when tracked; ``__length__`` the row
+count), so a file saved by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from . import dtypes as dt
 from .array.array import make_array, pad_len, pad_words
 from .array.boolean import BooleanArray
 from .runtime.device import as_device
+from .table import RecordBatch
 
 
 def to_arrow_buffers(arr) -> Dict[str, object]:
@@ -69,3 +75,31 @@ def from_arrow_buffers(
     buf = np.zeros(pad_len(length), dtype=dt.storage_numpy(dtype))
     buf[:length] = dt.to_storage_np(data[:length], dtype)
     return make_array(device.put(buf), v, length, dtype, device)
+
+
+def save_table(path: str, batch: RecordBatch) -> None:
+    """Persist a RecordBatch to an .npz file (Arrow buffer layout per column)."""
+    payload: Dict[str, np.ndarray] = {"__length__": np.int64(batch.num_rows)}
+    for name, col in batch.columns().items():
+        ex = to_arrow_buffers(col)
+        payload[f"d::{name}"] = ex["data"]
+        payload[f"t::{name}"] = np.str_(col.dtype.value)
+        if ex["validity"] is not None:
+            payload[f"v::{name}"] = ex["validity"]
+    np.savez(path, **payload)
+
+
+def load_table(path: str, device=None) -> RecordBatch:
+    """Load a RecordBatch saved by save_table (of either package) onto
+    `device` (the default device when None)."""
+    with np.load(path, allow_pickle=False) as z:
+        length = int(z["__length__"])
+        cols = {}
+        for key in z.files:
+            if not key.startswith("d::"):
+                continue
+            name = key[3:]
+            dtype = dt.ArrowType(str(z[f"t::{name}"]))
+            validity = z[f"v::{name}"] if f"v::{name}" in z.files else None
+            cols[name] = from_arrow_buffers(z[key], length, validity, dtype, device)
+    return RecordBatch(cols)

@@ -1,15 +1,23 @@
 """Op execution machinery: the AV record, the registry, eager dispatch.
 
 Counterpart of ``arrow_tpu/ops/kernel.py``.  PyTorch runs eagerly, so an op
-is a plain function over :class:`AV` records and ``dispatch`` calls it
-directly; there is no jit cache.  The pipelined ``*_op`` forms and
-``ComputePipeline`` are not ported yet: passing a pipeline raises.
+is a plain function over :class:`AV` records and :func:`execute` calls it
+directly; there is no jit cache.  Every op comes in an eager (``foo``) and a
+pipelined (``foo_op``) form: the pipelined form records into a
+:class:`~arrow_tpu_torch.runtime.pipeline.ComputePipeline`, whose ``finish()``
+replays the recorded ops.  Each registered op carries an ``out_meta``
+function that gives its outputs' dtypes and lengths without running it (the
+pipeline's handles expose them before ``finish()``).
+
+Every op returns buffers that are zero at and past the logical length (the
+array layer's invariant): an op whose function is not zero at zero clears its
+output's tail with :func:`zero_tail`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -57,18 +65,31 @@ def array_av(arr: ArrowArrayBase) -> AV:
 
 @dataclasses.dataclass(frozen=True)
 class OpDef:
+    """A registered op: `impl` maps input AVs -> output AV(s); `out_meta`
+    maps input AVs (only their dtype and length are read) and the params to
+    the outputs' (dtype, length) pairs."""
+
     name: str
     impl: Callable[..., Any]
+    out_meta: Callable[..., Sequence[Tuple[dt.ArrowType, int]]]
 
 
 _REGISTRY: dict[str, OpDef] = {}
 
 
-def register(name: str):
-    """Decorator registering an AV -> AV(s) kernel under `name`."""
+def _first_array_meta(avs, params):
+    first = next(a for a in avs if not a.is_scalar)
+    return [(first.dtype, first.length)]
+
+
+def register(name: str, out_meta: Optional[Callable] = None):
+    """Decorator registering an AV -> AV(s) op under `name`.
+
+    Default out_meta: one output with the dtype and length of the first
+    array input."""
 
     def deco(impl):
-        _REGISTRY[name] = OpDef(name, impl)
+        _REGISTRY[name] = OpDef(name, impl, out_meta or _first_array_meta)
         return impl
 
     return deco
@@ -81,18 +102,33 @@ def get_op(name: str) -> OpDef:
         raise OperationNotSupported(f"unknown op {name!r}") from None
 
 
+def execute(op_name: str, avs: Sequence[AV], params: Optional[dict] = None) -> list:
+    """Run a registered op eagerly; returns the list of output AVs."""
+    outs = get_op(op_name).impl(*avs, **(params or {}))
+    return [outs] if isinstance(outs, AV) else list(outs)
+
+
 def dispatch(
     op_name: str,
-    operands: Sequence[Any],  # ArrowArrayBase | AV (scalar)
+    operands: Sequence[Any],  # ArrowArrayBase | LazyArray | AV (scalar)
     params: Optional[dict] = None,
     pipeline=None,
 ):
-    """Run a registered op eagerly on arrays and scalar AVs; returns array(s)."""
+    """Run a registered op on arrays, pipeline handles and scalar AVs.
+
+    Returns array(s) eagerly, or LazyArray handle(s) recorded into
+    `pipeline` when one is given."""
+    from ..runtime.pipeline import ComputePipeline, LazyArray
+
     if pipeline is not None:
-        raise OperationNotSupported("ComputePipeline is not ported yet")
+        if not isinstance(pipeline, ComputePipeline):
+            raise TypeError(f"pipeline must be a ComputePipeline, not {type(pipeline).__name__}")
+        return pipeline.record(op_name, operands, params or {})
     avs = []
     device = None
     for o in operands:
+        if isinstance(o, LazyArray):
+            o = o.bound()
         if isinstance(o, AV):
             avs.append(o)
         elif isinstance(o, ArrowArrayBase):
@@ -100,9 +136,7 @@ def dispatch(
             device = device or o.device
         else:
             raise TypeError(f"bad operand {type(o)}")
-    outs = get_op(op_name).impl(*avs, **(params or {}))
-    if isinstance(outs, AV):
-        outs = (outs,)
+    outs = execute(op_name, avs, params)
     wrapped = [make_array(o.data, o.validity, o.length, o.dtype, device) for o in outs]
     return wrapped[0] if len(wrapped) == 1 else wrapped
 
@@ -119,3 +153,10 @@ def merged_validity(*avs: AV) -> Optional[torch.Tensor]:
 def scalar_data(b: AV) -> torch.Tensor:
     """0-d rhs for a scalar op: a true scalar AV, or element 0 of a 1-row array."""
     return b.data if b.is_scalar else b.data[0]
+
+
+def zero_tail(out: torch.Tensor, length: int) -> torch.Tensor:
+    """Clear the rows at and past `length` of a value buffer the op owns."""
+    if out.shape[0] > length:
+        out[length:] = 0
+    return out

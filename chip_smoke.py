@@ -54,7 +54,19 @@ Phases, each printing lines that start with its name:
    and timed; the query's time on auto's route against the sort route (at
    ~100M keys, 31 significant bits, that is the radix route against the sort
    route, which sets auto's choice between them), and on the plain path;
-7. profile: each query at each size under torch.profiler: device busy time,
+7. elementwise: the elementwise tier, which has no hand-written kernel (plain
+   torch ops, as XLA fusion was in the JAX package): every registered op
+   over every dtype its API accepts, at 2^20 rows with nulls, on the card
+   against the port's CPU result on the same inputs (exact, a NaN matching
+   any NaN, except exp, exp2, log, log2, cbrt, float power and the
+   trigonometry within rtol 2e-6 / 1e-14 and float sums within 1e-5 /
+   1e-12), outputs asserted on the card; examples/simple.py's chain and a
+   6-op chain (arithmetic, cast, compare, merge) pipelined against their
+   eager runs at 10 485 760 and 2^27 rows; add_scalar f32, sum_ u32 and the
+   pipelined 2-op chain timed beside their bounds (8, 4 and 8 bytes a row)
+   and beside a torch expression on the bare buffers; the phase's peak
+   device memory;
+8. profile: each query at each size under torch.profiler: device busy time,
    the device's idle share of the query's wall time (also without the idle
    time spent in the profiler's own buffer requests), the device ops that
    take the most time, the CUDA runtime calls that take the most host time,
@@ -1703,6 +1715,303 @@ def phase_groupby(smi):
     return launches_all, measured
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the elementwise tier (no hand-written kernel; plain torch ops)
+# ---------------------------------------------------------------------------
+
+EW_N = 1 << 20  # rows of each op's check against the CPU
+EW_CHAIN_SIZES = (10_485_760, 1 << 27)  # the sizes of bench.py's elementwise mirrors
+EW_NUMERIC = ("float32", "float64", "uint8", "uint16", "uint32", "uint64",
+              "int8", "int16", "int32", "int64", "date32")
+# the CPU differential tests' tolerances: exp, exp2, log, log2, cbrt, float
+# power and the trigonometry within these; float sums (positive terms) within
+# EW_SUM_RTOL; everything else exact, a NaN matching any NaN
+EW_RTOL = {"float32": 2e-6, "float64": 1e-14}
+EW_SUM_RTOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def _ew_host(name, rng, family="general"):
+    """EW_N host values of Arrow type `name`, by input family, with the
+    type's edge values planted (as the CPU tests' edge_values)."""
+    import numpy as np
+
+    n = EW_N
+    if name == "bool":
+        return rng.random(n) < 0.5
+    if name.startswith("float"):
+        v = {"general": lambda: rng.standard_normal(n) * 10, "exp": lambda: rng.uniform(-20, 20, n),
+             "log": lambda: np.abs(rng.standard_normal(n) * 10) + 1e-3, "trig": lambda: rng.uniform(-10, 10, n),
+             "acos": lambda: rng.uniform(-1.2, 1.2, n), "positive": lambda: rng.random(n)}[family]().astype(name)
+        if family != "positive":
+            v[:9] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0, 1e30, -1e30]
+        return v
+    npdt = np.dtype("int32" if name == "date32" else name)
+    info = np.iinfo(npdt)
+    v = rng.integers(info.min, info.max, n, dtype=npdt, endpoint=True)
+    v[:7] = [info.min, info.max, 0, 1, info.max - 1, info.max // 2 + 1, info.min + 1]
+    return v
+
+
+def _ew_pair(name, host, valid):
+    """(cpu array, cuda array) of the same host values and validity."""
+    import numpy as np
+    import torch
+
+    import arrow_tpu_torch as att
+    from arrow_tpu_torch.utils import bits as B
+
+    if name == "bool":
+        cpu = att.BooleanArray.from_slice(host, device="cpu")
+    else:
+        cpu = att.PrimitiveArray.from_slice(host, dtype=att.ArrowType(name), device="cpu")
+    if valid is not None:
+        words = torch.from_numpy(B.pack_bits_np(valid, cpu.data.shape[0] if name == "bool" else
+                                                B.num_words(cpu.data.shape[0])).view(np.int32))
+        cpu = att.make_array(cpu.data, words, cpu.length, cpu.dtype, "cpu")
+    gpu = att.make_array(cpu.data.cuda(), None if cpu.validity is None else cpu.validity.cuda(),
+                         cpu.length, cpu.dtype, "cuda")
+    return cpu, gpu
+
+
+def _ew_inputs():
+    """The inputs of every check, as {key: (cpu array, cuda array)}: per
+    dtype a general column and a second operand (zero divisors, INT_MIN
+    over -1), the float families, shift amounts, gather and scatter indices
+    (distinct destinations), exponents and a mask; all with nulls."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    cols = {}
+    for name in (*EW_NUMERIC, "bool"):
+        a, b = _ew_host(name, rng), _ew_host(name, rng)
+        if name != "bool":
+            b = np.roll(b, 5)
+            if not name.startswith("float"):
+                b[::7] = 0
+                if np.iinfo(b.dtype).min < 0:
+                    a[3::11], b[3::11] = np.iinfo(b.dtype).min, -1
+        cols[name] = _ew_pair(name, a, rng.random(EW_N) < 0.8)
+        cols[name + "/b"] = _ew_pair(name, b, rng.random(EW_N) < 0.7)
+    for name in ("float32", "float64"):
+        for family in ("exp", "log", "trig", "acos", "positive"):
+            cols[f"{name}/{family}"] = _ew_pair(name, _ew_host(name, rng, family), rng.random(EW_N) < 0.8)
+        p = rng.uniform(-6, 6, EW_N).astype(name)
+        p[:7] = [0, 0.5, -1, np.inf, -np.inf, np.nan, 2]
+        cols[f"{name}/exponent"] = _ew_pair(name, p, None)
+    for name in ("int32", "int64"):
+        cols[f"{name}/base"] = _ew_pair(name, rng.integers(-5, 6, EW_N).astype(name), rng.random(EW_N) < 0.8)
+        cols[f"{name}/exponent"] = _ew_pair(name, rng.integers(-12, 70, EW_N).astype(name), None)
+    amounts = rng.integers(0, 70, EW_N).astype(np.uint32)
+    amounts[:4] = [31, 32, 63, 2**32 - 1]
+    cols["amount"] = _ew_pair("uint32", amounts, rng.random(EW_N) < 0.9)
+    cols["take"] = _ew_pair("uint32", rng.integers(0, EW_N, EW_N).astype(np.uint32), rng.random(EW_N) < 0.9)
+    cols["put_src"] = _ew_pair("uint32", rng.integers(0, EW_N, EW_N // 2).astype(np.uint32), None)
+    cols["put_dst"] = _ew_pair("uint32", rng.permutation(EW_N)[: EW_N // 2].astype(np.uint32), None)
+    return cols
+
+
+def _ew_cases():
+    """(label, fn(inputs on one device) -> array, rtol or None) for every
+    registered op over every dtype its API accepts."""
+    import arrow_tpu_torch as att
+    from arrow_tpu_torch import kernels as K
+
+    A = att.ArrowType
+    floats = ("float32", "float64")
+    ints = ("uint8", "uint16", "uint32", "uint64", "int8", "int16", "int32", "int64")
+    cases = []
+
+    def add(label, fn, rtol=None):
+        cases.append((label, fn, rtol))
+
+    for name in EW_NUMERIC:
+        for op in ("add", "sub", "mul", "div", "rem"):
+            add(f"{op} {name}", lambda c, op=op, name=name: getattr(K, op)(c[name], c[name + "/b"]))
+            for s in (7, 0):
+                add(f"{op}_scalar {s} {name}", lambda c, op=op, name=name, s=s: getattr(K, f"{op}_scalar")(c[name], s))
+        for op in ("eq", "gt", "gteq", "lt", "lteq"):
+            add(f"{op} {name}", lambda c, op=op, name=name: getattr(K, op)(c[name], c[name + "/b"]))
+            add(f"{op}_scalar {name}", lambda c, op=op, name=name: getattr(K, f"{op}_scalar")(c[name], 7))
+        for op in ("min", "max"):
+            add(f"{op} {name}", lambda c, op=op, name=name: getattr(K, op)(c[name], c[name + "/b"]))
+        for op in ("min_reduce", "max_reduce") + (() if name == "date32" else ("sum_",)):
+            src = f"{name}/positive" if op == "sum_" and name in floats else name
+            add(f"{op} {name}", lambda c, op=op, src=src: getattr(K, op)(c[src]),
+                EW_SUM_RTOL.get(name) if op == "sum_" else None)
+        for dst in EW_NUMERIC:
+            if dst != name:
+                add(f"cast {name}->{dst}", lambda c, name=name, dst=dst: K.cast(c[name], A(dst)))
+        add(f"cast bool->{name}", lambda c, name=name: K.cast(c["bool"], A(name)))
+        for dst in EW_NUMERIC:
+            if dst != name and att.dtypes.bit_width(A(dst)) == att.dtypes.bit_width(A(name)):
+                add(f"bitcast {name}->{dst}", lambda c, name=name, dst=dst: K.bitcast(c[name], A(dst)))
+    for name in (*EW_NUMERIC, "bool"):
+        add(f"merge {name}", lambda c, name=name: K.merge(c[name], c[name + "/b"], c["bool/b"]))
+        add(f"take {name}", lambda c, name=name: K.take(c[name], c["take"]))
+
+        def put(c, name=name):
+            dst = c[name + "/b"].clone()
+            K.put(c[name], c["put_src"], dst, c["put_dst"])
+            return dst
+        add(f"put {name}", put)
+
+        def broadcast(c, name=name):
+            value = {"bool": True, "float32": 2.5, "float64": -0.5}.get(name, 7)
+            with att.ComputePipeline(device=c["bool"].device) as p:
+                out = K.broadcast_op(value, EW_N - 3, p, dtype=A(name))
+            return out.bound()
+        add(f"broadcast {name}", broadcast)
+    for name in (*ints, "bool"):
+        for op in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+            add(f"{op} {name}", lambda c, op=op, name=name: getattr(K, op)(c[name], c[name + "/b"]))
+        add(f"bitwise_not {name}", lambda c, name=name: K.bitwise_not(c[name]))
+    for name in ints:
+        for op in ("bitwise_shl", "bitwise_shr"):
+            add(f"{op} {name}", lambda c, op=op, name=name: getattr(K, op)(c[name], c["amount"]))
+    for name in floats + ("int8", "int16", "int32", "int64"):
+        add(f"neg {name}", lambda c, name=name: K.neg(c[name]))
+        add(f"abs {name}", lambda c, name=name: K.abs(c[name]))
+    for name in floats:
+        add(f"sqrt {name}", lambda c, name=name: K.sqrt(c[name]))
+        for op, family in (("cbrt", "general"), ("exp", "exp"), ("exp2", "exp"), ("log", "log"), ("log2", "log")):
+            key = name if family == "general" else f"{name}/{family}"
+            add(f"{op} {name}", lambda c, op=op, key=key: getattr(K, op)(c[key]), EW_RTOL[name])
+        add(f"power {name}", lambda c, name=name: K.power(c[f"{name}/log"], c[f"{name}/exponent"]), EW_RTOL[name])
+    for name in ("int32", "int64"):
+        add(f"power {name}", lambda c, name=name: K.power(c[f"{name}/base"], c[f"{name}/exponent"]))
+    for name in floats + ("uint8", "uint16", "int8", "int16"):
+        for op in ("sin", "cos", "acos", "sinh"):
+            key = name if name not in floats else f"{name}/{'acos' if op == 'acos' else 'trig'}"
+            add(f"{op} {name}", lambda c, op=op, key=key: getattr(K, op)(c[key]),
+                EW_RTOL["float64" if name == "float64" else "float32"])  # integers give float32
+    return cases
+
+
+def _ew_check(label, got, want, rtol):
+    """The card's result against the CPU's: on the card; same dtype, length
+    and validity; values equal (floats: NaN where NaN, the rest bit for bit
+    or within rtol); the whole padded buffer, so the zero tails too.
+    Returns the largest relative error."""
+    import torch
+
+    require(got.data.is_cuda and (got.validity is None or got.validity.is_cuda), f"elementwise {label}: not on the card")
+    require((got.dtype, got.length) == (want.dtype, want.length), f"elementwise {label}: dtype or length")
+    require((got.validity is None) == (want.validity is None), f"elementwise {label}: validity buffer")
+    if want.validity is not None:
+        require(torch.equal(got.validity.cpu(), want.validity), f"elementwise {label}: validity bits")
+    g, w = got.data.cpu(), want.data
+    require(g.shape == w.shape, f"elementwise {label}: buffer of {g.shape[0]} rows, CPU {w.shape[0]}")
+    if not w.is_floating_point():
+        require(torch.equal(g, w), f"elementwise {label}: values")
+        return 0.0
+    nan = torch.isnan(w)
+    require(torch.equal(torch.isnan(g), nan), f"elementwise {label}: NaN rows")
+    g, w = g[~nan], w[~nan]
+    bits = torch.int32 if w.dtype is torch.float32 else torch.int64
+    finite = torch.isfinite(w)
+    require(torch.equal(g[~finite], w[~finite]), f"elementwise {label}: infinities")
+    gf, wf = g[finite].double(), w[finite].double()
+    rel = float(((gf - wf).abs() / wf.abs().clamp_min(1e-300)).max()) if gf.numel() else 0.0
+    if rtol is None:
+        require(torch.equal(g.view(bits), w.view(bits)), f"elementwise {label}: bits differ (max rel err {rel:.3g})")
+    else:
+        require(rel <= rtol, f"elementwise {label}: max rel err {rel:.3g} > {rtol}")
+    return rel
+
+
+def _ew_chain(K, x, k, pipeline=None):
+    """The 6-op chain: |2x + float(k)| by a compare and a merge."""
+    c = K.add_op(K.mul_scalar_op(x, 2.0, pipeline), K.cast_op(k, x.dtype, pipeline), pipeline)
+    return K.merge_op(c, K.neg_op(c, pipeline), K.gt_scalar_op(c, 0.0, pipeline), pipeline)
+
+
+def _ew_same_buffers(label, a, b):
+    import torch
+
+    require((a.dtype, a.length) == (b.dtype, b.length), f"elementwise {label}: dtype or length")
+    require(torch.equal(a.data, b.data), f"elementwise {label}: values")
+    require((a.validity is None) == (b.validity is None)
+            and (a.validity is None or torch.equal(a.validity, b.validity)), f"elementwise {label}: validity")
+
+
+def phase_elementwise(smi):
+    """Every op of the elementwise tier on the card against the CPU; the
+    pipelined chains against their eager runs; the times of add_scalar,
+    sum_ and the pipelined 2-op chain beside their bounds."""
+    import torch
+
+    import arrow_tpu_torch as att
+    from arrow_tpu_torch import kernels as K
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    inputs = _ew_inputs()
+    cpu = {key: pair[0] for key, pair in inputs.items()}
+    gpu = {key: pair[1] for key, pair in inputs.items()}
+    worst = {}
+    cases = _ew_cases()
+    for label, fn, rtol in cases:
+        rel = _ew_check(label, fn(gpu), fn(cpu), rtol)
+        op = label.split()[0]
+        worst[op] = max(worst.get(op, 0.0), rel)
+    del inputs, cpu, gpu
+    torch.cuda.empty_cache()
+    print(f"elementwise: {len(cases)} op and dtype cases at {EW_N} rows with nulls match the CPU "
+          f"(exact, a NaN matching any NaN; exp, exp2, log, log2, cbrt, float power and the trigonometry "
+          f"within rtol {EW_RTOL['float32']} / {EW_RTOL['float64']}, float sums of positive terms within "
+          f"{EW_SUM_RTOL['float32']} / {EW_SUM_RTOL['float64']}); outputs on the card; "
+          f"{time.perf_counter() - t0:.1f} s")
+    print("elementwise: largest relative error by op: "
+          + ", ".join(f"{op} {rel:.3g}" for op, rel in sorted(worst.items()) if rel))
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for n in EW_CHAIN_SIZES:
+        x = att.make_array(torch.randn(n, generator=gen, device="cuda"),
+                           torch.randint(-(2**31), 2**31, (n // 32,), generator=gen, device="cuda",
+                                         dtype=torch.int32), n, att.ArrowType.FLOAT32)
+        k = att.make_array(torch.randint(-(2**31), 2**31, (n,), generator=gen, device="cuda", dtype=torch.int32),
+                           None, n, att.ArrowType.UINT32)
+        plain = att.make_array(x.data, None, n, att.ArrowType.FLOAT32)
+        ten = att.Float32Array.from_slice([10.0], device="cuda")  # simple.py's 1-row rhs
+
+        def simple_chain(x=plain, ten=ten):
+            with att.ComputePipeline() as p:
+                r = K.mul_scalar_op_dyn(K.add_scalar_op_dyn(x, ten, p), ten, p)
+            return r  # the intermediate's handle is dropped
+
+        eager = K.mul_scalar_dyn(K.add_scalar_dyn(plain, ten), ten)
+        _ew_same_buffers(f"n={n} simple.py chain", simple_chain().bound(), eager)
+        with att.ComputePipeline() as p:
+            piped = _ew_chain(K, x, k, p)
+        _ew_same_buffers(f"n={n} 6-op chain", piped.bound(), _ew_chain(K, x, k))
+        require(piped.data.is_cuda and piped.validity.is_cuda, "elementwise chain output not on the card")
+        print(f"elementwise n={n}: simple.py's chain (add_scalar_op_dyn -> mul_scalar_op_dyn) and the 6-op chain "
+              f"(mul_scalar, cast u32->f32, add, gt_scalar, neg, merge) pipelined equal their eager runs")
+
+        u32 = att.make_array(k.data, None, n, att.ArrowType.UINT32)
+        times = {  # label: (the port's call, bytes a row of its bound, a bare torch call, its label)
+            "add_scalar f32": (lambda: K.add_scalar(plain, 10.0), 8,
+                               lambda: plain.data + 10.0, "x + 10.0"),
+            "sum_ u32": (lambda: K.sum_(u32), 4,
+                         lambda: torch.sum(u32.data), "torch.sum(x), int64 accumulation"),
+            "pipelined 2-op chain": (simple_chain, 8,
+                                     lambda: (plain.data + 10.0) * 10.0, "(x + 10.0) * 10.0"),
+        }
+        for label, (fn, row_bytes, torch_fn, torch_label) in times.items():
+            ms, torch_ms = cuda_ms(fn, CALLS_PER_SAMPLE), cuda_ms(torch_fn, CALLS_PER_SAMPLE)
+            bound_ms = row_bytes * n / HBM_BYTES_PER_S * 1e3
+            print(f"elementwise n={n} {label}: {ms:.4f} ms, bound {bound_ms:.4f} ms ({row_bytes} B a row at "
+                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {100 * bound_ms / ms:.0f}% of it); {torch_label} on the "
+                  f"bare buffer {torch_ms:.4f} ms (CUDA events, median of {REPS} samples of "
+                  f"{CALLS_PER_SAMPLE} calls after a warm-up; {smi})")
+        del x, k, plain, u32, eager, piped
+        torch.cuda.empty_cache()
+    print(f"elementwise: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+
+
 def idle_gaps(device, t0, t1):
     """The stretches [start, end) of [t0, t1) that no device interval covers
     (device: (start, end, name) sorted by start)."""
@@ -1832,6 +2141,7 @@ def main() -> int:
     phase_flagship(smi)
     launches, sort_join_measured = phase_sort_join(smi)
     groupby_launches, groupby_measured = phase_groupby(smi)
+    phase_elementwise(smi)
     phase_profile(smi)
 
     from arrow_tpu_torch.compute.kernels import _build

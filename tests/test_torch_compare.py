@@ -1,5 +1,7 @@
 """Compare ops of arrow_tpu_torch against arrow_tpu.kernels: array and scalar
-forms, NaN, nulls and unsigned values >= 2^(w-1); exact."""
+forms, NaN, nulls and unsigned values >= 2^(w-1); the elementwise min and
+max (NaN propagates, -0 below +0, unsigned order); the _op forms through a
+ComputePipeline; exact."""
 
 import numpy as np
 import pytest
@@ -8,7 +10,7 @@ import arrow_tpu as at
 import arrow_tpu_torch as att
 from arrow_tpu import kernels as JK
 from arrow_tpu_torch import kernels as TK
-from torch_helpers import assert_same, jax_to_torch
+from torch_helpers import assert_same, edge_values, jax_to_torch
 
 OPS = ["eq", "gt", "gteq", "lt", "lteq"]
 DTYPES = ["float32", "float64", "int32", "uint32", "int64", "uint64", "date32", "uint16"]
@@ -80,7 +82,48 @@ def test_nan_compares_false_and_null_is_null():
 def test_scalar_object_and_pipeline_refused():
     ta = att.Int32Array.from_slice([1, 5, 9], device="cpu")
     assert TK.gt_scalar(ta, att.Scalar.of(4)).values() == [False, True, True]
-    with pytest.raises(att.OperationNotSupported):
+    with pytest.raises(TypeError):  # a pipeline must be a ComputePipeline
         TK.gt(ta, ta, pipeline=object())
     with pytest.raises(att.OperationNotSupported):
         TK.gt(att.BooleanArray.from_slice([True], device="cpu"), ta)
+
+
+MINMAX_DTYPES = DTYPES + ["int8", "uint8", "int16"]
+
+
+@pytest.mark.parametrize("nulls", [False, True])
+@pytest.mark.parametrize("name", MINMAX_DTYPES)
+def test_elementwise_min_max(name, nulls):
+    rng = np.random.default_rng([200 + MINMAX_DTYPES.index(name), int(nulls)])
+    n = 600
+    a, b = edge_values(name, n, rng), np.roll(edge_values(name, n, rng), 3)
+    if name.startswith("float"):  # every order of +-0 and of a NaN against a number
+        a[20:26], b[20:26] = [0.0, -0.0, 0.0, -0.0, np.nan, 1.0], [-0.0, 0.0, 0.0, -0.0, 1.0, np.nan]
+    ja, ta = _pair(name, a, rng.random(n) < 0.8 if nulls else None)
+    jb, tb = _pair(name, b, rng.random(n) < 0.8 if nulls else None)
+    for op in ("min", "max", "min_array_dyn", "max_array_dyn", "min_dyn", "max_dyn"):
+        assert_same(getattr(JK, op)(ja, jb), getattr(TK, op)(ta, tb), nan_bits=False)
+
+
+@pytest.mark.parametrize("name", ["float32", "uint32", "int64"])
+def test_op_forms_in_a_pipeline(name):
+    """Every compare and min/max through its _op form in one pipeline, held
+    to the JAX package's pipeline."""
+    rng = np.random.default_rng(300 + DTYPES.index(name))
+    n = 300
+    a, b = _values(rng, name, n), _values(rng, name, n)
+    ja, ta = _pair(name, a, rng.random(n) < 0.8)
+    jb, tb = _pair(name, b, None)
+    s = SCALARS[name]
+    jp, tp = at.ComputePipeline(), att.ComputePipeline(device="cpu")
+    jouts, touts = [], []
+    for op in OPS + ["min", "max"]:
+        for mod, p, x, y, outs in ((JK, jp, ja, jb, jouts), (TK, tp, ta, tb, touts)):
+            outs.append(getattr(mod, f"{op}_op")(x, y, p))
+            outs.append(getattr(mod, f"{op}_op_dyn")(x, y, p))
+            if op in OPS:
+                outs.append(getattr(mod, f"{op}_scalar_op")(x, s, p))
+    jp.finish()
+    tp.finish()
+    for j, t in zip(jouts, touts):
+        assert_same(j.bound(), t.bound(), nan_bits=False)

@@ -1,6 +1,7 @@
-"""take and the RecordBatch transforms of arrow_tpu_torch against arrow_tpu:
-bool, nullable, u32 (values >= 2^31), 64-bit and 16-bit columns, repeated
-and out-of-range indices (they clamp).  Exact."""
+"""take, merge, put and the RecordBatch transforms of arrow_tpu_torch against
+arrow_tpu: bool, nullable, u32 (values >= 2^31), 64-bit and 16-bit columns,
+repeated and out-of-range indices (take's clamp; put drops destinations
+past the length), every combination of validity buffers in merge.  Exact."""
 
 import numpy as np
 import pytest
@@ -9,7 +10,7 @@ import arrow_tpu as at
 from arrow_tpu import kernels as JK
 from arrow_tpu.table import RecordBatch as JBatch
 from arrow_tpu_torch import kernels as TK
-from torch_helpers import assert_same, batch_to_torch, jax_to_torch
+from torch_helpers import assert_same, assert_zero_tail, batch_to_torch, jax_to_torch
 
 N = 1000
 
@@ -89,3 +90,71 @@ def test_record_batch_transforms_match_jax():
     assert jb.to_pydict() == tb.to_pydict()
     for name, arr in jb.to_numpy().items():
         np.testing.assert_array_equal(arr, tb.to_numpy()[name])
+
+
+MERGE_DTYPES = ["bool", "uint32", "int8", "uint64", "float64", "date32"]
+# which of (a, b, mask) carry a validity buffer
+VALIDITY = [(va, vb, vm) for va in (False, True) for vb in (False, True) for vm in (False, True)]
+
+
+@pytest.mark.parametrize("validity", VALIDITY, ids=lambda v: "".join("ABM"[i] if x else "-" for i, x in enumerate(v)))
+@pytest.mark.parametrize("name", MERGE_DTYPES)
+def test_merge_matches_jax(name, validity):
+    """merge's values and its 4-stage validity (a side without a bitmap
+    drops out; the mask's validity is cloned when neither side has one)."""
+    rng = np.random.default_rng([MERGE_DTYPES.index(name), VALIDITY.index(validity)])
+    n = 777
+    a, b = (_column_n(rng, name, n, 0.3 if v else 0.0) for v in validity[:2])
+    m = _column_n(rng, "bool", n, 0.2 if validity[2] else 0.0)
+    assert_same(JK.merge(a, b, m), TK.merge(jax_to_torch(a), jax_to_torch(b), jax_to_torch(m)))
+
+
+PUT_DTYPES = ["bool", "float32", "uint32", "int64", "uint16", "date32"]
+
+
+@pytest.mark.parametrize("nulls", ["none", "src", "dst", "both"])
+@pytest.mark.parametrize("name", PUT_DTYPES)
+def test_put_matches_jax(name, nulls):
+    """put over distinct destination indices (a duplicate's winner is
+    implementation-defined in both packages), source indices repeated, and
+    index arrays of unequal lengths (n = the shorter)."""
+    rng = np.random.default_rng([PUT_DTYPES.index(name), ["none", "src", "dst", "both"].index(nulls)])
+    src = _column_n(rng, name, 400, 0.3 if nulls in ("src", "both") else 0.0)
+    dst = _column_n(rng, name, 650, 0.3 if nulls in ("dst", "both") else 0.0)
+    si = at.UInt32Array.from_slice(rng.integers(0, 400, 300).astype(np.uint32))
+    di = at.UInt32Array.from_slice(rng.permutation(650)[:250].astype(np.uint32))
+    tdst = jax_to_torch(dst)
+    assert TK.put(jax_to_torch(src), jax_to_torch(si), tdst, jax_to_torch(di)) is None
+    JK.put(src, si, dst, di)
+    assert_same(dst, tdst)
+
+
+def test_put_drops_destinations_past_the_length():
+    src = at.Int32Array.from_slice([7, 8, 9])
+    dst = at.Int32Array.from_optional_slice([1, None, 3])
+    idx = at.UInt32Array.from_slice(np.array([0, 1, 2], np.uint32))
+    far = at.UInt32Array.from_slice(np.array([2, 3, 2**32 - 1], np.uint32))
+    tdst = jax_to_torch(dst)
+    TK.put(jax_to_torch(src), jax_to_torch(idx), tdst, jax_to_torch(far))
+    assert tdst.values() == [1, None, 7]
+    assert_zero_tail(tdst)
+
+
+def _column_n(rng, name, n, null_p):
+    if name == "bool":
+        vals = (rng.random(n) < 0.5).tolist()
+    else:
+        npdt = np.dtype("int32" if name == "date32" else name)
+        if npdt.kind == "f":
+            vals = rng.standard_normal(n).astype(npdt).tolist()
+        else:
+            info = np.iinfo(npdt)
+            vals = rng.integers(info.min, info.max, n, dtype=npdt, endpoint=True).tolist()
+    if null_p:
+        vals = [v if ok else None for v, ok in zip(vals, rng.random(n) >= null_p)]
+        if name == "bool":
+            return at.BooleanArray.from_optional_slice(vals)
+        return at.PrimitiveArray.from_optional_slice(vals, dtype=at.ArrowType(name))
+    if name == "bool":
+        return at.BooleanArray.from_slice(vals)
+    return at.PrimitiveArray.from_slice(np.asarray(vals, dtype=npdt), dtype=at.ArrowType(name))

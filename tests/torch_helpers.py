@@ -73,6 +73,58 @@ def merge_edge_planes(name, n, run_len, unique, seed=0):
     return planes
 
 
+# the elementwise tier's differential tests share one input length, so that
+# the JAX package compiles each op once per dtype
+ELEMENTWISE_N = 300
+NUMERIC = ["float32", "float64", "uint8", "uint16", "uint32", "uint64",
+           "int8", "int16", "int32", "int64", "date32"]
+
+
+def storage_numpy(name):
+    return np.dtype("int32" if name == "date32" else name)
+
+
+def edge_values(name, n, rng):
+    """n values of Arrow type `name` (numpy; bool for "bool") drawn from a
+    seeded rng, with the type's edge values planted: for floats NaN, +-inf,
+    +-0, 1, -1 and huge magnitudes; for integers the type's min and max,
+    0, 1, -1 (max for unsigned) and, for unsigned types, values above the
+    signed maximum."""
+    if name == "bool":
+        return rng.random(n) < 0.5
+    if name.startswith("float"):
+        v = (rng.standard_normal(n) * 10).astype(name)
+        edges = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0, 1e30, -1e30], name)
+    else:
+        npdt = storage_numpy(name)
+        info = np.iinfo(npdt)
+        v = rng.integers(info.min, info.max, n, dtype=npdt, endpoint=True)
+        edges = np.array([info.min, info.max, 0, 1, info.max - 1, info.max // 2 + 1, info.min + 1], npdt)
+        if info.min < 0:
+            edges = np.concatenate([edges, np.array([-1], npdt)])
+    v[: min(n, edges.shape[0])] = edges[: min(n, edges.shape[0])]
+    return v
+
+
+def make_pair(name, vals, valid=None):
+    """One column in both packages: the JAX package's array and the port's
+    (on the CPU); `valid` a bool mask of the non-null rows, or None."""
+    import arrow_tpu as at
+
+    if name == "bool":
+        if valid is None:
+            ja = at.BooleanArray.from_slice(vals)
+        else:
+            ja = at.BooleanArray.from_optional_slice(
+                [bool(v) if ok else None for v, ok in zip(vals, valid)])
+    elif valid is None:
+        ja = at.PrimitiveArray.from_slice(vals, dtype=at.ArrowType(name))
+    else:
+        ja = at.PrimitiveArray.from_optional_slice(
+            [v if ok else None for v, ok in zip(vals.tolist(), valid)], dtype=at.ArrowType(name))
+    return ja, jax_to_torch(ja)
+
+
 def jax_to_torch(arr, device="cpu"):
     """A JAX-package array -> the port's array, through Arrow buffers."""
     from arrow_tpu import io as jio
@@ -106,9 +158,12 @@ def assert_zero_tail(arr):
         assert not bits[n:].any(), "validity bits past the length"
 
 
-def assert_same(jarr, tarr, rtol=None):
+def assert_same(jarr, tarr, rtol=None, nan_bits=True):
     """Equal Arrow buffers: length, null count, validity bytes, and the value
-    bytes (floats within `rtol` when given, NaN matching NaN)."""
+    bytes (floats within `rtol` when given, NaN matching NaN).  With
+    `nan_bits` False, floats compare as values: a NaN matches a NaN whatever
+    its sign and payload (which IEEE leaves to the implementation), and
+    every other value must match bit for bit."""
     from arrow_tpu import io as jio
 
     je, te = jio.to_arrow_buffers(jarr), tio.to_arrow_buffers(tarr)
@@ -122,9 +177,14 @@ def assert_same(jarr, tarr, rtol=None):
     assert jd.dtype == td.dtype, (jd.dtype, td.dtype)
     if rtol is not None and jd.dtype.kind == "f":
         np.testing.assert_allclose(td, jd, rtol=rtol, equal_nan=True)
+    elif not nan_bits and jd.dtype.kind == "f":
+        np.testing.assert_array_equal(np.isnan(td), np.isnan(jd))
+        keep = ~np.isnan(jd)
+        np.testing.assert_array_equal(td[keep].view(np.uint8), jd[keep].view(np.uint8))
     else:
         np.testing.assert_array_equal(td.view(np.uint8), jd.view(np.uint8))
     assert_zero_tail(tarr)
 
 
-__all__ = ["assert_same", "assert_zero_tail", "batch_to_torch", "jax_to_torch", "merge_edge_planes"]
+__all__ = ["ELEMENTWISE_N", "NUMERIC", "assert_same", "assert_zero_tail", "batch_to_torch", "edge_values",
+           "jax_to_torch", "make_pair", "merge_edge_planes", "storage_numpy"]
