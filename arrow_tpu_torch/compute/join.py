@@ -143,7 +143,7 @@ def _empty(device) -> Tuple[ArrowArrayBase, ArrowArrayBase, int]:
     return make_array(empty, None, 0, _A.UINT32), make_array(empty, None, 0, _A.UINT32), 0
 
 
-def _emit_legacy(bk, bvalid, pk, pvalid, dtype, all_valid):
+def legacy_emit(bk, bvalid, pk, pvalid, dtype, all_valid):
     """probe_bounds + build_order, then a searchsorted expansion."""
     sorder = build_order(bk, bvalid, dtype, all_valid)
     lo, hi = probe_bounds(bk, bvalid, pk, pvalid, dtype)
@@ -305,7 +305,7 @@ def join_indices(
                 total,
             )
         # 2^31 pairs or more: the legacy emit's int64 positions
-    probe_idx, build_idx, t = _emit_legacy(bk, bvalid, pk, pvalid, dtype, build_keys.validity is None)
+    probe_idx, build_idx, t = legacy_emit(bk, bvalid, pk, pvalid, dtype, build_keys.validity is None)
     if t == 0:
         return _empty(device)
     return make_array(probe_idx, None, t, _A.UINT32), make_array(build_idx, None, t, _A.UINT32), t

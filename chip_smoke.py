@@ -54,7 +54,29 @@ Phases, each printing lines that start with its name:
    and timed; the query's time on auto's route against the sort route (at
    ~100M keys, 31 significant bits, that is the radix route against the sort
    route, which sets auto's choice between them), and on the plain path;
-7. elementwise: the elementwise tier, which has no hand-written kernel (plain
+7. distributed: the distributed tier (arrow_tpu_torch.parallel) at P = 1 on
+   a one-rank NCCL group (a file store), so that NCCL's all_gather and
+   all_to_all_single run: (a) the dryrun's step (shard_batch, filter,
+   aggregate, sum, join_indices of the aggregate's keys against the kept
+   rows, sort) at 2^27 rows a shard, checked against numpy and, operator by
+   operator and bit for bit, against the same step on the plain versions;
+   the launches of each operator (the filter must launch B1, the aggregate
+   B2 and B1, the sort B3); (b) BASELINE.json configs[4]'s join on one
+   shard: 2^27 unique u64 build keys, 2^27 probe keys drawn as the
+   group-by's skew, each with an i32 payload, distributed_join(fused=True)
+   giving exactly 2^27 rows, checked against a numpy oracle of the (key,
+   lv, rv) multiset; each operator's time beside the single-chip operator
+   on the same rows (compute.filter, hash_aggregate(method="sort"),
+   join_indices, sort_by_key, hash_join), the time of an exchange's count
+   read, peak device memory; (a)'s sort and (b)'s join each profiled beside
+   its single-chip operator (as in phase 9, with the device time in fills
+   and copies); then, if gloo moves CUDA tensors (checked on 2 ranks
+   first: only gloo's refusal of the device skips the step, any other
+   failure fails the phase), the dryrun's step on 4 gloo ranks sharing
+   the card at 2^22 rows a rank, every rank's shards held exactly against
+   4 CPU gloo ranks' (no times: the ranks share one card), or the reason
+   it was not run;
+8. elementwise: the elementwise tier, which has no hand-written kernel (plain
    torch ops, as XLA fusion was in the JAX package): every registered op
    over every dtype its API accepts, at 2^20 rows with nulls, on the card
    against the port's CPU result on the same inputs (exact, a NaN matching
@@ -66,9 +88,10 @@ Phases, each printing lines that start with its name:
    pipelined 2-op chain timed beside their bounds (8, 4 and 8 bytes a row)
    and beside a torch expression on the bare buffers; the phase's peak
    device memory;
-8. profile: each query at each size under torch.profiler: device busy time,
-   the device's idle share of the query's wall time (also without the idle
-   time spent in the profiler's own buffer requests), the device ops that
+9. profile: each query at each size under torch.profiler: device busy time,
+   the device time in fills and in copies, the device's idle share of the
+   query's wall time (also without the idle time spent in the profiler's
+   own buffer requests), the device ops that
    take the most time, the CUDA runtime calls that take the most host time,
    and the longest idle gaps with the host events inside them.
 
@@ -79,8 +102,8 @@ is one, and given its bound: the bytes it must move (each input row it needs
 read once, each output row written once) over the card's 3.35 TB/s.
 
 It then prints the nvidia-smi line, a JSON line with, for every kernel, its
-launch count on the main paths (the sort-join query, its 2-bit rerun, and the
-four group-by queries), its largest error against its plain version, and its
+launch count on the main paths (the sort-join query, its 2-bit rerun, the
+four group-by queries and the distributed phase's P = 1 operators), its largest error against its plain version, and its
 kernel, plain, library and bound times summed over the calls of those runs
 (B8 and B9: over their timed calls of phase 3), and last the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -145,6 +168,12 @@ GROUPBY_ROUTES = {"1k": ("groupby_dense",), "1m": ("radix_sort", "groupby_region
                   "skew": ("radix_sort", "groupby_region"), "100m": ("radix_sort", "segmented_scan")}
 # the partition route's class sort (bits 12-19) is one 8-bit pass
 GROUPBY_ONE_PASS = ("1m", "skew")
+# the distributed phase: rows a shard at P = 1 (DIST_SORT_1B.json puts 2^26-2^27
+# rows on each chip of the BASELINE's 1B-row configurations), and the gloo ranks
+# that share the card and their rows a rank
+DIST_N = 1 << 27
+DIST_P4_RANKS = 4
+DIST_P4_N = 1 << 22
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's data-sheet memory rate
 CROSSOVER_SIZES = (1 << 24, 1 << 26, 1 << 27)
 # float adds differ from the plain ladder in summation order only
@@ -159,6 +188,11 @@ PROFILE_GAPS = 4  # the longest device-idle gaps of a profiled query, printed
 OWN_DEVICE_FUNCTIONS = ("compact_pass", "seg_lookback",
                         "radix_histogram", "radix_scan_histogram", "radix_onesweep", "radix_or_and",
                         "merge_partition", "merge_tiles", "dense_histogram", "region_histogram")
+
+# device ops that profile_query sums apart: buffers filled with a constant
+# (zeros), and copies (memcpy, torch's copy and concatenation kernels, NCCL)
+FILL_OPS = ("FillFunctor", "Memset")
+COPY_OPS = ("Memcpy", "copy_kernel", "CatArrayBatchedCopy", "nccl")
 
 
 class PhaseFailed(RuntimeError):
@@ -1716,7 +1750,341 @@ def phase_groupby(smi):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the elementwise tier (no hand-written kernel; plain torch ops)
+# phase 7: the distributed tier (arrow_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+
+def _kernel_launches():
+    from arrow_tpu_torch.compute.kernels import _build
+
+    return {name: k.launches for name, k in _build.KERNELS.items()}
+
+
+def _counted(fn, total):
+    """fn() with the launch counts set to 0 just before it and read just
+    after; adds them to `total` and returns (result, launches)."""
+    import torch
+
+    from arrow_tpu_torch.compute.kernels import _build
+
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {name: n for name, n in _kernel_launches().items() if n}
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+    return out, launches
+
+
+def _same_shards(label, got, want):
+    """Two runs' shard prefixes (parallel.dryrun.shard_prefix) bit for bit."""
+    import numpy as np
+
+    require(sorted(got) == sorted(want), f"{label}: columns {sorted(got)} vs {sorted(want)}")
+    for name in want:
+        require(got[name].dtype == want[name].dtype and np.array_equal(got[name], want[name]),
+                f"{label}: column {name} differs")
+
+
+def _pairs(pidx, bidx, k):
+    import numpy as np
+
+    p, b = pidx.data[:k].cpu().numpy(), bidx.data[:k].cpu().numpy()
+    order = np.lexsort((b, p))
+    return np.stack([p[order], b[order]])
+
+
+# what gloo says when it refuses a tensor's device; any other error is a failure
+GLOO_REFUSAL = ("unsupported device type", "no backend type associated with device type")
+
+
+def gloo_cuda_probe(outdir):
+    """A rank's body (spawned): gloo's ragged all_to_all_single and
+    all_gather on CUDA tensors, checked.  A refusal of the CUDA device (and
+    only that) is written to ``outdir/rank<r>.refused`` and the rank exits
+    cleanly; every other error fails the rank."""
+    import pathlib as _pathlib
+
+    import torch
+    import torch.distributed as dist
+
+    me, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda:0")
+    # rank r sends d + 1 rows, each 1000 * r + d, to rank d
+    send = torch.cat([torch.full((d + 1, 2), 1000 * me + d, dtype=torch.int32, device=dev) for d in range(world)])
+    recv = torch.empty(((me + 1) * world, 2), dtype=torch.int32, device=dev)
+    want = torch.cat([torch.full((me + 1, 2), 1000 * s + me, dtype=torch.int32, device=dev) for s in range(world)])
+    parts = [torch.empty(3, dtype=torch.int64, device=dev) for _ in range(world)]
+    try:
+        dist.all_to_all_single(recv, send, [me + 1] * world, [d + 1 for d in range(world)])
+        dist.all_gather(parts, torch.full((3,), me, dtype=torch.int64, device=dev))
+    except (RuntimeError, ValueError) as e:
+        if not any(m in str(e).lower() for m in GLOO_REFUSAL):
+            raise
+        (_pathlib.Path(outdir) / f"rank{me}.refused").write_text(str(e).strip().splitlines()[-1])
+        return
+    if not (torch.equal(recv, want) and all(bool((t == s).all()) for s, t in enumerate(parts))):
+        raise RuntimeError("gloo moved CUDA tensors wrongly")
+
+
+def _dist_workload_a(rt, smi, launches):
+    """The dryrun's step at DIST_N rows a shard, operator by operator."""
+    import numpy as np
+    import torch
+
+    from arrow_tpu_torch import compute as C
+    from arrow_tpu_torch import parallel as PP
+    from arrow_tpu_torch.parallel import dryrun as D
+
+    n = DIST_N * rt.num_shards
+    t0 = time.perf_counter()
+    keys, vals, mask = D.dryrun_columns(n)
+    batch = D.dryrun_batch(keys, vals, mask, rt.device)
+    torch.cuda.synchronize()
+    print(f"distributed (a) n={n}: the dryrun's batch (u32 keys in [0, 64), i32 values in [-50, 50), "
+          f"mask v % 2 == 0) made and on the card in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+
+    def step(with_counts):
+        run = (lambda fn: _counted(fn, launches)) if with_counts else (lambda fn: (fn(), None))
+        out, per = {}, {}
+        sb, per["shard_batch"] = run(lambda: PP.shard_batch(batch, rt))
+        out["filtered"], per["filter"] = run(lambda: PP.distributed_filter(sb, "m"))
+        f = out["filtered"]
+        out["agg"], per["aggregate"] = run(
+            lambda: PP.distributed_aggregate(f, "k", [("s", "v", "sum"), ("c", None, "count")]))
+        out["total"], per["sum"] = run(lambda: PP.distributed_sum(f, "v"))
+        build = PP.ShardedBatch({"k": out["agg"].columns["key"]}, out["agg"].counts, rt)
+        join, per["join_indices"] = run(
+            lambda: PP.distributed_join_indices(build, f, "k", "k", out_capacity=4 * sb.capacity))
+        out["join_counts"], out["probe_idx"], out["build_idx"] = join[:3]
+        plain_sb = PP.ShardedBatch({"k": f.columns["k"], "v": f.columns["v"]}, f.counts, rt)
+        out["sorted"], per["sort"] = run(lambda: PP.distributed_sort(plain_sb, "k"))
+        return sb, build, plain_sb, out, per
+
+    sb, build, plain_sb, out, per = step(True)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    counts = D.check_dryrun(out, keys, vals, mask)
+    print(f"distributed (a) n={n}: {counts['filtered']} rows filtered, {counts['groups']} groups, "
+          f"{counts['matches']} join matches; matches numpy (the global sum, the sorted keys); "
+          f"launches by operator {per}; peak device memory {peak_gib:.2f} GiB ({base_gib:.2f} GiB of it the batch)")
+    for op, kernels in (("filter", ("compact_multi",)), ("aggregate", ("segmented_scan", "compact_multi")),
+                        ("sort", ("radix_sort",))):
+        for kernel in kernels:
+            require(per[op].get(kernel, 0) >= 1, f"distributed (a): {op} launched no {kernel}: {per[op]}")
+    with plain_path():
+        plain = step(False)[3]
+    for name in ("filtered", "agg", "sorted"):
+        _same_shards(f"distributed (a) {name} vs the plain path", D.shard_prefix(out[name]),
+                     D.shard_prefix(plain[name]))
+    require(int(out["total"]) == int(plain["total"]), "distributed (a): the sum differs from the plain path")
+    k = int(out["join_counts"][rt.rank])
+    require(np.array_equal(_pairs(out["probe_idx"], out["build_idx"], k),
+                           _pairs(plain["probe_idx"], plain["build_idx"], k)),
+            "distributed (a): the join's pairs differ from the plain path")
+    print(f"distributed (a) n={n}: every operator's shard matches the plain path bit for bit "
+          f"(join pairs as a multiset)")
+    del plain
+
+    # the single-chip operators on the same rows
+    kept = C.filter(batch.select(["k", "v"]), batch["m"])
+    groups = C.hash_aggregate(kept["k"], [("s", kept["v"], "sum"), ("c", None, "count")], method="sort")
+    f = out["filtered"]
+    pairs = {
+        "filter": (lambda: PP.distributed_filter(sb, "m"),
+                   lambda: C.filter(batch.select(["k", "v"]), batch["m"]), "compute.filter"),
+        "aggregate": (lambda: PP.distributed_aggregate(f, "k", [("s", "v", "sum"), ("c", None, "count")]),
+                      lambda: C.hash_aggregate(kept["k"], [("s", kept["v"], "sum"), ("c", None, "count")],
+                                               method="sort"), "hash_aggregate(method=sort)"),
+        "sum": (lambda: PP.distributed_sum(f, "v"), None, None),
+        "join_indices": (lambda: PP.distributed_join_indices(build, f, "k", "k", out_capacity=4 * sb.capacity),
+                         lambda: C.join_indices(groups["key"], kept["k"]), "join_indices"),
+        "sort": (lambda: PP.distributed_sort(plain_sb, "k"), lambda: C.sort_by_key(kept["k"], kept["v"]),
+                 "sort_by_key"),
+    }
+    for op, (dist_fn, single_fn, single_label) in pairs.items():
+        if single_fn is None:
+            ms = cuda_ms(dist_fn)
+            print(f"distributed (a) n={n} {op}: {ms:.3f} ms; no single-chip operator "
+                  f"(CUDA events, median of {REPS} after a warm-up; {smi})")
+            continue
+        ms, single_ms = interleaved_ms(dist_fn, single_fn)
+        print(f"distributed (a) n={n} {op}: {ms:.3f} ms; single-chip {single_label} on the same rows "
+              f"{single_ms:.3f} ms; the distributed layer's own {ms - single_ms:.3f} ms (CUDA events, "
+              f"median of {REPS} after a warm-up, in turns; {smi})")
+    # where the sort's own cost goes: the distributed sort and the single-chip one, profiled
+    profile_query("distributed (a) sort", n, lambda b: PP.distributed_sort(b, "k"), plain_sb, smi)
+    profile_query("distributed (a) single-chip sort_by_key", n, lambda b: C.sort_by_key(b["k"], b["v"]), kept, smi)
+    del batch, sb, build, plain_sb, out, kept, groups, f, pairs
+    torch.cuda.empty_cache()
+
+
+def _dist_workload_b(rt, smi, launches):
+    """BASELINE.json configs[4]'s distributed join on one shard: DIST_N
+    unique u64 build keys, DIST_N probe keys drawn as the group-by's skew."""
+    import numpy as np
+    import torch
+
+    import arrow_tpu_torch as att
+    from arrow_tpu_torch import compute as C
+    from arrow_tpu_torch import parallel as PP
+
+    n = DIST_N
+    gen = torch.Generator(device=rt.device)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    bkey = torch.randperm(n, generator=gen, device=rt.device)  # unique keys: a permutation of [0, n)
+    pkey = torch.floor(torch.rand(n, generator=gen, device=rt.device, dtype=torch.float64) ** 4 * n).long()
+    rv = torch.randint(-(2**31), 2**31, (n,), generator=gen, device=rt.device, dtype=torch.int32)
+    lv = torch.arange(n, dtype=torch.int32, device=rt.device)
+
+    def table(k, name, v):
+        return att.RecordBatch({"k": att.make_array(k, None, n, att.ArrowType.UINT64, rt.device),
+                                name: att.make_array(v, None, n, att.ArrowType.INT32, rt.device)})
+
+    right, left = table(bkey, "rv", rv), table(pkey, "lv", lv)
+    torch.cuda.synchronize()
+    print(f"distributed (b) n={n}: build {n} unique u64 keys (a permutation of [0, {n})) + i32 payload, probe "
+          f"{n} u64 keys floor(u^4 * {n}) + i32 row ids, made on the card in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    rsb, lsb = PP.shard_batch(right, rt), PP.shard_batch(left, rt)
+    joined, per = _counted(lambda: PP.distributed_join(lsb, rsb, "k", "k", fused=True), launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    m = joined.num_rows()
+    print(f"distributed (b) n={n}: distributed_join(fused=True) gives {m} rows, columns {joined.column_names}; "
+          f"launches {per}; peak device memory {peak_gib:.2f} GiB")
+    require(m == n, f"distributed (b): {m} joined rows, not {n}")
+
+    # numpy oracle: probe row lv matches the build row whose key is its key
+    hk, hrv = bkey.cpu().numpy(), rv.cpu().numpy()
+    rv_of_key = np.empty(n, np.int32)
+    rv_of_key[hk] = hrv
+    hpk = pkey.cpu().numpy()
+    got = {c: joined.columns[c].data[:m] for c in ("k", "lv", "rv")}
+    order = torch.argsort(got["lv"])
+    g_lv, g_k, g_rv = (got[c][order].cpu().numpy() for c in ("lv", "k", "rv"))
+    require(np.array_equal(g_lv, np.arange(n, dtype=np.int32)), "distributed (b): a probe row is lost or doubled")
+    require(np.array_equal(g_k, hpk), "distributed (b): a joined key differs from its probe row's")
+    require(np.array_equal(g_rv, rv_of_key[hpk]), "distributed (b): a joined rv is not its key's build row's")
+    print(f"distributed (b) n={n}: the (key, lv, rv) multiset matches the numpy oracle (each probe row once, "
+          f"with its key's build payload)")
+    del joined, got, order, g_lv, g_k, g_rv, hk, hrv, hpk, rv_of_key
+
+    fused_ms, unfused_ms = interleaved_ms(lambda: PP.distributed_join(lsb, rsb, "k", "k", fused=True),
+                                          lambda: PP.distributed_join(lsb, rsb, "k", "k", fused=False))
+    _, single_ms = interleaved_ms(lambda: PP.distributed_join(lsb, rsb, "k", "k", fused=True),
+                                  lambda: C.hash_join(left, right, "k", "k"))
+    print(f"distributed (b) n={n} join: fused {fused_ms:.3f} ms, unfused {unfused_ms:.3f} ms; single-chip "
+          f"hash_join on the same rows {single_ms:.3f} ms; the distributed layer's own "
+          f"{fused_ms - single_ms:.3f} ms (CUDA events, median of {REPS} after a warm-up, in turns; {smi})")
+    profile_query("distributed (b) join fused", n, lambda b: PP.distributed_join(b[0], b[1], "k", "k", fused=True),
+                  (lsb, rsb), smi)
+    profile_query("distributed (b) single-chip hash_join", n, lambda b: C.hash_join(b[0], b[1], "k", "k"),
+                  (left, right), smi)
+    del left, right, lsb, rsb, bkey, pkey, rv, lv
+    torch.cuda.empty_cache()
+
+
+def _dist_p4(smi):
+    """The dryrun's step on DIST_P4_RANKS gloo ranks sharing the card,
+    held shard by shard against the same ranks on the CPU; or the reason
+    why not (gloo refuses CUDA tensors)."""
+    import pathlib as _pathlib
+    import shutil
+    import tempfile
+
+    from arrow_tpu_torch.parallel import dryrun as D
+
+    p = DIST_P4_RANKS
+    dirs = {d: tempfile.mkdtemp(prefix=f"chip_smoke_{d.replace(':', '')}_") for d in ("probe", "cuda:0", "cpu")}
+    worlds = []
+    try:
+        # a rank that fails or hangs raises here and fails the phase
+        D.spawn("chip_smoke:gloo_cuda_probe", 2, [dirs["probe"]], device="cuda:0", timeout=300)
+        refused = sorted(_pathlib.Path(dirs["probe"]).glob("rank*.refused"))
+        if refused:
+            print(f"distributed P={p}: not run: gloo refused CUDA tensors on this machine: "
+                  f"{refused[0].read_text()}")
+            return
+        print("distributed: gloo takes CUDA tensors (ragged all_to_all_single and all_gather checked on 2 ranks)")
+        t0 = time.perf_counter()
+        worlds = [D.launch("arrow_tpu_torch.parallel.dryrun:dryrun_rank", p, [DIST_P4_N, d, dirs[d]], device=d,
+                           timeout=900) for d in ("cuda:0", "cpu")]
+        for w in worlds:
+            w.join()
+        _dist_p4_compare(p, {d: _pathlib.Path(dirs[d]) for d in ("cuda:0", "cpu")}, t0)
+    finally:
+        for w in worlds:
+            w.kill()
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def _dist_p4_compare(p, dirs, t0):
+    """Every rank's shards from the card held against the CPU ranks'."""
+    import numpy as np
+
+    for r in range(p):
+        with np.load(dirs["cuda:0"] / f"rank{r}.npz") as zg, np.load(dirs["cpu"] / f"rank{r}.npz") as zc:
+            got, want = {k: zg[k] for k in zg.files}, {k: zc[k] for k in zc.files}
+        for key in ("join/probe", "join/build"):
+            require(got[key].shape == want[key].shape, f"distributed P={p} rank {r}: {key} count differs")
+        gp = np.lexsort((got["join/build"], got["join/probe"]))
+        wp = np.lexsort((want["join/build"], want["join/probe"]))
+        for key in ("join/probe", "join/build"):
+            got[key], want[key] = got[key][gp], want[key][wp]
+        _same_shards(f"distributed P={p} rank {r} (card vs CPU)", got, want)
+    counts = json.loads((dirs["cuda:0"] / "result.json").read_text())
+    print(f"distributed P={p}: {p} gloo ranks on one card ran the dryrun's step at {DIST_P4_N} rows a rank "
+          f"({counts['filtered']} rows filtered, {counts['groups']} groups, {counts['matches']} join matches); "
+          f"every rank's filtered, aggregated and sorted shard, sum and join pairs equal {p} CPU gloo ranks' "
+          f"(exact; pairs as a multiset); {time.perf_counter() - t0:.1f} s with process start-up "
+          f"(correctness only: {p} processes share the card, so no time is taken)")
+
+
+def phase_distributed(smi):
+    """The distributed tier at P = 1 on NCCL, then P = 4 gloo ranks on the
+    card.  Returns the launches by kernel of the P = 1 operators (workloads
+    (a) and (b))."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from arrow_tpu_torch import parallel as PP
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
+    launches = {}
+    try:
+        rt = PP.MeshRuntime.create(devices="cuda:0")
+        require(rt.distributed and rt.num_shards == 1, f"distributed: {rt} is not a one-rank NCCL group")
+        print(f"distributed: {rt} on NCCL ({dist.get_backend()}), world size {dist.get_world_size()}")
+        cnt = torch.ones(1, dtype=torch.int32, device=rt.device)
+        read_ms = statistics.median(_host_ms(lambda: rt.all_gather(cnt).cpu().numpy()) for _ in range(20))
+        print(f"distributed: an exchange's count read at P=1 (all_gather of the (P,) counts, then one host read; "
+              f"the device idle): {read_ms:.4f} ms (host clock, median of 20; {smi})")
+        _dist_workload_a(rt, smi, launches)
+        _dist_workload_b(rt, smi, launches)
+    finally:
+        dist.destroy_process_group()
+    print(f"distributed: launches on the P=1 main paths (a) and (b) {launches}")
+    _dist_p4(smi)
+    print(f"distributed: phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _host_ms(fn) -> float:
+    start = time.perf_counter()
+    fn()
+    return (time.perf_counter() - start) * 1e3
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the elementwise tier (no hand-written kernel; plain torch ops)
 # ---------------------------------------------------------------------------
 
 EW_N = 1 << 20  # rows of each op's check against the CPU
@@ -2080,10 +2448,13 @@ def profile_query(label, n, query, batch, smi):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
     own = sum(us for name, us in by_name.items()
               if any(f"::{f}(" in name or f"::{f}<" in name for f in OWN_DEVICE_FUNCTIONS))
+    fills = sum(us for name, us in by_name.items() if any(m in name for m in FILL_OPS))
+    copies = sum(us for name, us in by_name.items() if any(m in name for m in COPY_OPS))
     wall = t1 - t0
     print(f"profile {label} n={n} ({smi}): query interval {wall / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall:.3f}; {len(device)} device ops; "
-          f"the hand-written kernels {own / 1e3:.3f} ms of the busy time")
+          f"the hand-written kernels {own / 1e3:.3f} ms of the busy time, fills {fills / 1e3:.3f} ms, "
+          f"copies {copies / 1e3:.3f} ms")
     for name, us in top:
         print(f"profile {label} n={n}:   {us / 1e3:8.3f} ms  {name[:110]}")
     host = [(e.time_range.start, e.time_range.end, e.name) for e in events
@@ -2141,6 +2512,7 @@ def main() -> int:
     phase_flagship(smi)
     launches, sort_join_measured = phase_sort_join(smi)
     groupby_launches, groupby_measured = phase_groupby(smi)
+    dist_launches = phase_distributed(smi)
     phase_elementwise(smi)
     phase_profile(smi)
 
@@ -2156,7 +2528,7 @@ def main() -> int:
         m = measured[name]
         kernels.append({
             "name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
-            "launches": launches[name] + groupby_launches[name],
+            "launches": launches[name] + groupby_launches[name] + dist_launches.get(name, 0),
             "max_abs_err": max(errs[name], m.err),
             "ms": m.ms, "plain_ms": m.plain_ms, "bound_ms": m.bound_ms, "bound_by": "bytes",
             "library_ms": m.library_ms,

@@ -186,5 +186,28 @@ def assert_same(jarr, tarr, rtol=None, nan_bits=True):
     assert_zero_tail(tarr)
 
 
+def sharded_to_numpy(sb):
+    """A JAX-package ShardedBatch as (counts, shards): each shard a dict of
+    its logical prefix, each column's values in its Arrow type (bools
+    unpacked) and, for a nullable column, "<name>/valid" (the layout of
+    ``arrow_tpu_torch.parallel.dryrun.shard_prefix``, which the port's ranks
+    write)."""
+    from arrow_tpu_torch.utils import bits as B
+
+    counts = [int(c) for c in np.asarray(sb.counts)]
+    shards = [{} for _ in counts]
+    for name, col in sb.columns.items():
+        data = np.asarray(col.data)
+        valid = None if col.validity is None else np.asarray(col.validity)
+        for s, c in enumerate(counts):
+            if col.dtype.value == "bool":
+                shards[s][name] = B.unpack_bits_np(data[s], c)
+            else:
+                shards[s][name] = data[s, :c]
+            if valid is not None:
+                shards[s][f"{name}/valid"] = B.unpack_bits_np(valid[s], c)
+    return counts, shards
+
+
 __all__ = ["ELEMENTWISE_N", "NUMERIC", "assert_same", "assert_zero_tail", "batch_to_torch", "edge_values",
-           "jax_to_torch", "make_pair", "merge_edge_planes", "storage_numpy"]
+           "jax_to_torch", "make_pair", "merge_edge_planes", "sharded_to_numpy", "storage_numpy"]
