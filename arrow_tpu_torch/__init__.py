@@ -45,6 +45,7 @@ from .runtime import ComputePipeline, Device, LazyArray, default_device, set_def
 from .table import RecordBatch, Table
 
 from . import compute, io, kernels  # noqa: E402  (after the array types)
+from .runtime import fusion  # noqa: E402,F401  (registers the fused_pipeline kernel)
 
 __version__ = "0.1.0"
 

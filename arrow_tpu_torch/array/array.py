@@ -19,6 +19,7 @@ import torch
 
 from .. import dtypes as dt
 from ..config import config
+from ..runtime import native
 from ..runtime.device import Device, as_device
 from ..utils import bits as B
 from .validity import NullBitBuffer
@@ -39,19 +40,6 @@ def _padded_host(host: np.ndarray, n: int, dtype: dt.ArrowType) -> np.ndarray:
     buf = np.zeros(pad_len(n), dtype=dt.storage_numpy(dtype))
     buf[:n] = dt.to_storage_np(host, dtype)
     return buf
-
-
-def densify_optionals(values: Iterable[Optional[Any]], npdt=None):
-    """[v | None] -> (dense values with 0 for None, valid mask, length)."""
-    vals = list(values)
-    valid = np.fromiter((v is not None for v in vals), count=len(vals), dtype=np.bool_)
-    present = [v for v in vals if v is not None]
-    if npdt is None:
-        npdt = np.asarray(present).dtype if present else np.dtype(np.float32)
-    dense = np.zeros(len(vals), dtype=npdt)
-    if present:
-        dense[valid] = np.asarray(present, dtype=npdt)
-    return dense, valid, len(vals)
 
 
 class ArrowArrayBase:
@@ -148,11 +136,13 @@ class PrimitiveArray(ArrowArrayBase):
         """None -> a zero data value + a cleared validity bit."""
         dtype = dtype or cls.DTYPE
         device = as_device(device)
-        vals, mask, n = densify_optionals(values, dt.info(dtype).numpy if dtype else None)
-        if dtype is None:
-            dtype = dt.from_numpy_dtype(vals.dtype)
+        if dtype is None:  # the type of the values present; float32 when there is none
+            values = list(values)
+            present = [v for v in values if v is not None]
+            dtype = dt.from_numpy_dtype(np.asarray(present).dtype if present else np.float32)
+        vals, mask, n = native.densify_optionals(values, dt.info(dtype).numpy)
         data = device.put(_padded_host(vals, n, dtype))
-        if mask.all():
+        if mask is None:
             return make_array(data, None, n, dtype, device)
         words = B.pack_bits_np(mask, pad_words(n)).view(np.int32)
         return make_array(data, device.put(words), n, dtype, device)

@@ -33,11 +33,17 @@ from . import groupby_region as region  # the module; groupby_region() below is 
 __all__ = [
     "compaction", "compaction3", "groupby_mxu", "merge", "radix", "region", "segscan",
     "compact", "compact_multi", "groupby_dense", "groupby_region", "merge_pass",
-    "plain_versions", "radix_sort", "segmented_scan", "segmented_scan_multi", "sort_kv",
+    "plain_versions", "radix_sort", "using_plain", "segmented_scan", "segmented_scan_multi", "sort_kv",
     "split_multi",
 ]
 
 _plain = False
+
+
+def using_plain() -> bool:
+    """Whether the operators call the plain versions (inside
+    :func:`plain_versions`)."""
+    return _plain
 
 
 @contextlib.contextmanager

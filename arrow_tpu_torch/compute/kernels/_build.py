@@ -12,6 +12,11 @@ loaded.
 Each kernel is described by a :class:`Kernel` record in :data:`KERNELS`,
 which also holds its launch count: the wrapper adds one where it launches the
 kernel, and nowhere else.
+
+:func:`build_generated` is the second entry point: it builds CUDA sources
+that the port generates at run time (``runtime/fusion.py``), each into a
+library of its own under ``build/arrow_tpu_torch/fused/``, named by a hash of
+the source and the flags, and loads it.
 """
 
 from __future__ import annotations
@@ -35,6 +40,15 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "arrow_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+GENERATED_DIR = BUILD_DIR / "fused"
+#: the generated sources' flags: no FMA contraction, since the eager ops
+#: round a product and a sum apart
+GENERATED_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-shared",
 )
 
 
@@ -156,3 +170,64 @@ def check(err: int, what: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+#: (library names, wall seconds) of each batch of generated sources this
+#: process built (a batch's nvcc processes run together); a library found up
+#: to date on disk is not listed
+GENERATED_BUILDS: list = []
+_GENERATED: Dict[pathlib.Path, ctypes.CDLL] = {}
+
+
+def generated_path(source: str) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(GENERATED_FLAGS).encode())
+    h.update(source.encode())
+    return GENERATED_DIR / f"libfused_{h.hexdigest()[:16]}.so"
+
+
+def build_generated(sources) -> list:
+    """Build (one nvcc process for each source not built yet, all started
+    together) and load generated CUDA sources; returns their ctypes
+    libraries, in order.  Raises if a build fails."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the generated kernels need a CUDA device")
+    paths = [generated_path(src) for src in sources]
+    todo = {}
+    for path, src in zip(paths, sources):
+        if path not in _GENERATED and not path.exists():
+            todo[path] = src
+    if todo:
+        GENERATED_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = []
+        for path, src in todo.items():
+            cu = path.with_suffix(f".{os.getpid()}.cu")
+            cu.write_text(src)
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            procs.append((path, cu, tmp, subprocess.Popen(
+                [_nvcc(), *GENERATED_FLAGS, "-o", str(tmp), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        try:
+            for path, cu, tmp, proc in procs:
+                log = proc.communicate()[0]
+                if proc.returncode != 0:
+                    failed.append(f"{cu.name} ({proc.returncode}):\n{log}")
+                    continue
+                os.replace(tmp, path)
+        finally:
+            for path, cu, tmp, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                tmp.unlink(missing_ok=True)
+                if not failed:
+                    cu.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed on generated sources (kept beside the libraries):\n"
+                               + "\n".join(failed))
+        GENERATED_BUILDS.append((tuple(path.name for path in todo), time.perf_counter() - t0))
+    for path in paths:
+        if path not in _GENERATED:
+            _GENERATED[path] = ctypes.CDLL(str(path))
+    return [_GENERATED[path] for path in paths]

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+import os
 
 
 @dataclasses.dataclass
@@ -11,6 +12,9 @@ class Config:
     #: word, so a value buffer always covers whole validity/mask words.  The
     #: CUDA kernels take any length; nothing here needs a larger unit.
     pad_unit: int = 32
+    #: record each eager op's and each pipeline's wall time, to the end of
+    #: its device work, in ``runtime.profiler`` (``ARROW_TPU_PROFILE=1``)
+    profile: bool = bool(int(os.environ.get("ARROW_TPU_PROFILE", "0")))
 
 
 config = Config()

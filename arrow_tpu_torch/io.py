@@ -20,6 +20,7 @@ import numpy as np
 from . import dtypes as dt
 from .array.array import make_array, pad_len, pad_words
 from .array.boolean import BooleanArray
+from .runtime import native
 from .runtime.device import as_device
 from .table import RecordBatch
 
@@ -42,7 +43,10 @@ def to_arrow_buffers(arr) -> Dict[str, object]:
         words = arr.device.get(arr.validity)
         validity = words.view(np.uint8)[: (n + 7) // 8].copy()
         # padding bits are zero by invariant: the popcount counts valid rows
-        null_count = n - int(np.unpackbits(words.view(np.uint8)).sum())
+        set_bits = native.popcount_native(words)
+        if set_bits is None:  # no native library: numpy
+            set_bits = int(np.unpackbits(words.view(np.uint8)).sum())
+        null_count = n - set_bits
     return {"data": data, "validity": validity, "length": n, "null_count": null_count}
 
 

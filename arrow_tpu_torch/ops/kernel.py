@@ -103,8 +103,18 @@ def get_op(name: str) -> OpDef:
 
 
 def execute(op_name: str, avs: Sequence[AV], params: Optional[dict] = None) -> list:
-    """Run a registered op eagerly; returns the list of output AVs."""
-    outs = get_op(op_name).impl(*avs, **(params or {}))
+    """Run a registered op eagerly; returns the list of output AVs.  With
+    ``config.profile`` set, its wall time to the end of its device work is
+    logged under the op's name."""
+    from ..config import config
+
+    impl = get_op(op_name).impl
+    if config.profile:
+        from ..runtime import profiler
+
+        outs = profiler.timed_call(op_name, lambda: impl(*avs, **(params or {})))
+    else:
+        outs = impl(*avs, **(params or {}))
     return [outs] if isinstance(outs, AV) else list(outs)
 
 

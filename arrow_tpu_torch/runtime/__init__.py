@@ -1,5 +1,7 @@
-"""Runtime layer: device handles and lazy pipelines."""
+"""Runtime layer: device handles, lazy pipelines, profiling, health checks
+and the native host library."""
 
+from . import profiler
 from .device import Device, as_device, default_device, set_default_device
 from .pipeline import ComputePipeline, LazyArray
 
@@ -9,5 +11,6 @@ __all__ = [
     "LazyArray",
     "as_device",
     "default_device",
+    "profiler",
     "set_default_device",
 ]

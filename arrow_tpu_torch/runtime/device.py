@@ -35,6 +35,19 @@ class Device:
         """Blocking device -> host copy."""
         return buf.detach().cpu().numpy()
 
+    def synchronize(self) -> None:
+        """Wait for all work queued on this device (nothing to wait for on
+        the CPU)."""
+        if self.torch_device.type == "cuda":
+            torch.cuda.synchronize(self.torch_device)
+
+    def memory_stats(self) -> dict:
+        """The allocator's statistics (``torch.cuda.memory_stats``); ``{}``
+        where the platform keeps none, as on the CPU."""
+        if self.torch_device.type == "cuda":
+            return dict(torch.cuda.memory_stats(self.torch_device))
+        return {}
+
     def __repr__(self) -> str:
         return f"Device({self.torch_device})"
 

@@ -1,13 +1,20 @@
-"""Lazy compute pipeline: record ops, then replay them in one ``finish()``.
+"""Lazy compute pipeline: record ops, then run them in one ``finish()``.
 
 Counterpart of ``arrow_tpu/runtime/pipeline.py``.  ``record`` appends a node
 to an op graph and returns :class:`LazyArray` handles, whose dtype and
 length are known at once (each op's ``out_meta``); ``finish()`` runs the
-graph once, eagerly, in recording order, on the pipeline's device, and binds
-the handles.  An intermediate is freed after its last consumer when no live
-handle holds it, and ``finish()`` makes no host synchronisation of its own.
-The JAX package traces the graph into one fused XLA program instead; the
-replay here launches each op's torch kernels as the eager call does.
+graph once on the pipeline's device and binds the handles.
+
+As the JAX package compiles one program for each graph signature and caches
+it, ``finish()`` takes the graph's plan from ``runtime.fusion.plan`` (cached
+by signature: op names, params, dtypes, which operands are scalars, the
+live handles): runs of fusible ops become fused groups, each one launch of a
+CUDA kernel generated from the graph, whose dropped intermediates stay in
+registers; the other ops run eagerly.  On the CPU, and on the card inside
+``compute.kernels.plain_versions()``, a group replays its ops eagerly (its
+plain version).  An intermediate is freed after its last reader when no
+live handle holds it, and ``finish()`` makes no host synchronisation of its
+own.
 
 Usage:
 
@@ -80,6 +87,7 @@ class _Node:
     inputs: tuple
     params: dict
     out_ids: tuple  # output slot ids
+    out_meta: tuple  # ((dtype, length), ...) of the outputs
 
 
 class ComputePipeline:
@@ -132,7 +140,7 @@ class ComputePipeline:
         out_meta = tuple(opdef.out_meta(metas, params))
         out_ids = tuple(range(self._next_slot, self._next_slot + len(out_meta)))
         self._next_slot += len(out_meta)
-        self._nodes.append(_Node(op_name, in_refs, dict(params), out_ids))
+        self._nodes.append(_Node(op_name, in_refs, dict(params), out_ids, out_meta))
         handles = [
             LazyArray(self, oid, dtype, length) for oid, (dtype, length) in zip(out_ids, out_meta)
         ]
@@ -141,37 +149,93 @@ class ComputePipeline:
 
     # -- submission ----------------------------------------------------------
 
+    def _live(self) -> list:
+        live = [(oid, ref()) for oid, ref in self._handles]
+        return [(oid, h) for oid, h in live if h is not None]
+
+    def signature(self) -> tuple:
+        """The graph's signature: its nodes, each input's dtype, kind and
+        length class (equal lengths share a class), and the slot ids that
+        live handles hold."""
+        from .fusion import SigNode
+
+        classes: dict = {}
+        inputs = []
+        for av in self._inputs:
+            if av.is_scalar:
+                inputs.append((av.dtype, "host" if av.data.device.type == "cpu" else "device", -1))
+            else:
+                inputs.append((av.dtype, "array", classes.setdefault(av.length, len(classes))))
+        nodes = tuple(
+            SigNode(n.op, n.inputs, tuple(sorted(n.params.items())), n.out_ids,
+                    tuple((d, classes.setdefault(length, len(classes))) for d, length in n.out_meta))
+            for n in self._nodes)
+        return nodes, tuple(inputs), tuple(sorted({oid for oid, _ in self._live()}))
+
+    def plan(self):
+        """The recorded graph's plan (``runtime.fusion.plan``)."""
+        from .fusion import plan
+
+        return plan(self.signature())
+
     def finish(self) -> None:
         """Run the recorded graph once and bind every live handle; a second
-        call does nothing."""
+        call does nothing.  With ``config.profile`` set, the run's wall time
+        to the end of its device work is logged as ``pipeline[<n> ops]``."""
         from ..array.array import make_array
-        from ..ops.kernel import execute
+        from ..config import config
 
         if self._finished:
             return
         self._finished = True
-        live = [(oid, ref()) for oid, ref in self._handles]
-        live = [(oid, h) for oid, h in live if h is not None]
-        keep = {oid for oid, _ in live}
-        last_use: dict[int, int] = {}
-        for i, node in enumerate(self._nodes):
-            for kind, idx in node.inputs:
-                if kind == "node":
-                    last_use[idx] = i
+        live = self._live()
         env = {}
-        for i, node in enumerate(self._nodes):
-            avs = [env[idx] if kind == "node" else self._inputs[idx] for kind, idx in node.inputs]
-            for oid, out in zip(node.out_ids, execute(node.op, avs, node.params)):
-                if oid in keep or oid in last_use:
-                    env[oid] = out
-            for kind, idx in node.inputs:
-                if kind == "node" and last_use[idx] == i and idx not in keep:
-                    env.pop(idx, None)
+        if self._nodes:
+            p = self.plan()
+            keep = {oid for oid, _ in live}
+            if config.profile:
+                from . import profiler
+
+                env = profiler.timed_call(f"pipeline[{len(self._nodes)} ops]", self._run, p, keep)
+            else:
+                env = self._run(p, keep)
         self._inputs.clear()
         self._input_ids.clear()
         for oid, handle in live:
             o = env[oid]
             handle._bind(make_array(o.data, o.validity, o.length, o.dtype, self.device))
+
+    def _run(self, p, keep: set) -> dict:
+        """Run the plan's steps; returns the values live handles hold."""
+        from ..compute.kernels import using_plain
+        from ..ops.kernel import execute
+        from .fusion import Boundary, run_group_cuda, run_group_plain
+
+        last_read = {}
+        for k, step in enumerate(p.steps):
+            for oid in step.reads:
+                last_read[oid] = k
+        env = {}
+
+        def value(ref):
+            return env[ref[1]] if ref[0] == "node" else self._inputs[ref[1]]
+
+        fused = self.device.torch_device.type == "cuda" and not using_plain()
+        for k, step in enumerate(p.steps):
+            if isinstance(step, Boundary):
+                node = self._nodes[step.node]
+                produced = dict(zip(node.out_ids, execute(node.op, [value(r) for r in node.inputs], node.params)))
+            elif fused:
+                produced = run_group_cuda(p, step, value)
+            else:
+                produced = run_group_plain(self._nodes, step, value)
+            for oid, out in produced.items():
+                if oid in keep or last_read.get(oid, -1) > k:
+                    env[oid] = out
+            for oid in step.reads:
+                if last_read[oid] == k and oid not in keep:
+                    env.pop(oid, None)
+        return env
 
     def __enter__(self) -> "ComputePipeline":
         return self

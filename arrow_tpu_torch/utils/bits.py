@@ -81,9 +81,17 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
 
 
 def pack_bits_np(mask: np.ndarray, pad_words: Optional[int] = None) -> np.ndarray:
-    """bool[N] -> uint32[ceil(N/32)] (LSB-first), optionally padded with 0-words."""
+    """bool[N] -> uint32[ceil(N/32)] (LSB-first), optionally padded with 0-words.
+
+    Runs the C++ host runtime (``runtime.native``) where it is built."""
+    from ..runtime import native
+
     mask = np.asarray(mask, dtype=np.bool_)
     w = num_words(mask.shape[0]) if pad_words is None else pad_words
+    if w >= num_words(mask.shape[0]):
+        out = native.pack_bits_native(mask.view(np.uint8), w)
+        if out is not None:
+            return out
     nb = np.packbits(mask, bitorder="little")
     buf = np.zeros(w * 4, dtype=np.uint8)
     buf[: nb.shape[0]] = nb
@@ -91,6 +99,15 @@ def pack_bits_np(mask: np.ndarray, pad_words: Optional[int] = None) -> np.ndarra
 
 
 def unpack_bits_np(words: np.ndarray, n: int) -> np.ndarray:
-    """32-bit words (uint32 or int32) -> bool[n] (LSB-first)."""
-    by = np.ascontiguousarray(words).view(np.uint8)
+    """32-bit words (uint32 or int32) -> bool[n] (LSB-first).
+
+    Runs the C++ host runtime (``runtime.native``) where it is built."""
+    from ..runtime import native
+
+    words = np.ascontiguousarray(words)
+    if n <= words.size * WORD_BITS and words.itemsize == 4:
+        out = native.unpack_bits_native(words, n)
+        if out is not None:
+            return out
+    by = words.view(np.uint8)
     return np.unpackbits(by, count=n, bitorder="little").astype(np.bool_)

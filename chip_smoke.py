@@ -76,18 +76,26 @@ Phases, each printing lines that start with its name:
    the card at 2^22 rows a rank, every rank's shards held exactly against
    4 CPU gloo ranks' (no times: the ranks share one card), or the reason
    it was not run;
-8. elementwise: the elementwise tier, which has no hand-written kernel (plain
-   torch ops, as XLA fusion was in the JAX package): every registered op
-   over every dtype its API accepts, at 2^20 rows with nulls, on the card
-   against the port's CPU result on the same inputs (exact, a NaN matching
-   any NaN, except exp, exp2, log, log2, cbrt, float power and the
-   trigonometry within rtol 2e-6 / 1e-14 and float sums within 1e-5 /
-   1e-12), outputs asserted on the card; examples/simple.py's chain and a
-   6-op chain (arithmetic, cast, compare, merge) pipelined against their
-   eager runs at 10 485 760 and 2^27 rows; add_scalar f32, sum_ u32 and the
-   pipelined 2-op chain timed beside their bounds (8, 4 and 8 bytes a row)
-   and beside a torch expression on the bare buffers; the phase's peak
-   device memory;
+8. elementwise: the elementwise tier (plain torch ops, as XLA's ops were in
+   the JAX package): every registered op over every dtype its API accepts,
+   at 2^20 rows with nulls, on the card against the port's CPU result on
+   the same inputs (exact, a NaN matching any NaN, except exp, exp2, log,
+   log2, cbrt, float power and the trigonometry within rtol 2e-6 / 1e-14
+   and float sums within 1e-5 / 1e-12), outputs asserted on the card; then
+   the fused pipeline (runtime/fusion.py, kernel fused_pipeline): every one
+   of those cases whose op the fusion covers, recorded into one pipeline
+   for each ops module (their kernels built together, the builds and their
+   seconds printed), each equal to its eager run on the card;
+   examples/simple.py's chain and a 6-op chain (arithmetic, cast, compare,
+   merge) pipelined against their eager runs and their eager replays
+   (plain versions) at 10 485 760 and 2^27 rows, each exactly one launch
+   of fused_pipeline a finish(); add_scalar f32, sum_ u32 and both chains
+   (fused, and replayed eagerly in turns) timed beside their bounds (8, 4,
+   8 and 12.25 bytes a row) and beside a torch expression on the bare
+   buffers; the phase's peak device memory; a runtime line:
+   Device.synchronize() and memory_stats(), the health probe's latency,
+   profiler.device_report's top 5 kernels of the flagship query at 2^27,
+   and utils.timing's device time of add_scalar beside its CUDA-event time;
 9. profile: each query at each size under torch.profiler: device busy time,
    the device time in fills and in copies, the device's idle share of the
    query's wall time (also without the idle time spent in the profiler's
@@ -103,9 +111,12 @@ read once, each output row written once) over the card's 3.35 TB/s.
 
 It then prints the nvidia-smi line, a JSON line with, for every kernel, its
 launch count on the main paths (the sort-join query, its 2-bit rerun, the
-four group-by queries and the distributed phase's P = 1 operators), its largest error against its plain version, and its
-kernel, plain, library and bound times summed over the calls of those runs
-(B8 and B9: over their timed calls of phase 3), and last the line
+four group-by queries, the distributed phase's P = 1 operators and the
+elementwise phase's pipelined chains), its largest error against its plain
+version, and its kernel, plain, library and bound times summed over the
+calls of those runs (B8 and B9: over their timed calls of phase 3;
+fused_pipeline: simple.py's chain at 2^27, fused, replayed eagerly, and as
+(x + 10.0) * 10.0 on the bare buffer), and last the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero without that line; so does a machine
 without CUDA.
@@ -2098,12 +2109,11 @@ EW_RTOL = {"float32": 2e-6, "float64": 1e-14}
 EW_SUM_RTOL = {"float32": 1e-5, "float64": 1e-12}
 
 
-def _ew_host(name, rng, family="general"):
-    """EW_N host values of Arrow type `name`, by input family, with the
-    type's edge values planted (as the CPU tests' edge_values)."""
+def _ew_host(name, rng, family="general", n=EW_N):
+    """n host values of Arrow type `name`, by input family, with the type's
+    edge values planted (as the CPU tests' edge_values)."""
     import numpy as np
 
-    n = EW_N
     if name == "bool":
         return rng.random(n) < 0.5
     if name.startswith("float"):
@@ -2120,8 +2130,8 @@ def _ew_host(name, rng, family="general"):
     return v
 
 
-def _ew_pair(name, host, valid):
-    """(cpu array, cuda array) of the same host values and validity."""
+def _ew_pair(name, host, valid, device="cuda"):
+    """(cpu array, array on `device`) of the same host values and validity."""
     import numpy as np
     import torch
 
@@ -2136,51 +2146,54 @@ def _ew_pair(name, host, valid):
         words = torch.from_numpy(B.pack_bits_np(valid, cpu.data.shape[0] if name == "bool" else
                                                 B.num_words(cpu.data.shape[0])).view(np.int32))
         cpu = att.make_array(cpu.data, words, cpu.length, cpu.dtype, "cpu")
-    gpu = att.make_array(cpu.data.cuda(), None if cpu.validity is None else cpu.validity.cuda(),
-                         cpu.length, cpu.dtype, "cuda")
+    gpu = att.make_array(cpu.data.to(device), None if cpu.validity is None else cpu.validity.to(device),
+                         cpu.length, cpu.dtype, device)
     return cpu, gpu
 
 
-def _ew_inputs():
-    """The inputs of every check, as {key: (cpu array, cuda array)}: per
-    dtype a general column and a second operand (zero divisors, INT_MIN
-    over -1), the float families, shift amounts, gather and scatter indices
-    (distinct destinations), exponents and a mask; all with nulls."""
+def _ew_inputs(n=EW_N, device="cuda"):
+    """The inputs of every check, n rows each (the scatter's n // 2), as
+    {key: (cpu array, array on `device`)}: per dtype a general column and a
+    second operand (zero divisors, INT_MIN over -1), the float families,
+    shift amounts, gather and scatter indices (distinct destinations),
+    exponents and a mask; all with nulls."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     cols = {}
     for name in (*EW_NUMERIC, "bool"):
-        a, b = _ew_host(name, rng), _ew_host(name, rng)
+        a, b = _ew_host(name, rng, n=n), _ew_host(name, rng, n=n)
         if name != "bool":
             b = np.roll(b, 5)
             if not name.startswith("float"):
                 b[::7] = 0
                 if np.iinfo(b.dtype).min < 0:
                     a[3::11], b[3::11] = np.iinfo(b.dtype).min, -1
-        cols[name] = _ew_pair(name, a, rng.random(EW_N) < 0.8)
-        cols[name + "/b"] = _ew_pair(name, b, rng.random(EW_N) < 0.7)
+        cols[name] = _ew_pair(name, a, rng.random(n) < 0.8, device=device)
+        cols[name + "/b"] = _ew_pair(name, b, rng.random(n) < 0.7, device=device)
     for name in ("float32", "float64"):
         for family in ("exp", "log", "trig", "acos", "positive"):
-            cols[f"{name}/{family}"] = _ew_pair(name, _ew_host(name, rng, family), rng.random(EW_N) < 0.8)
-        p = rng.uniform(-6, 6, EW_N).astype(name)
+            cols[f"{name}/{family}"] = _ew_pair(name, _ew_host(name, rng, family, n), rng.random(n) < 0.8, device=device)
+        p = rng.uniform(-6, 6, n).astype(name)
         p[:7] = [0, 0.5, -1, np.inf, -np.inf, np.nan, 2]
-        cols[f"{name}/exponent"] = _ew_pair(name, p, None)
+        cols[f"{name}/exponent"] = _ew_pair(name, p, None, device=device)
     for name in ("int32", "int64"):
-        cols[f"{name}/base"] = _ew_pair(name, rng.integers(-5, 6, EW_N).astype(name), rng.random(EW_N) < 0.8)
-        cols[f"{name}/exponent"] = _ew_pair(name, rng.integers(-12, 70, EW_N).astype(name), None)
-    amounts = rng.integers(0, 70, EW_N).astype(np.uint32)
+        cols[f"{name}/base"] = _ew_pair(name, rng.integers(-5, 6, n).astype(name), rng.random(n) < 0.8, device=device)
+        cols[f"{name}/exponent"] = _ew_pair(name, rng.integers(-12, 70, n).astype(name), None, device=device)
+    amounts = rng.integers(0, 70, n).astype(np.uint32)
     amounts[:4] = [31, 32, 63, 2**32 - 1]
-    cols["amount"] = _ew_pair("uint32", amounts, rng.random(EW_N) < 0.9)
-    cols["take"] = _ew_pair("uint32", rng.integers(0, EW_N, EW_N).astype(np.uint32), rng.random(EW_N) < 0.9)
-    cols["put_src"] = _ew_pair("uint32", rng.integers(0, EW_N, EW_N // 2).astype(np.uint32), None)
-    cols["put_dst"] = _ew_pair("uint32", rng.permutation(EW_N)[: EW_N // 2].astype(np.uint32), None)
+    cols["amount"] = _ew_pair("uint32", amounts, rng.random(n) < 0.9, device=device)
+    cols["take"] = _ew_pair("uint32", rng.integers(0, n, n).astype(np.uint32), rng.random(n) < 0.9, device=device)
+    cols["put_src"] = _ew_pair("uint32", rng.integers(0, n, n // 2).astype(np.uint32), None, device=device)
+    cols["put_dst"] = _ew_pair("uint32", rng.permutation(n)[: n // 2].astype(np.uint32), None, device=device)
     return cols
 
 
 def _ew_cases():
-    """(label, fn(inputs on one device) -> array, rtol or None) for every
-    registered op over every dtype its API accepts."""
+    """(label, fn(inputs on one device, pipeline=None) -> array, rtol or
+    None, op) for every registered op over every dtype its API accepts; op
+    names the op that fn records into a pipeline when one is given (None
+    where fn runs eagerly only: reductions, take, put, broadcast)."""
     import arrow_tpu_torch as att
     from arrow_tpu_torch import kernels as K
 
@@ -2189,70 +2202,93 @@ def _ew_cases():
     ints = ("uint8", "uint16", "uint32", "uint64", "int8", "int16", "int32", "int64")
     cases = []
 
-    def add(label, fn, rtol=None):
-        cases.append((label, fn, rtol))
+    def add(label, fn, rtol=None, op=None):
+        cases.append((label, fn, rtol, op))
+
+    def call(name, *keys, rtol=None, op=None, label=None, **kw):
+        """A case calling K.<name>(inputs[key]..., **kw), recorded as `op`."""
+        add(label or f"{name} {keys[0]}", lambda c, p=None: getattr(K, name)(
+            *(c[k] for k in keys), **kw, pipeline=p), rtol, op or name)
 
     for name in EW_NUMERIC:
         for op in ("add", "sub", "mul", "div", "rem"):
-            add(f"{op} {name}", lambda c, op=op, name=name: getattr(K, op)(c[name], c[name + "/b"]))
+            call(op, name, name + "/b")
             for s in (7, 0):
-                add(f"{op}_scalar {s} {name}", lambda c, op=op, name=name, s=s: getattr(K, f"{op}_scalar")(c[name], s))
+                add(f"{op}_scalar {s} {name}", lambda c, p=None, op=op, name=name, s=s: getattr(K, f"{op}_scalar")(
+                    c[name], s, pipeline=p), None, f"{op}_scalar")
         for op in ("eq", "gt", "gteq", "lt", "lteq"):
-            add(f"{op} {name}", lambda c, op=op, name=name: getattr(K, op)(c[name], c[name + "/b"]))
-            add(f"{op}_scalar {name}", lambda c, op=op, name=name: getattr(K, f"{op}_scalar")(c[name], 7))
+            call(op, name, name + "/b")
+            add(f"{op}_scalar {name}", lambda c, p=None, op=op, name=name: getattr(K, f"{op}_scalar")(
+                c[name], 7, pipeline=p), None, f"{op}_scalar")
         for op in ("min", "max"):
-            add(f"{op} {name}", lambda c, op=op, name=name: getattr(K, op)(c[name], c[name + "/b"]))
+            call(op, name, name + "/b")
         for op in ("min_reduce", "max_reduce") + (() if name == "date32" else ("sum_",)):
             src = f"{name}/positive" if op == "sum_" and name in floats else name
-            add(f"{op} {name}", lambda c, op=op, src=src: getattr(K, op)(c[src]),
+            add(f"{op} {name}", lambda c, p=None, op=op, src=src: getattr(K, op)(c[src]),
                 EW_SUM_RTOL.get(name) if op == "sum_" else None)
         for dst in EW_NUMERIC:
             if dst != name:
-                add(f"cast {name}->{dst}", lambda c, name=name, dst=dst: K.cast(c[name], A(dst)))
-        add(f"cast bool->{name}", lambda c, name=name: K.cast(c["bool"], A(name)))
+                call("cast", name, to=A(dst), label=f"cast {name}->{dst}")
+        call("cast", "bool", to=A(name), label=f"cast bool->{name}")
         for dst in EW_NUMERIC:
             if dst != name and att.dtypes.bit_width(A(dst)) == att.dtypes.bit_width(A(name)):
-                add(f"bitcast {name}->{dst}", lambda c, name=name, dst=dst: K.bitcast(c[name], A(dst)))
+                call("bitcast", name, to=A(dst), label=f"bitcast {name}->{dst}")
     for name in (*EW_NUMERIC, "bool"):
-        add(f"merge {name}", lambda c, name=name: K.merge(c[name], c[name + "/b"], c["bool/b"]))
-        add(f"take {name}", lambda c, name=name: K.take(c[name], c["take"]))
+        call("merge", name, name + "/b", "bool/b")
+        add(f"take {name}", lambda c, p=None, name=name: K.take(c[name], c["take"]))
 
-        def put(c, name=name):
+        def put(c, p=None, name=name):
             dst = c[name + "/b"].clone()
             K.put(c[name], c["put_src"], dst, c["put_dst"])
             return dst
         add(f"put {name}", put)
 
-        def broadcast(c, name=name):
+        def broadcast(c, p=None, name=name):
             value = {"bool": True, "float32": 2.5, "float64": -0.5}.get(name, 7)
-            with att.ComputePipeline(device=c["bool"].device) as p:
-                out = K.broadcast_op(value, EW_N - 3, p, dtype=A(name))
+            with att.ComputePipeline(device=c["bool"].device) as pipe:
+                out = K.broadcast_op(value, EW_N - 3, pipe, dtype=A(name))
             return out.bound()
         add(f"broadcast {name}", broadcast)
     for name in (*ints, "bool"):
         for op in ("bitwise_and", "bitwise_or", "bitwise_xor"):
-            add(f"{op} {name}", lambda c, op=op, name=name: getattr(K, op)(c[name], c[name + "/b"]))
-        add(f"bitwise_not {name}", lambda c, name=name: K.bitwise_not(c[name]))
+            call(op, name, name + "/b")
+        call("bitwise_not", name)
     for name in ints:
         for op in ("bitwise_shl", "bitwise_shr"):
-            add(f"{op} {name}", lambda c, op=op, name=name: getattr(K, op)(c[name], c["amount"]))
+            call(op, name, "amount")
     for name in floats + ("int8", "int16", "int32", "int64"):
-        add(f"neg {name}", lambda c, name=name: K.neg(c[name]))
-        add(f"abs {name}", lambda c, name=name: K.abs(c[name]))
+        call("neg", name)
+        call("abs", name, op="math_abs")
     for name in floats:
-        add(f"sqrt {name}", lambda c, name=name: K.sqrt(c[name]))
+        call("sqrt", name, op="math_sqrt")
         for op, family in (("cbrt", "general"), ("exp", "exp"), ("exp2", "exp"), ("log", "log"), ("log2", "log")):
             key = name if family == "general" else f"{name}/{family}"
-            add(f"{op} {name}", lambda c, op=op, key=key: getattr(K, op)(c[key]), EW_RTOL[name])
-        add(f"power {name}", lambda c, name=name: K.power(c[f"{name}/log"], c[f"{name}/exponent"]), EW_RTOL[name])
+            call(op, key, rtol=EW_RTOL[name], op=f"math_{op}", label=f"{op} {name}")
+        call("power", f"{name}/log", f"{name}/exponent", rtol=EW_RTOL[name], label=f"power {name}")
     for name in ("int32", "int64"):
-        add(f"power {name}", lambda c, name=name: K.power(c[f"{name}/base"], c[f"{name}/exponent"]))
+        call("power", f"{name}/base", f"{name}/exponent", label=f"power {name}")
     for name in floats + ("uint8", "uint16", "int8", "int16"):
         for op in ("sin", "cos", "acos", "sinh"):
             key = name if name not in floats else f"{name}/{'acos' if op == 'acos' else 'trig'}"
-            add(f"{op} {name}", lambda c, op=op, key=key: getattr(K, op)(c[key]),
-                EW_RTOL["float64" if name == "float64" else "float32"])  # integers give float32
+            call(op, key, rtol=EW_RTOL["float64" if name == "float64" else "float32"],  # integers give float32
+                 op=f"trig_{op}", label=f"{op} {name}")
     return cases
+
+
+# the module of the port's ops that each pipelined op comes from
+EW_MODULES = {"arithmetic": ("add", "sub", "mul", "div", "rem", "neg"),
+              "compare": ("eq", "gt", "gteq", "lt", "lteq", "min", "max"),
+              "logical": ("bitwise_",), "cast": ("cast", "bitcast"), "swizzle": ("merge",),
+              "math": ("math_", "power"), "trigonometry": ("trig_",)}
+
+
+def ew_module(op):
+    """The ops module a pipelined case's op belongs to."""
+    base = op.removesuffix("_scalar")
+    for module, prefixes in EW_MODULES.items():
+        if any(base == q or (q.endswith("_") and base.startswith(q)) for q in prefixes):
+            return module
+    raise KeyError(op)
 
 
 def _ew_check(label, got, want, rtol):
@@ -2302,14 +2338,70 @@ def _ew_same_buffers(label, a, b):
             and (a.validity is None or torch.equal(a.validity, b.validity)), f"elementwise {label}: validity")
 
 
+def _fused_cases(gpu, want):
+    """Every pipelined case of _ew_cases, recorded into one pipeline for each
+    ops module on the card (a handful of graph signatures, so a handful of
+    builds, all started together), run fused and held to its eager run on
+    the card (`want`, label -> CPU copy of the eager CUDA result).  Returns
+    (cases, groups, builds, build seconds)."""
+    import torch
+
+    import arrow_tpu_torch as att
+    from arrow_tpu_torch.compute.kernels import _build
+    from arrow_tpu_torch.runtime import fusion
+
+    by_module = {}
+    for label, fn, rtol, op in _ew_cases():
+        if op is not None:
+            by_module.setdefault(ew_module(op), []).append((label, fn, rtol))
+    pipes = {}
+    for module, cases in by_module.items():
+        pipe = att.ComputePipeline(device="cuda")
+        pipes[module] = (pipe, [(label, fn(gpu, pipe), rtol) for label, fn, rtol in cases])
+    plans = {module: pipe.plan() for module, (pipe, _) in pipes.items()}
+    for module, plan in plans.items():
+        require(not any(isinstance(s, fusion.Boundary) for s in plan.steps),
+                f"fused {module}: an op of the table was planned as a boundary")
+    batches = len(_build.GENERATED_BUILDS)
+    t0 = time.perf_counter()
+    fusion.prepare(list(plans.values()))
+    build_s = time.perf_counter() - t0
+    builds = sum(len(names) for names, _ in _build.GENERATED_BUILDS[batches:])
+    groups = sum(len(plan.groups) for plan in plans.values())
+    _build.reset_launch_counts()
+    for pipe, _ in pipes.values():
+        pipe.finish()
+    torch.cuda.synchronize()
+    launches = _build.KERNELS["fused_pipeline"].launches
+    require(launches == groups, f"fused cases: {launches} launches of fused_pipeline for {groups} groups")
+    count = 0
+    for module, (_, handles) in pipes.items():
+        for label, handle, rtol in handles:
+            _ew_check(f"fused {label}", handle.bound(), want[label], rtol)
+            count += 1
+    return count, groups, builds, build_s
+
+
+def _chain_bytes(*arrays) -> int:
+    """The bytes a fused pass must move for each row: each live input's and
+    output's data and validity, once."""
+    return sum(a.data.element_size() + (0.125 if a.validity is not None else 0.0) for a in arrays)
+
+
 def phase_elementwise(smi):
-    """Every op of the elementwise tier on the card against the CPU; the
-    pipelined chains against their eager runs; the times of add_scalar,
-    sum_ and the pipelined 2-op chain beside their bounds."""
+    """Every op of the elementwise tier on the card against the CPU; every
+    op and dtype case that the fusion covers, pipelined and fused on the
+    card, against its eager run there; the pipelined chains against their
+    eager runs, each one launch of fused_pipeline a finish(); the times of
+    add_scalar, sum_ and both chains (fused and replayed eagerly) beside
+    their bounds; a runtime line (Device, health, profiler, timing).
+    Returns (fused_pipeline launches on the chains' runs, {"fused_pipeline":
+    Measured of the 2-op chain at the largest size})."""
     import torch
 
     import arrow_tpu_torch as att
     from arrow_tpu_torch import kernels as K
+    from arrow_tpu_torch.compute.kernels import _build
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2319,12 +2411,15 @@ def phase_elementwise(smi):
     gpu = {key: pair[1] for key, pair in inputs.items()}
     worst = {}
     cases = _ew_cases()
-    for label, fn, rtol in cases:
-        rel = _ew_check(label, fn(gpu), fn(cpu), rtol)
-        op = label.split()[0]
-        worst[op] = max(worst.get(op, 0.0), rel)
-    del inputs, cpu, gpu
-    torch.cuda.empty_cache()
+    eager_gpu = {}  # label -> the eager CUDA result, on the host, of each pipelined case
+    for label, fn, rtol, op in cases:
+        got = fn(gpu)
+        rel = _ew_check(label, got, fn(cpu), rtol)
+        if op is not None:
+            eager_gpu[label] = att.make_array(got.data.cpu(), None if got.validity is None else got.validity.cpu(),
+                                              got.length, got.dtype, "cpu")
+        name = label.split()[0]
+        worst[name] = max(worst.get(name, 0.0), rel)
     print(f"elementwise: {len(cases)} op and dtype cases at {EW_N} rows with nulls match the CPU "
           f"(exact, a NaN matching any NaN; exp, exp2, log, log2, cbrt, float power and the trigonometry "
           f"within rtol {EW_RTOL['float32']} / {EW_RTOL['float64']}, float sums of positive terms within "
@@ -2332,9 +2427,19 @@ def phase_elementwise(smi):
           f"{time.perf_counter() - t0:.1f} s")
     print("elementwise: largest relative error by op: "
           + ", ".join(f"{op} {rel:.3g}" for op, rel in sorted(worst.items()) if rel))
+    t1 = time.perf_counter()
+    count, groups, builds, build_s = _fused_cases(gpu, eager_gpu)
+    print(f"elementwise fused: {count} op and dtype cases pipelined ({len(EW_MODULES)} pipelines, one for each "
+          f"ops module) run as {groups} fused groups, {groups} launches of fused_pipeline, each equal to its "
+          f"eager run on the card (exact, a NaN matching any NaN; transcendental ops within the rtol above); "
+          f"{builds} fused builds in {build_s:.1f} s (nvcc, one process for each source, all started together); "
+          f"{time.perf_counter() - t1:.1f} s")
+    del inputs, cpu, gpu, eager_gpu
+    torch.cuda.empty_cache()
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    launches, measured = 0, {}
     for n in EW_CHAIN_SIZES:
         x = att.make_array(torch.randn(n, generator=gen, device="cuda"),
                            torch.randint(-(2**31), 2**31, (n // 32,), generator=gen, device="cuda",
@@ -2349,35 +2454,108 @@ def phase_elementwise(smi):
                 r = K.mul_scalar_op_dyn(K.add_scalar_op_dyn(x, ten, p), ten, p)
             return r  # the intermediate's handle is dropped
 
+        def six_op_chain(x=x, k=k):
+            with att.ComputePipeline() as p:
+                r = _ew_chain(K, x, k, p)
+            return r
+
         eager = K.mul_scalar_dyn(K.add_scalar_dyn(plain, ten), ten)
-        _ew_same_buffers(f"n={n} simple.py chain", simple_chain().bound(), eager)
-        with att.ComputePipeline() as p:
-            piped = _ew_chain(K, x, k, p)
-        _ew_same_buffers(f"n={n} 6-op chain", piped.bound(), _ew_chain(K, x, k))
-        require(piped.data.is_cuda and piped.validity.is_cuda, "elementwise chain output not on the card")
+        eager6 = _ew_chain(K, x, k)
+        for label, chain, want in (("simple.py chain", simple_chain, eager), ("6-op chain", six_op_chain, eager6)):
+            _build.reset_launch_counts()
+            got = chain().bound()
+            torch.cuda.synchronize()
+            fused = _build.KERNELS["fused_pipeline"].launches
+            require(fused == 1, f"elementwise n={n} {label}: {fused} launches of fused_pipeline in one finish()")
+            launches += fused
+            _ew_same_buffers(f"n={n} {label}", got, want)
+            require(got.data.is_cuda and (got.validity is None or got.validity.is_cuda),
+                    f"elementwise n={n} {label}: output not on the card")
+            with plain_path():
+                _ew_same_buffers(f"n={n} {label} replayed eagerly", chain().bound(), want)
         print(f"elementwise n={n}: simple.py's chain (add_scalar_op_dyn -> mul_scalar_op_dyn) and the 6-op chain "
-              f"(mul_scalar, cast u32->f32, add, gt_scalar, neg, merge) pipelined equal their eager runs")
+              f"(mul_scalar, cast u32->f32, add, gt_scalar, neg, merge) pipelined equal their eager runs, "
+              f"each one launch of fused_pipeline a finish(), and so do their eager replays (plain versions)")
+
+        def replayed(chain):
+            def run():
+                with plain_path():
+                    return chain()
+            return run
 
         u32 = att.make_array(k.data, None, n, att.ArrowType.UINT32)
-        times = {  # label: (the port's call, bytes a row of its bound, a bare torch call, its label)
-            "add_scalar f32": (lambda: K.add_scalar(plain, 10.0), 8,
-                               lambda: plain.data + 10.0, "x + 10.0"),
-            "sum_ u32": (lambda: K.sum_(u32), 4,
-                         lambda: torch.sum(u32.data), "torch.sum(x), int64 accumulation"),
-            "pipelined 2-op chain": (simple_chain, 8,
+        times = {  # label: (the port's call, its plain version, bytes a row of its bound, a bare torch call)
+            "add_scalar f32": (lambda: K.add_scalar(plain, 10.0), None, 8, lambda: plain.data + 10.0, "x + 10.0"),
+            "sum_ u32": (lambda: K.sum_(u32), None, 4, lambda: torch.sum(u32.data),
+                         "torch.sum(x), int64 accumulation"),
+            "pipelined 2-op chain": (simple_chain, replayed(simple_chain), _chain_bytes(plain, eager),
                                      lambda: (plain.data + 10.0) * 10.0, "(x + 10.0) * 10.0"),
+            "pipelined 6-op chain": (six_op_chain, replayed(six_op_chain), _chain_bytes(x, k, eager6),
+                                     None, None),
         }
-        for label, (fn, row_bytes, torch_fn, torch_label) in times.items():
-            ms, torch_ms = cuda_ms(fn, CALLS_PER_SAMPLE), cuda_ms(torch_fn, CALLS_PER_SAMPLE)
+        for label, (fn, plain_fn, row_bytes, torch_fn, torch_label) in times.items():
+            if plain_fn is None:
+                ms, plain_ms = cuda_ms(fn, CALLS_PER_SAMPLE), None
+            else:
+                ms, plain_ms = interleaved_ms(fn, plain_fn, CALLS_PER_SAMPLE)
+            torch_ms = cuda_ms(torch_fn, CALLS_PER_SAMPLE) if torch_fn is not None else None
             bound_ms = row_bytes * n / HBM_BYTES_PER_S * 1e3
-            print(f"elementwise n={n} {label}: {ms:.4f} ms, bound {bound_ms:.4f} ms ({row_bytes} B a row at "
-                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {100 * bound_ms / ms:.0f}% of it); {torch_label} on the "
-                  f"bare buffer {torch_ms:.4f} ms (CUDA events, median of {REPS} samples of "
-                  f"{CALLS_PER_SAMPLE} calls after a warm-up; {smi})")
-        del x, k, plain, u32, eager, piped
+            print(f"elementwise n={n} {label}: {ms:.4f} ms"
+                  + (f" fused, {plain_ms:.4f} ms replayed eagerly (one pass an op)" if plain_ms is not None else "")
+                  + f", bound {bound_ms:.4f} ms ({row_bytes:g} B a row at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+                  f"{100 * bound_ms / ms:.0f}% of it)"
+                  + (f"; {torch_label} on the bare buffer {torch_ms:.4f} ms" if torch_ms is not None else "")
+                  + f" (CUDA events, median of {REPS} samples of {CALLS_PER_SAMPLE} calls after a warm-up; {smi})")
+            if label == "pipelined 2-op chain" and n == EW_CHAIN_SIZES[-1]:
+                measured["fused_pipeline"] = Measured(0.0, ms, plain_ms, torch_ms, bound_ms)
+        del x, k, plain, u32, eager, eager6
         torch.cuda.empty_cache()
     print(f"elementwise: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"fused builds in this process {sum(len(names) for names, _ in _build.GENERATED_BUILDS)} in "
+          f"{len(_build.GENERATED_BUILDS)} batches, {sum(s for _, s in _build.GENERATED_BUILDS):.1f} s of nvcc "
+          f"wall time; "
           f"phase {time.perf_counter() - t0:.1f} s")
+    phase_runtime(smi)
+    return {"fused_pipeline": launches}, measured
+
+
+def phase_runtime(smi):
+    """A runtime line on the card: Device.synchronize and memory_stats, the
+    health probe's latency, device_report's top kernels of the flagship
+    query, and utils.timing's device time of add_scalar beside the CUDA-event
+    time of the same call."""
+    import torch
+
+    import arrow_tpu_torch as att
+    from arrow_tpu_torch import flagship
+    from arrow_tpu_torch import kernels as K
+    from arrow_tpu_torch.runtime import health, profiler
+    from arrow_tpu_torch.utils import timing
+
+    device = att.default_device()
+    require(device.platform == "cuda", f"runtime: the default device is {device}")
+    device.synchronize()
+    stats = device.memory_stats()
+    require(bool(stats) and "allocated_bytes.all.current" in stats, "runtime: memory_stats() is empty on the card")
+    latency = health.probe_device(timeout_s=60.0)
+    n = FLAGSHIP_SIZES[-1]
+    batch = flagship.make_batch(n, seed=0, device="cuda")
+    flagship.flagship_query(batch)  # warm-up
+    profiler.reset()
+    rows = profiler.device_report(flagship.flagship_query, batch, top=5)
+    require(bool(rows), "runtime: device_report saw no device kernel of the flagship query")
+    del batch
+    x = att.make_array(torch.randn(n, device="cuda"), None, n, att.ArrowType.FLOAT32)
+    per_iter = timing.device_seconds_per_iter(lambda a: K.add_scalar(a, 1.0), x)
+    event_ms = cuda_ms(lambda: K.add_scalar(x, 1.0), CALLS_PER_SAMPLE)
+    print(f"runtime: Device.synchronize() ok; memory_stats() {len(stats)} keys, "
+          f"{stats['allocated_bytes.all.current'] / 2**30:.2f} GiB allocated; probe_device {latency * 1e3:.3f} ms; "
+          f"device_report of the flagship query at n={n}, top 5: "
+          + "; ".join(f"{name[:60]} {calls} calls {ms:.3f} ms" for name, calls, ms in rows)
+          + f"; device_seconds_per_iter(add_scalar f32, n={n}) {per_iter * 1e3:.4f} ms against "
+          f"{event_ms:.4f} ms by CUDA events ({smi})")
+    del x
+    torch.cuda.empty_cache()
 
 
 def idle_gaps(device, t0, t1):
@@ -2513,14 +2691,14 @@ def main() -> int:
     launches, sort_join_measured = phase_sort_join(smi)
     groupby_launches, groupby_measured = phase_groupby(smi)
     dist_launches = phase_distributed(smi)
-    phase_elementwise(smi)
+    ew_launches, ew_measured = phase_elementwise(smi)
     phase_profile(smi)
 
     from arrow_tpu_torch.compute.kernels import _build
 
     # each kernel's numbers from the runs that launch it: B8 and B9 from their
     # timed calls of phase 3, the rest from the main paths' replayed calls
-    for name, m in (*sort_join_measured.items(), *groupby_measured.items()):
+    for name, m in (*sort_join_measured.items(), *groupby_measured.items(), *ew_measured.items()):
         measured[name] = measured[name] + m if name in measured else m
     kernels = []
     for name, k in _build.KERNELS.items():
@@ -2528,8 +2706,9 @@ def main() -> int:
         m = measured[name]
         kernels.append({
             "name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
-            "launches": launches[name] + groupby_launches[name] + dist_launches.get(name, 0),
-            "max_abs_err": max(errs[name], m.err),
+            "launches": (launches.get(name, 0) + groupby_launches.get(name, 0) + dist_launches.get(name, 0)
+                         + ew_launches.get(name, 0)),
+            "max_abs_err": max(errs.get(name, 0.0), m.err),
             "ms": m.ms, "plain_ms": m.plain_ms, "bound_ms": m.bound_ms, "bound_by": "bytes",
             "library_ms": m.library_ms,
         })

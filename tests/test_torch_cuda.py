@@ -941,3 +941,38 @@ def test_groupby_query_on_cuda(cuda, dist):
         np.testing.assert_array_equal(got["key"].raw_values(), keys)
         np.testing.assert_array_equal(got["c"].raw_values(), counts)
         np.testing.assert_array_equal(got["s"].raw_values(), sums)
+
+
+def _fused_graph(K, p, x, k, u):
+    """A graph of fusible ops with a boundary (sum) in the middle: every
+    output live, nulls on x and u only."""
+    c = K.add_op(K.mul_scalar_op(x, 2.0, p), K.cast_op(k, att.ArrowType.FLOAT32, p), p)
+    m = K.merge_op(c, K.neg_op(c, p), K.gt_scalar_op(c, 0.0, p), p)
+    s = K.sum_op(K.cast_op(k, att.ArrowType.INT64, p), p)
+    q = K.div_op(u, K.bitwise_xor_op(u, K.cast_op(k, att.ArrowType.UINT16, p), p), p)
+    return [c, m, s, q, K.bitwise_not_op(K.lt_op(x, c, p), p), K.min_op(x, K.sqrt_op(K.abs_op(x, p), p), p)]
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 8193, (1 << 20) + 17])
+def test_fused_pipeline_matches_plain(cuda, n):
+    """The generated kernels against the eager replay (plain versions) on the
+    card: one launch of fused_pipeline for each group, the same buffers."""
+    from arrow_tpu_torch.runtime import fusion
+
+    rng = np.random.default_rng(n)
+    x = att.PrimitiveArray.from_optional_slice(
+        [None if v < 0.2 else float(v * 20 - 10) for v in rng.random(n)], dtype=att.ArrowType.FLOAT32, device=cuda)
+    k = att.UInt32Array.from_slice(rng.integers(0, 2**32, n, dtype=np.uint32), device=cuda)
+    u = att.PrimitiveArray.from_optional_slice(
+        [None if v % 3 == 0 else int(v) for v in rng.integers(0, 2**16, n)], dtype=att.ArrowType.UINT16, device=cuda)
+    with att.ComputePipeline(device=cuda) as p:
+        got = _fused_graph(TK, p, x, k, u)
+        groups = len(p.plan().groups)
+        KERNELS["fused_pipeline"].launches = 0
+    assert groups == 2 and KERNELS["fused_pipeline"].launches == (groups if n else 0)
+    with plain_versions(), att.ComputePipeline(device=cuda) as p:
+        want = _fused_graph(TK, p, x, k, u)
+    for g, w in zip(got, want):
+        assert g.data.is_cuda
+        _same(g.bound(), w.bound())
+    assert fusion.plan.cache_info().hits >= 1
