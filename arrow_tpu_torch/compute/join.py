@@ -30,7 +30,7 @@ match (dropped from both sides).
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -143,19 +143,22 @@ def _empty(device) -> Tuple[ArrowArrayBase, ArrowArrayBase, int]:
     return make_array(empty, None, 0, _A.UINT32), make_array(empty, None, 0, _A.UINT32), 0
 
 
-def legacy_emit(bk, bvalid, pk, pvalid, dtype, all_valid):
-    """probe_bounds + build_order, then a searchsorted expansion."""
+def legacy_emit(bk, bvalid, pk, pvalid, dtype, all_valid, limit: Optional[int] = None):
+    """probe_bounds + build_order, then a searchsorted expansion of the
+    first `limit` matches (all of them by default), probe-major.  Returns
+    (probe row ids, build row ids, the match total): ids over a power of two
+    of at least 1024 rows, zero past the matches kept."""
     sorder = build_order(bk, bvalid, dtype, all_valid)
     lo, hi = probe_bounds(bk, bvalid, pk, pvalid, dtype)
     cnt = (hi - lo).to(torch.int64)
     ends = torch.cumsum(cnt, 0)
     t = int(ends[-1])
-    cap = _bucket(t)
-    j = torch.arange(cap, dtype=torch.int64, device=bk.device)
+    kept = t if limit is None else min(t, limit)
+    j = torch.arange(_bucket(kept), dtype=torch.int64, device=bk.device)
     pi = torch.searchsorted(ends, j, right=True).clamp(max=pk.shape[0] - 1)
     bpos = lo[pi].to(torch.int64) + (j - (ends[pi] - cnt[pi]))
     bi = sorder[bpos.clamp(0, bk.shape[0] - 1)]
-    live = j < t
+    live = j < kept
     return torch.where(live, pi, 0).to(torch.int32), torch.where(live, bi, 0).to(torch.int32), t
 
 

@@ -205,13 +205,15 @@ def join_shard_local(build: ShardedBatch, probe: ShardedBatch, build_key: str, p
                      out_cap: int) -> Tuple[int, torch.Tensor, torch.Tensor]:
     """Per-shard sort-probe inner join of co-partitioned shards' live rows:
     the port's ``probe_bounds`` + ``build_order`` and the searchsorted
-    expansion (``join.legacy_emit``).  Returns (this shard's match total,
+    expansion of the first `out_cap` matches (``join.legacy_emit``), as the
+    JAX package expands `out_cap` slots.  Returns (this shard's match total,
     probe row ids, build row ids), the ids int32 over `out_cap` rows, zero
     from the total on (probe-major order)."""
     bcol, pcol = build.columns[build_key], probe.columns[probe_key]
     (bc, nb), (pc, np_) = _live_rows(build), _live_rows(probe)
     bvalid, pvalid = _valid_prefix(bcol, bc, nb), _valid_prefix(pcol, pc, np_)
-    pidx, bidx, total = legacy_emit(bcol.data[:nb], bvalid, pcol.data[:np_], pvalid, bcol.dtype, False)
+    pidx, bidx, total = legacy_emit(bcol.data[:nb], bvalid, pcol.data[:np_], pvalid, bcol.dtype, False,
+                                    limit=out_cap)
     k = min(total, out_cap)
     return total, _fit(pidx, k, out_cap), _fit(bidx, k, out_cap)
 

@@ -13,10 +13,12 @@ the caller names one::
     python -c "import arrow_tpu_torch.parallel as PP; PP.dryrun_multichip(8, device='cpu')"
 
 :func:`launch` / :func:`spawn` start ``world`` processes, each of which
-joins a gloo group through :func:`initialize_distributed` and a file store
-in a fresh temporary directory (a world of one joins none), limits itself
-to one CPU thread when its device is the CPU, and calls
-``module:function`` with the given JSON-able arguments.  :meth:`Ranks.join`
+joins a group through :func:`initialize_distributed` and a file store in a
+fresh temporary directory (a world of one joins none), limits itself to one
+CPU thread when its device is the CPU, and calls ``module:function`` with
+the given JSON-able arguments.  The group is gloo, every rank on one device
+(the CPU, or one card that the ranks share), or NCCL, rank r on ``cuda:r``
+(NCCL takes one card a rank).  :meth:`Ranks.join`
 waits with a deadline: a rank that fails or a world that outlives the
 deadline has every rank killed and raises, so a hung collective cannot hang
 the caller.
@@ -102,41 +104,55 @@ class Ranks:
             self.kill()
 
 
-def _device_name(device: Optional[str]) -> str:
+def device_name(device: Optional[str]) -> str:
     """`device`, or the port's default device (``cuda:0`` when CUDA is
     present, else the CPU)."""
     return device or str(default_device().torch_device)
 
 
+BACKENDS = ("gloo", "nccl")
+
+
 def launch(target: str, world: int, args: Sequence = (), device: Optional[str] = None,
-           timeout: float = 300.0) -> Ranks:
+           timeout: float = 300.0, backend: str = "gloo") -> Ranks:
     """Start `world` processes running ``module:function(*args)`` as the
-    ranks of a gloo group; returns at once.  Each rank's device is `device`,
-    the port's default device unless given (gloo moves CUDA tensors too, so
-    ranks may share one card).  The ranks import from the checkout and from
-    the caller's ``PYTHONPATH``."""
-    device = _device_name(device)
+    ranks of a group; returns at once.  The ranks import from the checkout
+    and from the caller's ``PYTHONPATH``.
+
+    backend: ``"gloo"``: each rank's device is `device`, the port's default
+    device unless given (gloo moves CUDA tensors too, so ranks may share one
+    card).  ``"nccl"``: rank r's device is ``cuda:r`` (``LOCAL_RANK=r``) and
+    `device` is not read; a world larger than the GPU count raises before
+    any process starts, since NCCL refuses two ranks on one card.
+    """
+    if backend not in BACKENDS:
+        raise ArrowTorchError(f"backend {backend!r} is not one of {BACKENDS}")
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise ArrowTorchError(f"backend nccl takes one GPU a rank: {world} ranks, "
+                              f"{torch.cuda.device_count()} GPUs")
+    device = device_name(device) if backend == "gloo" else None
     tmp = tempfile.mkdtemp(prefix="arrow_tpu_torch_ranks_")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT), env.get("PYTHONPATH", "")])
     procs, logs = [], []
     for rank in range(world):
-        spec = {"target": target, "rank": rank, "world": world, "args": list(args), "device": device,
-                "init_method": f"file://{tmp}/store"}
+        rank_env = env if backend == "gloo" else {**env, "LOCAL_RANK": str(rank)}
+        spec = {"target": target, "rank": rank, "world": world, "args": list(args),
+                "device": device or f"cuda:{rank}", "backend": backend, "init_method": f"file://{tmp}/store"}
         log = pathlib.Path(tmp) / f"rank{rank}.log"
         with open(log, "wb") as out:
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", "from arrow_tpu_torch.parallel.dryrun import rank_main; rank_main()",
                  json.dumps(spec)],
-                stdout=out, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT)))
+                stdout=out, stderr=subprocess.STDOUT, env=rank_env, cwd=str(ROOT)))
         logs.append(log)
     return Ranks(procs, logs, tmp, timeout, target)
 
 
 def spawn(target: str, world: int, args: Sequence = (), device: Optional[str] = None,
-          timeout: float = 300.0) -> None:
+          timeout: float = 300.0, backend: str = "gloo") -> None:
     """:func:`launch`, then :meth:`Ranks.join`."""
-    launch(target, world, args, device, timeout).join()
+    launch(target, world, args, device, timeout, backend).join()
 
 
 def rank_main() -> None:
@@ -149,7 +165,7 @@ def rank_main() -> None:
             torch.set_num_threads(1)
         # a world of one joins no group: its exchanges are local copies
         initialize_distributed(spec["init_method"], spec["world"], spec["rank"], device=spec["device"],
-                               backend="gloo")
+                               backend=spec["backend"])
         module, function = spec["target"].split(":")
         getattr(importlib.import_module(module), function)(*spec["args"])
         if dist.is_initialized():
@@ -262,7 +278,7 @@ def dryrun_multichip(n_devices: int, device: Optional[str] = None) -> Dict[str, 
     the JAX dryrun's line.  device: every rank's device, the port's default
     device (``cuda:0`` when CUDA is present) unless given.  Returns the
     printed counts."""
-    device = _device_name(device)
+    device = device_name(device)
     if n_devices == 1:
         rt = MeshRuntime.create(devices=device)
         keys, vals, mask = dryrun_columns(DRYRUN_ROWS_PER_SHARD)

@@ -48,6 +48,12 @@ class Device:
             return dict(torch.cuda.memory_stats(self.torch_device))
         return {}
 
+    def reset_peak_memory_stats(self) -> None:
+        """Start the allocator's peak statistics (``memory_stats()``'s
+        ``*.peak`` entries) afresh; nothing on the CPU."""
+        if self.torch_device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.torch_device)
+
     def __repr__(self) -> str:
         return f"Device({self.torch_device})"
 

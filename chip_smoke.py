@@ -75,7 +75,14 @@ Phases, each printing lines that start with its name:
    failure fails the phase), the dryrun's step on 4 gloo ranks sharing
    the card at 2^22 rows a rank, every rank's shards held exactly against
    4 CPU gloo ranks' (no times: the ranks share one card), or the reason
-   it was not run;
+   it was not run; the distributed tools (arrow_tpu_torch.tools):
+   dist_sort_1b at P = 1 in the NCCL group on BASELINE.json configs[3]'s
+   2^30 rows of u32 key and payload (row conservation, global order, the
+   key checksum, each payload following its key; its time, peak device
+   memory and launches), and on the 4 gloo ranks sharing the card at 2^20
+   rows a rank dist_sort_1b with its checks, one scaling_bench point and
+   overlap_ab (the fused and composed joins' rows equal, the u64 route
+   hash's share of rank 0's profiled device time);
 8. elementwise: the elementwise tier (plain torch ops, as XLA's ops were in
    the JAX package): every registered op over every dtype its API accepts,
    at 2^20 rows with nulls, on the card against the port's CPU result on
@@ -111,7 +118,8 @@ read once, each output row written once) over the card's 3.35 TB/s.
 
 It then prints the nvidia-smi line, a JSON line with, for every kernel, its
 launch count on the main paths (the sort-join query, its 2-bit rerun, the
-four group-by queries, the distributed phase's P = 1 operators and the
+four group-by queries, the distributed phase's P = 1 operators and
+dist_sort_1b, and the
 elementwise phase's pipelined chains), its largest error against its plain
 version, and its kernel, plain, library and bound times summed over the
 calls of those runs (B8 and B9: over their timed calls of phase 3;
@@ -185,6 +193,11 @@ GROUPBY_ONE_PASS = ("1m", "skew")
 DIST_N = 1 << 27
 DIST_P4_RANKS = 4
 DIST_P4_N = 1 << 22
+# arrow_tpu_torch.tools: dist_sort_1b at P = 1 on BASELINE.json configs[3]'s
+# 2^30 rows of u32 key and payload, and the three tools on DIST_P4_RANKS gloo
+# ranks sharing the card at DIST_TOOLS_N rows a rank
+DIST_1B_ROWS = 1 << 30
+DIST_TOOLS_N = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's data-sheet memory rate
 CROSSOVER_SIZES = (1 << 24, 1 << 26, 1 << 27)
 # float adds differ from the plain ladder in summation order only
@@ -2000,7 +2013,7 @@ def _dist_workload_b(rt, smi, launches):
 def _dist_p4(smi):
     """The dryrun's step on DIST_P4_RANKS gloo ranks sharing the card,
     held shard by shard against the same ranks on the CPU; or the reason
-    why not (gloo refuses CUDA tensors)."""
+    why not (gloo refuses CUDA tensors), and then False."""
     import pathlib as _pathlib
     import shutil
     import tempfile
@@ -2017,7 +2030,7 @@ def _dist_p4(smi):
         if refused:
             print(f"distributed P={p}: not run: gloo refused CUDA tensors on this machine: "
                   f"{refused[0].read_text()}")
-            return
+            return False
         print("distributed: gloo takes CUDA tensors (ragged all_to_all_single and all_gather checked on 2 ranks)")
         t0 = time.perf_counter()
         worlds = [D.launch("arrow_tpu_torch.parallel.dryrun:dryrun_rank", p, [DIST_P4_N, d, dirs[d]], device=d,
@@ -2025,6 +2038,7 @@ def _dist_p4(smi):
         for w in worlds:
             w.join()
         _dist_p4_compare(p, {d: _pathlib.Path(dirs[d]) for d in ("cuda:0", "cpu")}, t0)
+        return True
     finally:
         for w in worlds:
             w.kill()
@@ -2080,12 +2094,72 @@ def phase_distributed(smi):
               f"the device idle): {read_ms:.4f} ms (host clock, median of 20; {smi})")
         _dist_workload_a(rt, smi, launches)
         _dist_workload_b(rt, smi, launches)
+        _dist_sort_1b(rt, smi, launches)
     finally:
         dist.destroy_process_group()
-    print(f"distributed: launches on the P=1 main paths (a) and (b) {launches}")
-    _dist_p4(smi)
+    print(f"distributed: launches on the P=1 main paths (a), (b) and dist_sort_1b {launches}")
+    if _dist_p4(smi):
+        _dist_tools_p4(smi)
     print(f"distributed: phase {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def _gib(nbytes):
+    return "not measured" if nbytes is None else f"{nbytes / 2**30:.2f} GiB"
+
+
+def _dist_sort_1b(rt, smi, launches):
+    """tools.dist_sort_1b at P = 1 in the phase's NCCL group: BASELINE.json
+    configs[3], DIST_1B_ROWS rows of u32 key and payload, with its checks."""
+    import torch
+
+    from arrow_tpu_torch.tools import dist_sort_1b as DS
+
+    t0 = time.perf_counter()
+    (report, out), per = _counted(lambda: DS.run(rt, DIST_1B_ROWS, True), launches)
+    checks = {k: report[k] for k in DS.CHECKS}
+    require(report["ok"], f"dist_sort_1b P=1: a check failed: {checks}")
+    require(per.get("radix_sort", 0) >= 1, f"dist_sort_1b P=1: the sort launched no radix_sort: {per}")
+    print(f"distributed dist_sort_1b P=1 (NCCL) {report['rows_total']} rows of u32 key + payload, out_capacity "
+          f"{report['out_capacity']}: {checks}; distributed_sort {report['sort_seconds'] * 1e3:.3f} ms (median of "
+          f"calls {[round(t * 1e3, 3) for t in report['sort_seconds_each']]} ms, the first cold; host clock to a "
+          f"synchronise); peak device memory {_gib(report['peak_device_bytes'][0])}; launches in the last call "
+          f"{report['launches']}, in the run with its checks {per}; {time.perf_counter() - t0:.1f} s in all ({smi})")
+    del out
+    torch.cuda.empty_cache()
+
+
+def _dist_tools_p4(smi):
+    """The tools on DIST_P4_RANKS gloo ranks sharing the card, DIST_TOOLS_N
+    rows a rank: dist_sort_1b with its checks, one scaling_bench point, and
+    overlap_ab with the fused and composed joins' rows equal."""
+    from arrow_tpu_torch.tools import dist_sort_1b as DS
+    from arrow_tpu_torch.tools import overlap_ab as OA
+    from arrow_tpu_torch.tools import scaling_bench as SB
+
+    p, n = DIST_P4_RANKS, DIST_TOOLS_N
+    t0 = time.perf_counter()
+    r = DS.sort_1b(n, True, procs=p, device="cuda:0", timeout=600)
+    checks = {k: r[k] for k in DS.CHECKS}
+    require(r["ok"] and r["shared_card"], f"dist_sort_1b P={p}: {checks}, shared card {r['shared_card']}")
+    print(f"distributed tools P={p} (gloo ranks sharing the card): dist_sort_1b {r['rows_total']} rows of key + "
+          f"payload: {checks}; sort {r['sort_seconds'] * 1e3:.1f} ms (through the host; the ranks share the "
+          f"card); peaks {[_gib(b) for b in r['peak_device_bytes']]}; rank 0's launches {r['launches']}")
+    s = SB.sweep([p], [n], 1, "cuda:0", 600)
+    point = s["sweep"].get(str(n), {}).get(str(p))
+    require(point is not None, f"scaling_bench P={p} at {n} rows a shard failed")
+    require(all(v["shared_card"] and "efficiency_vs_linear" not in v for v in point.values()),
+            f"scaling_bench P={p}: a shared-card point has an efficiency: {point}")
+    print(f"distributed tools P={p}: scaling_bench point at {n} rows a shard, seconds a call "
+          f"{ {op: round(v['seconds_per_iter'], 4) for op, v in point.items()} } (shared card: no efficiency)")
+    o = OA.overlap_ab(p * n, procs=p, device="cuda:0", timeout=600)
+    require(o["fused_equals_composed"] and o["joined_rows"] > 0,
+            f"overlap_ab P={p}: fused and composed rows differ, or none joined ({o['joined_rows']})")
+    print(f"distributed tools P={p}: overlap_ab {p * n} rows a side: fused and composed give the same "
+          f"{o['joined_rows']} rows; fused {o['fused_s'] * 1e3:.1f} ms, composed {o['composed_s'] * 1e3:.1f} ms; "
+          f"the u64 route hash {o['route_hash_profiled_ms']:.3f} of rank 0's {o['fused_profiled_ms']:.3f} profiled "
+          f"device ms ({o['route_hash_share']:.3f}); top ops {[(name[:60], calls, ms) for name, calls, ms in o['top_kernels'][:5]]}; "
+          f"{time.perf_counter() - t0:.1f} s for the three tools ({smi})")
 
 
 def _host_ms(fn) -> float:
