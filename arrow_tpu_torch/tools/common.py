@@ -51,11 +51,20 @@ def rank_runtime(device: Optional[str]) -> Iterator[MeshRuntime]:
     if rt.distributed or rt.device.type != "cuda":
         yield rt
         return
-    store = tempfile.mkdtemp(prefix="arrow_tpu_torch_nccl_")
-    torch.cuda.set_device(rt.device)
-    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
-    try:
+    with one_rank_group("nccl", rt.device):
         yield MeshRuntime.create(devices=rt.device)
+
+
+@contextlib.contextmanager
+def one_rank_group(backend: str, device) -> Iterator[None]:
+    """A process group of one rank on `device` (a file store) for the
+    duration."""
+    store = tempfile.mkdtemp(prefix="arrow_tpu_torch_group_")
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        yield
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)

@@ -69,7 +69,7 @@ Phases, each printing lines that start with its name:
    on the same rows (compute.filter, hash_aggregate(method="sort"),
    join_indices, sort_by_key, hash_join), the time of an exchange's count
    read, peak device memory; (a)'s sort and (b)'s join each profiled beside
-   its single-chip operator (as in phase 9, with the device time in fills
+   its single-chip operator (as in phase 10, with the device time in fills
    and copies); then, if gloo moves CUDA tensors (checked on 2 ranks
    first: only gloo's refusal of the device skips the step, any other
    failure fails the phase), the dryrun's step on 4 gloo ranks sharing
@@ -103,7 +103,28 @@ Phases, each printing lines that start with its name:
    Device.synchronize() and memory_stats(), the health probe's latency,
    profiler.device_report's top 5 kernels of the flagship query at 2^27,
    and utils.timing's device time of add_scalar beside its CUDA-event time;
-9. profile: each query at each size under torch.profiler: device busy time,
+9. probes: the probe tools (arrow_tpu_torch.tools.mosaic_probe and
+   probe_r4, the counterparts of tools/mosaic_probe.py and tools/probe_r4.py)
+   through their entry points, the launch counts set to 0 just before and
+   read just after: mosaic_probe's 25 probes, every one OK against the JAX
+   probe's numpy oracle, and probe_r4's seven steps at 2^27 rows (its
+   report in build/arrow_tpu_torch/TORCH_PROBE_R4.json: every key of
+   PROBE_R4.json, no step failed but the Pallas sum that the JAX package
+   no longer has, the mask matmul all 128, the one-rank all_to_all_single's
+   head [0, 0, 0, 1, 2, 3, 0, 0]); every one of their 28 kernels launched
+   there; then each kernel on the JAX probe's inputs against its plain
+   version on the card (exact) and its oracle, the merge steps also with one
+   block an SM (every block's output equal), each timed with the host
+   ahead of the device (utils.timing.queued_seconds_per_call: calls
+   enqueued behind a spin kernel, so that the events time the device's work
+   alone; a probe's wrapper takes longer on the host than its kernel on the
+   device), beside an empty kernel timed the same way, its bound (bytes, or
+   for the two matmuls the tensor-core operations where larger), its plain
+   version (host-bound for the merge steps, which read R on the host) and
+   its library call (take_along_dim, roll, cumsum, sort, _int_mm, a bf16
+   matmul, a slice's clone, pad, x + 1, ...), and back to back (the
+   wrapper's rate);
+10. profile: each query at each size under torch.profiler: device busy time,
    the device time in fills and in copies, the device's idle share of the
    query's wall time (also without the idle time spent in the profiler's
    own buffer requests), the device ops that
@@ -119,12 +140,13 @@ read once, each output row written once) over the card's 3.35 TB/s.
 It then prints the nvidia-smi line, a JSON line with, for every kernel, its
 launch count on the main paths (the sort-join query, its 2-bit rerun, the
 four group-by queries, the distributed phase's P = 1 operators and
-dist_sort_1b, and the
-elementwise phase's pipelined chains), its largest error against its plain
-version, and its kernel, plain, library and bound times summed over the
-calls of those runs (B8 and B9: over their timed calls of phase 3;
-fused_pipeline: simple.py's chain at 2^27, fused, replayed eagerly, and as
-(x + 10.0) * 10.0 on the bare buffer), and last the line
+dist_sort_1b, the elementwise phase's pipelined chains and the probe
+tools' runs), its largest error against its plain version, and its
+kernel, plain, library and bound times summed over the calls of those runs
+(B8 and B9: over their timed calls of phase 3; fused_pipeline: simple.py's
+chain at 2^27, fused, replayed eagerly, and as (x + 10.0) * 10.0 on the
+bare buffer; the probe kernels: their calls on the JAX probes' inputs in
+phase 9, device times queued behind a spin), and last the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero without that line; so does a machine
 without CUDA.
@@ -1164,23 +1186,26 @@ def _functions(name):
 class Measured:
     """A kernel's calls, summed: max abs error against the plain version,
     kernel, plain and library times (library None once a call has no
-    library equivalent) and the bound (bytes over HBM_BYTES_PER_S)."""
+    library equivalent) and the bound (bytes over HBM_BYTES_PER_S, or for
+    the probes' matmuls operations over the tensor cores' rate where that is
+    larger: bound_by)."""
 
     err: float = 0.0
     ms: float = 0.0
     plain_ms: float = 0.0
     library_ms: object = 0.0
     bound_ms: float = 0.0
+    bound_by: str = "bytes"
 
     def __add__(self, other):
         lib = None if self.library_ms is None or other.library_ms is None else self.library_ms + other.library_ms
         return Measured(max(self.err, other.err), self.ms + other.ms, self.plain_ms + other.plain_ms,
-                        lib, self.bound_ms + other.bound_ms)
+                        lib, self.bound_ms + other.bound_ms, self.bound_by)
 
-    def line(self):
-        lib = "none" if self.library_ms is None else f"{self.library_ms:.3f} ms"
-        return (f"kernel {self.ms:.3f} ms, plain {self.plain_ms:.3f} ms, library {lib}, bound "
-                f"{self.bound_ms:.4f} ms (bytes)")
+    def line(self, digits=3):
+        lib = "none" if self.library_ms is None else f"{self.library_ms:.{digits}f} ms"
+        return (f"kernel {self.ms:.{digits}f} ms, plain {self.plain_ms:.{digits}f} ms, library {lib}, bound "
+                f"{self.bound_ms:.{digits + 1}f} ms ({self.bound_by})")
 
 
 def call_bytes(name, args) -> int:
@@ -2751,6 +2776,166 @@ def phase_profile(smi):
         torch.cuda.empty_cache()
 
 
+# the probe tools: probe_r4's rows (its default, the JAX tool's 2^27), and
+# the tensor-core rates of the two matmul probes' operations (data sheet)
+PROBE_R4_ROWS = 1 << 27
+TENSOR_OPS_PER_S = {"matmul_int8_s32acc": 1979e12, "i1_to_bf16_astype": 989e12}
+PROBE_R4_OUT = HERE / "build" / "arrow_tpu_torch" / "TORCH_PROBE_R4.json"
+
+
+def probe_library_call(label, args):
+    """One PyTorch call that computes the probe's function on its inputs, or
+    None where PyTorch has none; int64 indices, host shifts and offsets and
+    the bf16 mask are made here, outside its time."""
+    import torch
+    import torch.nn.functional as F
+
+    if label.startswith("gather_lanes"):
+        x, idx = args[0], args[1].long()
+        return lambda: torch.take_along_dim(x, idx, 1)
+    if label == "gather_sublanes_taa_axis0":
+        x, idx = args[0], args[1].long()
+        return lambda: torch.take_along_dim(x, idx, 0)
+    if label.startswith("pltpu_roll"):
+        shift, a = (3, args[0]) if label == "pltpu_roll_static" else (int(args[0][0]), args[1])
+        return lambda: torch.roll(a, shift, 1)
+    if label.startswith("cumsum"):
+        a, dim = args[0], 1 if label == "cumsum_lanes_i32" else 0
+        return lambda: torch.cumsum(a, dim, dtype=a.dtype)
+    if label == "lax_sort_in_kernel":
+        return lambda: torch.sort(args[0], 1)
+    if label == "matmul_int8_s32acc":
+        return lambda: torch._int_mm(args[0], args[1])
+    if label == "i1_to_bf16_astype":
+        mask = (args[0] > 0).to(torch.bfloat16)
+        ones = torch.ones_like(mask)
+        return lambda: torch.matmul(mask, ones)
+    if label == "transpose_32b_128x128":
+        return lambda: args[0].t().contiguous()
+    if label in ("dma_unaligned_row_offset", "dynamic_slice_vmem_rows"):
+        first = int(args[0][0])
+        return lambda: args[1][first:first + 8].clone()
+    if label == "hbm_to_hbm_dma":
+        return lambda: args[0][8:16].clone()
+    if label in ("dma_unaligned_row_write", "dynamic_store_vmem_rows"):
+        first, rows = int(args[0][0]), args[1]
+        return lambda: F.pad(rows, (0, 0, first, 64 - len(rows) - first))
+    if label == "dma_dynamic_size_rows":
+        count, src = int(args[0][0]), args[1]
+        return lambda: F.pad(src[:count], (0, 0, 0, len(src) - count))
+    if label == "bitcast_f32_u32":
+        return lambda: args[0].view(torch.int32).clone()
+    if label == "grid_1d_blockspec":
+        return lambda: args[0] + 1
+    if label == "prefetch_scalar_grid":
+        return lambda: args[1] + args[0]
+    return None
+
+
+def probe_bytes(label, args, out) -> int:
+    """The bytes a probe must move: each input row it needs read once (the
+    row windows' 8 rows, the sized copy's rows, one column of the scalar
+    loop), the output written once."""
+    if label in ("dma_unaligned_row_offset", "dynamic_slice_vmem_rows", "hbm_to_hbm_dma", "dma_dynamic_size_rows"):
+        src = args[-1]  # after the device scalar, where there is one
+        rows = int(args[0][0]) if label == "dma_dynamic_size_rows" else 8
+        read = 4 * (len(args) - 1) + rows * src.shape[1] * src.element_size()
+    elif label == "smem_scratch_scalar_loop":
+        read = 8 * args[0].element_size()
+    else:
+        read = sum(a.numel() * a.element_size() for a in args)
+    return read + out.numel() * out.element_size()
+
+
+def phase_probes(smi):
+    """The probe tools through their entry points (mosaic_probe's 25 probes,
+    probe_r4's seven steps at PROBE_R4_ROWS rows), the launch counts set to
+    0 just before and read just after; then each of their kernels against
+    its plain version on the card and the JAX probe's oracle, timed on the
+    device (utils.timing.queued_seconds_per_call) beside an empty kernel,
+    its bound, its plain version and its library call, and back to back.
+    The merge steps' plain versions read R on the host, so their time is
+    host-bound (back to back).  Returns (launches by kernel, Measured by
+    probe kernel)."""
+    import torch
+
+    from arrow_tpu_torch.compute.kernels import _build
+    from arrow_tpu_torch.tools import mosaic_probe as MP
+    from arrow_tpu_torch.tools import probe_r4 as PR
+    from arrow_tpu_torch.utils.timing import queued_seconds_per_call
+
+    def queued_ms(fn, what):
+        s = queued_seconds_per_call(fn)
+        require(s is not None, f"{what}: the host does not get ahead of the device")
+        return s * 1e3
+
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    MP.main([])
+    PR.main(["--rows", str(PROBE_R4_ROWS), "--out", str(PROBE_R4_OUT)])
+    torch.cuda.synchronize()
+    launches = _kernel_launches()
+    print(f"probes: both tools ran in {time.perf_counter() - t0:.1f} s; launches "
+          f"{ {n: c for n, c in launches.items() if c} }")
+    failed = [f"{label}: {msg}" for label, status, msg in MP.RESULTS if status != "OK"]
+    require(len(MP.RESULTS) == len(MP.PROBES) and not failed, f"mosaic_probe: {failed or MP.RESULTS}")
+    report = json.loads(PROBE_R4_OUT.read_text())
+    keys = json.loads((HERE / "PROBE_R4.json").read_text()).keys()
+    require(keys <= report.keys(), f"probe_r4: keys missing from its report: {sorted(keys - report.keys())}")
+    errors = [k for k, v in report.items() if isinstance(v, dict) and "error" in v]
+    require(errors == ["sum_pallas_128m_s"], f"probe_r4: steps failed: {errors}")
+    require(report["i1_to_bf16_astype"] == {"ok": True}, "probe_r4: the mask matmul is not all 128")
+    require(report["ragged_all_to_all_tpu_1dev"]["out_head"] == [0, 0, 0, 1, 2, 3, 0, 0],
+            f"probe_r4: all_to_all_single gave {report['ragged_all_to_all_tpu_1dev']}")
+    for name in PR.MERGE_STEPS:
+        require(report[name]["us_per_step"] > 0 and report[name]["card"]["us_per_step"] > 0,
+                f"probe_r4: {name}: {report[name]}")
+    print(f"probes: probe_r4 at {PROBE_R4_ROWS} rows ({smi}): {json.dumps(report)}")
+    probes = [*MP.PROBES, *PR.KERNELS]
+    unlaunched = [p.label for p in probes if not launches.get(p.label)]
+    require(not unlaunched, f"probe kernels not launched by the tools: {unlaunched}")
+
+    empty_host_ms = cuda_ms(lambda: MP.empty_launch(device), CALLS_PER_SAMPLE)
+    empty_ms = queued_ms(lambda: MP.empty_launch(device), "an empty kernel")
+    print(f"probes: an empty kernel: {empty_ms:.5f} ms of the device's time a call, queued; "
+          f"{empty_host_ms:.5f} ms a call back to back, host-bound ({smi})")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    measured = {}
+    for p in probes:
+        args = MP.inputs_on(p, device)
+        got = MP.launch(p, *args)
+        want = MP.plain(p, *args)
+        torch.cuda.synchronize()
+        require(got.dtype == want.dtype and got.shape == want.shape and bool(torch.equal(got, want)),
+                f"{p.label}: the kernel disagrees with its plain version")
+        if p.oracle is not None:
+            require(bool((MP.as_numpy(got) == p.oracle(*p.inputs())).all()), f"{p.label}: the kernel misses its oracle")
+        if p.label in PR.MERGE_STEPS:
+            many = MP.launch(p, *args, blocks=sms)
+            require(bool(torch.equal(many, got.expand_as(many))), f"{p.label}: {sms} blocks disagree")
+        err = float((got.double() - want.double()).abs().max())
+        host_ms = cuda_ms(lambda: MP.launch(p, *args), CALLS_PER_SAMPLE)
+        ms = queued_ms(lambda: MP.launch(p, *args), p.label)
+        if p.label in PR.MERGE_STEPS:
+            plain_ms, plain_how = cuda_ms(lambda: MP.plain(p, *args), CALLS_PER_SAMPLE), "host-bound"
+        else:
+            plain_ms, plain_how = queued_ms(lambda: MP.plain(p, *args), f"{p.label}'s plain version"), "queued"
+        lib = probe_library_call(p.label, args)
+        library_ms = queued_ms(lib, f"{p.label}'s library call") if lib is not None else None
+        bytes_ms = probe_bytes(p.label, args, got) / HBM_BYTES_PER_S * 1e3
+        ops_ms = p.ops / TENSOR_OPS_PER_S[p.label] * 1e3 if p.ops else 0.0
+        m = Measured(err, ms, plain_ms, library_ms, max(bytes_ms, ops_ms),
+                     "bytes" if bytes_ms >= ops_ms else "operations")
+        measured[p.label] = m
+        print(f"probes: {p.label} ({p.kernel.replaces}; inputs {[tuple(a.shape) for a in args]}): matches plain"
+              f"{' and oracle' if p.oracle is not None else ''}; {m.line(5)} (kernel queued, plain {plain_how}"
+              f"{', library queued' if lib is not None else ''}); {ms / empty_ms:.2f}x an empty kernel; "
+              f"{host_ms:.5f} ms a call back to back ({smi})")
+    print(f"probes: phase {time.perf_counter() - t0:.1f} s")
+    return launches, measured
+
+
 def main() -> int:
     if not (HERE / "arrow_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke: arrow_tpu_torch/ is not beside this script", file=sys.stderr)
@@ -2766,13 +2951,15 @@ def main() -> int:
     groupby_launches, groupby_measured = phase_groupby(smi)
     dist_launches = phase_distributed(smi)
     ew_launches, ew_measured = phase_elementwise(smi)
+    probe_launches, probe_measured = phase_probes(smi)
     phase_profile(smi)
 
     from arrow_tpu_torch.compute.kernels import _build
 
     # each kernel's numbers from the runs that launch it: B8 and B9 from their
     # timed calls of phase 3, the rest from the main paths' replayed calls
-    for name, m in (*sort_join_measured.items(), *groupby_measured.items(), *ew_measured.items()):
+    for name, m in (*sort_join_measured.items(), *groupby_measured.items(), *ew_measured.items(),
+                    *probe_measured.items()):
         measured[name] = measured[name] + m if name in measured else m
     kernels = []
     for name, k in _build.KERNELS.items():
@@ -2781,9 +2968,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": k.route, "source": k.source, "replaces": k.replaces,
             "launches": (launches.get(name, 0) + groupby_launches.get(name, 0) + dist_launches.get(name, 0)
-                         + ew_launches.get(name, 0)),
+                         + ew_launches.get(name, 0) + probe_launches.get(name, 0)),
             "max_abs_err": max(errs.get(name, 0.0), m.err),
-            "ms": m.ms, "plain_ms": m.plain_ms, "bound_ms": m.bound_ms, "bound_by": "bytes",
+            "ms": m.ms, "plain_ms": m.plain_ms, "bound_ms": m.bound_ms, "bound_by": m.bound_by,
             "library_ms": m.library_ms,
         })
     print(smi)

@@ -31,6 +31,8 @@ from arrow_tpu_torch.compute.kernels import radix as R
 from arrow_tpu_torch.compute.kernels import segscan as S
 from arrow_tpu_torch.compute.kernels.groupby_region import KERNEL as REGION_KERNEL
 from arrow_tpu_torch.compute.kernels.groupby_region import groupby_region, groupby_region_plain
+from arrow_tpu_torch.tools import mosaic_probe as MP
+from arrow_tpu_torch.tools import probe_r4 as PR
 from arrow_tpu_torch.utils import bits as TB
 from arrow_tpu_torch.utils import scans as TS
 from torch_helpers import MERGE_PATTERNS, merge_edge_planes
@@ -976,3 +978,96 @@ def test_fused_pipeline_matches_plain(cuda, n):
         assert g.data.is_cuda
         _same(g.bound(), w.bound())
     assert fusion.plan.cache_info().hits >= 1
+
+
+# ------------------------------------------------- the probe tools' kernels
+
+
+PROBE_LABELS = [p.label for p in MP.PROBES] + [p.label for p in PR.KERNELS]
+
+
+def _probe(label):
+    return MP.BY_LABEL.get(label) or PR.BY_NAME[label]
+
+
+@pytest.mark.parametrize("label", PROBE_LABELS)
+def test_probe_kernel_matches_plain(cuda, label):
+    """Each probe kernel on the JAX probe's inputs: one launch, equal to its
+    plain version on the card and to the JAX probe's oracle."""
+    probe = _probe(label)
+    args = MP.inputs_on(probe, cuda)
+    before = probe.kernel.launches
+    got = MP.launch(probe, *args)
+    torch.cuda.synchronize()
+    assert probe.kernel.launches == before + 1
+    want = MP.plain(probe, *args)
+    assert got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
+    if probe.oracle is not None:
+        np.testing.assert_array_equal(MP.as_numpy(got), probe.oracle(*probe.inputs()))
+
+
+def _random_inputs(label, rng):
+    """Inputs of the probe's shapes drawn at random: full-range values, ties,
+    negative and zero entries."""
+    i32 = lambda lo, hi, shape: rng.integers(lo, hi, shape).astype(np.int32)  # noqa: E731
+    if label in ("mb_step_rollpair", "mb_step_taa"):  # keys with many ties
+        return np.full((1,), 5, np.int32), i32(0, 100, (64, 128)), i32(0, 100, (64, 128))
+    return {
+        "lax_sort_in_kernel": lambda: (i32(-2 ** 31, 2 ** 31, (8, 128)),),
+        "matmul_int8_s32acc": lambda: (i32(-128, 128, (128, 128)).astype(np.int8),
+                                       i32(-128, 128, (128, 128)).astype(np.int8)),
+        "i1_to_bf16_astype": lambda: (i32(-3, 3, (128, 128)),),
+        "u32_shifts_popcount": lambda: (i32(-2 ** 31, 2 ** 31, (8, 128)),),
+        "cumsum_sublanes_f32": lambda: (rng.standard_normal((64, 128)).astype(np.float32),),
+        "cumsum_lanes_i32": lambda: (i32(-2 ** 20, 2 ** 20, (8, 128)),),
+        "gather_lanes_taa_8x128_i32": lambda: (i32(-2 ** 31, 2 ** 31, (8, 128)), i32(0, 128, (8, 128))),
+        "gather_lanes_256wide_2gathers": lambda: (i32(-2 ** 31, 2 ** 31, (8, 256)), i32(0, 256, (8, 128))),
+        "gather_sublanes_taa_axis0": lambda: (i32(-2 ** 31, 2 ** 31, (64, 128)), i32(0, 64, (64, 128))),
+        "pltpu_roll_dynamic": lambda: (np.full((1,), 131, np.int32), i32(-2 ** 31, 2 ** 31, (8, 128))),
+        "cmp_to_bf16_vector": lambda: (i32(-2 ** 31, 2 ** 31, (32, 128)),),
+        "transpose_32b_128x128": lambda: (i32(-2 ** 31, 2 ** 31, (128, 128)),),
+    }[label]()
+
+
+RANDOM_LABELS = ["mb_step_rollpair", "mb_step_taa", "lax_sort_in_kernel", "matmul_int8_s32acc",
+                 "i1_to_bf16_astype", "u32_shifts_popcount", "cumsum_sublanes_f32", "cumsum_lanes_i32",
+                 "gather_lanes_taa_8x128_i32", "gather_lanes_256wide_2gathers", "gather_sublanes_taa_axis0",
+                 "pltpu_roll_dynamic", "cmp_to_bf16_vector", "transpose_32b_128x128"]
+
+
+@pytest.mark.parametrize("label", RANDOM_LABELS)
+def test_probe_kernel_matches_plain_on_random_inputs(cuda, label):
+    probe = _probe(label)
+    args = [torch.from_numpy(a).to(cuda) for a in _random_inputs(label, np.random.default_rng(13))]
+    got = MP.launch(probe, *args)
+    want = MP.plain(probe, *args)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", PR.MERGE_STEPS)
+def test_merge_step_blocks_agree(cuda, name):
+    """One block an SM: every block's slice equals the one-block output."""
+    probe = PR.BY_NAME[name]
+    args = MP.inputs_on(probe, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    many = MP.launch(probe, *args, blocks=sms)
+    assert many.shape == (sms, PR.TR, PR.LANES)
+    assert torch.equal(many, MP.launch(probe, *args).expand_as(many))
+
+
+def test_queued_seconds_per_call(cuda):
+    """Calls queued behind the spin take their device time, here a spin of
+    known length; a call that reads the device on the host has none."""
+    from arrow_tpu_torch.utils import timing
+
+    cycles = 2_000_000
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    s = timing.queued_seconds_per_call(lambda: torch.cuda._sleep(cycles), calls=8)
+    assert s == pytest.approx(start.elapsed_time(end) / 1e3, rel=0.2)
+    x = torch.ones(4, device=cuda)
+    assert timing.queued_seconds_per_call(lambda: (x + 1).sum().item(), calls=4) is None
