@@ -4,10 +4,12 @@
 // pallas_call (:77 grid, :230, :254, :281 and :387 the DMA copies, :428 the
 // prefetched scalar).
 //
-// Each probe runs once on one fixed tile of at most 128 KB, so every kernel
-// here is bound by its launch (a few microseconds), not by bytes or
-// operations: none is tuned.  What each shows is that the card does the
-// probe's operation in the way the TPU kernel did:
+// Each probe runs once on one fixed tile of at most 128 KB.  Its bound on
+// the card (its bytes over 3.35 TB/s, or for the int8 product its operations
+// over the tensor cores' rate) is under a tenth of a microsecond, so what
+// each kernel costs is a launch and the memory round trips that its design
+// puts one after another.  What each shows is that the card does the probe's
+// operation in the way the TPU kernel did:
 //
 // - lane movement (gathers, rolls, scans, the in-row sort) is done by a warp
 //   that holds a 128-wide row as 4 registers a lane, element c in register
@@ -19,14 +21,35 @@
 //   form): global to shared completing on an mbarrier, shared to global
 //   completing in a bulk group.  Hopper has no global-to-global bulk copy, so
 //   hbm_to_hbm_dma stages its rows through shared memory.  The rows are 512
-//   bytes, so every row offset meets the bulk copy's 16-byte alignment;
-// - the int8 product runs on the tensor cores, mma.sync m16n8k32 with s32
-//   accumulators, from shared-memory tiles.
+//   bytes, so every row offset meets the bulk copy's 16-byte alignment.
+//
+// Two kernels are laid out for the card rather than for the TPU's tiles, so
+// that every global load is in flight at once and nothing waits on a
+// round trip that an earlier one could have covered:
+//
+// - grid_1d_blockspec (mosaic_probe.py:77, p_grid: x + 1 over a (256, 128)
+//   int32 array in a grid of (64, 128) blocks).  Bound by bytes: 256 KB,
+//   0.078 us.  The grid is 32 blocks of (8, 128) tiles, one 16-byte read-only
+//   load and store a thread through restrict pointers, so the call is one
+//   launch and one memory round trip.
+// - matmul_int8_s32acc (the probe through simple_call, :61: (128, 128) int8
+//   @ (128, 128) int8 -> int32).  Bound by bytes: 96 KB, 0.029 us (the
+//   operations take 0.002 us).  The product is wgmma.mma_async m64n32k32
+//   s8 x s8 -> s32 from shared memory, 4 k-steps into registers, in 8 blocks
+//   of one warpgroup, each a 64 x 32 tile of the output, so that each of 8
+//   SMs moves 20 KB (on an H100, tiles of 64 x 64 and 64 x 128 in 4 and 2
+//   blocks took 1.07x and 1.20x as long: tools/probe_designs.py).  For 8-bit
+//   types wgmma takes B only K-major, so B is transposed on the way in: a
+//   thread loads 4 bytes of 16 rows, transposes four 4x4 byte blocks in
+//   registers (__byte_perm) and stores 16 bytes of K for each of its 4
+//   columns into the no-swizzle K-major layout, whose row groups are padded
+//   by 16 bytes so that those stores meet no bank conflict.  A goes in as
+//   16-byte chunks; the outputs leave as 8-byte pairs.
 //
 // One C entry a probe, arrow_probe_<label>(inputs..., out, stream), in the
 // order of the JAX probe's pallas_call arguments (the device scalar first
 // where the probe has one); each returns cudaGetLastError().  The wrappers
-// are in arrow_tpu_torch/tools/mosaic_probe.py.
+// are in arrow_tpu_torch/tools/mosaic_probe.py; a pointer is 16-byte aligned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -40,10 +63,21 @@ constexpr unsigned kFull = 0xffffffffu;
 // ---------------------------------------------------------------------------
 // elementwise and grid probes
 
-// grid_1d_blockspec: one block a (64, 128) tile, x + 1
-__global__ void add_one_tiles(const int32_t* x, int32_t* out) {
-  const int base = blockIdx.x * 64 * kLanes;
-  for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) out[base + i] = x[base + i] + 1;
+// grid_1d_blockspec: x + 1 over (256, 128) int32, one block an (8, 128) tile
+// (4 KB), one 16-byte load and store a thread: every load of the grid is in
+// flight at once.
+constexpr int kGridRows = 256;
+constexpr int kTileRows = 8;
+constexpr int kTileThreads = kTileRows * kLanes / 4;
+
+__global__ void __launch_bounds__(kTileThreads) add_one_tiles(const int4* __restrict__ x, int4* __restrict__ out) {
+  const int i = blockIdx.x * kTileThreads + threadIdx.x;
+  int4 v = __ldg(x + i);
+  v.x += 1;
+  v.y += 1;
+  v.z += 1;
+  v.w += 1;
+  out[i] = v;
 }
 
 // prefetch_scalar_grid: one block an (8, 128) tile, x + s[0]; the block reads
@@ -363,41 +397,140 @@ __global__ void sort_rows(const int32_t* a, int32_t* out, int rows) {
   for (int j = 0; j < 4; ++j) out[r * kLanes + j * 32 + lane] = v[j];
 }
 
-// (128, 128) int8 @ (128, 128) int8 -> int32 on the tensor cores: A and B
-// (transposed, so that a B fragment is a row of it) in shared memory; warp w
-// computes rows [16w, 16w + 16) as 16 m16n8 tiles, each over 4 k32 steps of
-// mma.sync.m16n8k32.row.col.s32.s8.s8.s32.
-__global__ void matmul_s8(const int8_t* a, const int8_t* b, int32_t* out) {
-  __shared__ alignas(16) int8_t sa[kLanes * kLanes];
-  __shared__ alignas(16) int8_t sbt[kLanes * kLanes];  // sbt[n][k] = b[k][n]
-  for (int i = threadIdx.x; i < kLanes * kLanes; i += blockDim.x) {
-    sa[i] = a[i];
-    sbt[(i & (kLanes - 1)) * kLanes + i / kLanes] = b[i];
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
-  const int m0 = (threadIdx.x >> 5) * 16;
-  auto word = [](const int8_t* p) { return *reinterpret_cast<const int32_t*>(p); };
-  for (int n0 = 0; n0 < kLanes; n0 += 8) {
-    int32_t c[4] = {0, 0, 0, 0};
+// ---------------------------------------------------------------------------
+// matmul_int8_s32acc: (128, 128) int8 @ (128, 128) int8 -> int32 on wgmma
+//
+// Both operands go to shared memory in wgmma's K-major layout without
+// swizzle: core matrices of 8 rows x 16 bytes of K, each 128 contiguous bytes
+// (a row every 16).  A row group's 8 core matrices follow one another along K
+// (the leading byte offset, 128), and row groups are kGroupBytes apart (the
+// stride byte offset).  The 16 bytes of padding between row groups put the
+// 16-byte stores of B's transposition, whose 8 lanes of a phase hold 4 row
+// groups and 2 rows of each, on 8 distinct 16-byte bank groups.
+
+constexpr int kTileN = 32;  // output columns a block: (128 / 64) x (128 / kTileN) blocks of one warpgroup
+constexpr int kCoreBytes = 128;
+constexpr int kGroupBytes = 8 * kCoreBytes + 16;
+
+// Byte offset of row `row`, 16-byte chunk `chunk` of K, in the K-major layout.
+__device__ __forceinline__ int kmajor_offset(int row, int chunk) {
+  return (row >> 3) * kGroupBytes + chunk * kCoreBytes + (row & 7) * 16;
+}
+
+// wgmma's shared-memory matrix descriptor of the K-major layout from `p`:
+// start address, leading byte offset (K) and stride byte offset (rows), each
+// in 16-byte units; base offset 0, no swizzle.
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | static_cast<uint64_t>(kCoreBytes >> 4) << 16 |
+         static_cast<uint64_t>(kGroupBytes >> 4) << 32;
+}
+
+// A 4x4 byte block transposed in registers: word i holds row i's 4 bytes on
+// entry, and byte i of each row (row r in byte r) on return.
+__device__ __forceinline__ void transpose4x4(uint32_t& w0, uint32_t& w1, uint32_t& w2, uint32_t& w3) {
+  const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w0, w1, 0x7362);
+  const uint32_t t2 = __byte_perm(w2, w3, 0x5140), t3 = __byte_perm(w2, w3, 0x7362);
+  w0 = __byte_perm(t0, t2, 0x5410);
+  w1 = __byte_perm(t0, t2, 0x7632);
+  w2 = __byte_perm(t1, t3, 0x5410);
+  w3 = __byte_perm(t1, t3, 0x7632);
+}
+
+// d += A (64 x 32 bytes) @ B (32 x kTileN) for the warpgroup, both from
+// shared memory: wgmma.mma_async s8 x s8 -> s32, kTileN / 2 accumulators a
+// thread.
+__device__ __forceinline__ void wgmma_m64nNk32(int32_t (&d)[kTileN / 2], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// The warpgroup's output tile: 4 wgmma k-steps (32 bytes of K each: 2 core
+// matrices, 256 bytes along K), then wait for them.
+__device__ __forceinline__ void wgmma_product(int32_t (&d)[kTileN / 2], const int8_t* sa, const int8_t* sb) {
+  asm volatile("wgmma.fence.sync.aligned;" : : : "memory");
 #pragma unroll
-    for (int k0 = 0; k0 < kLanes; k0 += 32) {
-      const int32_t a0 = word(sa + (m0 + g) * kLanes + k0 + tg * 4);
-      const int32_t a1 = word(sa + (m0 + g + 8) * kLanes + k0 + tg * 4);
-      const int32_t a2 = word(sa + (m0 + g) * kLanes + k0 + 16 + tg * 4);
-      const int32_t a3 = word(sa + (m0 + g + 8) * kLanes + k0 + 16 + tg * 4);
-      const int32_t b0 = word(sbt + (n0 + g) * kLanes + k0 + tg * 4);
-      const int32_t b1 = word(sbt + (n0 + g) * kLanes + k0 + 16 + tg * 4);
-      asm volatile(
-          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-          "{%0, %1, %2, %3};"
-          : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  for (int k = 0; k < kLanes / 32; ++k) {
+    wgmma_m64nNk32(d, kmajor_desc(sa + 2 * k * kCoreBytes), kmajor_desc(sb + 2 * k * kCoreBytes));
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;" : : : "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" : : : "memory");
+#pragma unroll
+  for (int i = 0; i < kTileN / 2; ++i) asm volatile("" : "+r"(d[i]) : : "memory");  // no read of d above the wait
+}
+
+// One warpgroup a block, which computes output rows [64 x, 64 x + 64),
+// columns [kTileN y, kTileN y + kTileN) for block (x, y).  Staging, every
+// global load in flight at once: its rows of A as 16-byte chunks, 4 a thread,
+// each stored whole (a phase's 8 lanes take 8 rows of one chunk of K: 8 bank
+// groups); its columns of B as (4 columns x 16 rows) blocks, one a thread
+// while they last: 4 bytes of each of 16 rows (a warp's load is the tile's
+// 32 bytes of 4 rows), transposed as four 4x4 blocks in registers into 16
+// bytes of K for each of the 4 columns, stored as one 16-byte word each.
+// Then one wgmma product, and each thread's pairs of adjacent outputs leave
+// as 8-byte stores.
+__global__ void __launch_bounds__(128)
+    matmul_s8(const int4* __restrict__ a, const uint32_t* __restrict__ b, int32_t* __restrict__ out) {
+  constexpr int kChunks = kLanes / 16;   // 16-byte chunks of a 128-byte row: B's 16-row slabs
+  constexpr int kQuads = kTileN / 4;     // 4-column groups of the tile
+  constexpr int kBlocksB = kQuads * kChunks;  // B's (4 x 16) blocks
+  __shared__ alignas(128) int8_t sa[8 * kGroupBytes];
+  __shared__ alignas(128) int8_t sb[kTileN / 8 * kGroupBytes];  // row n of B's transpose: column n of the tile
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int row0 = 64 * blockIdx.x, col0 = kTileN * blockIdx.y;
+  int4 av[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = i * 128 + t;
+    av[i] = __ldg(a + (row0 + (q >> 6) * 8 + (q & 7)) * kChunks + ((q >> 3) & 7));
+  }
+  uint32_t bw[(kBlocksB + 127) / 128][16];
+#pragma unroll
+  for (int s = 0; s < (kBlocksB + 127) / 128; ++s) {
+    const int blk = s * 128 + t, slab = blk / kQuads, quad = blk % kQuads;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if (blk < kBlocksB) bw[s][i] = __ldg(b + (16 * slab + i) * (kLanes / 4) + col0 / 4 + quad);
     }
-    out[(m0 + g) * kLanes + n0 + tg * 2] = c[0];
-    out[(m0 + g) * kLanes + n0 + tg * 2 + 1] = c[1];
-    out[(m0 + g + 8) * kLanes + n0 + tg * 2] = c[2];
-    out[(m0 + g + 8) * kLanes + n0 + tg * 2 + 1] = c[3];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = i * 128 + t;
+    *reinterpret_cast<int4*>(sa + kmajor_offset((q >> 6) * 8 + (q & 7), (q >> 3) & 7)) = av[i];
+  }
+#pragma unroll
+  for (int s = 0; s < (kBlocksB + 127) / 128; ++s) {
+    const int blk = s * 128 + t, slab = blk / kQuads, quad = blk % kQuads;
+    if (blk < kBlocksB) {
+#pragma unroll
+      for (int i = 0; i < 16; i += 4) transpose4x4(bw[s][i], bw[s][i + 1], bw[s][i + 2], bw[s][i + 3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // column 4 quad + j, the slab's 16 bytes of K
+        *reinterpret_cast<int4*>(sb + kmajor_offset(4 * quad + j, slab)) =
+            make_int4(bw[s][j], bw[s][4 + j], bw[s][8 + j], bw[s][12 + j]);
+      }
+    }
+  }
+  fence_async_shared();  // the generic stores, visible to wgmma's reads
+  __syncthreads();
+
+  int32_t d[kTileN / 2];
+#pragma unroll
+  for (int i = 0; i < kTileN / 2; ++i) d[i] = 0;
+  wgmma_product(d, sa, sb);
+  // accumulator 4j + h: row 16 warp + lane / 4 + 8 (h >> 1), column 8j + 2 (lane & 3) + (h & 1)
+  const int row = row0 + 16 * warp + (lane >> 2), col = col0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < kTileN / 8; ++j) {
+    *reinterpret_cast<int2*>(out + row * kLanes + 8 * j + col) = make_int2(d[4 * j], d[4 * j + 1]);
+    *reinterpret_cast<int2*>(out + (row + 8) * kLanes + 8 * j + col) = make_int2(d[4 * j + 2], d[4 * j + 3]);
   }
 }
 
@@ -430,7 +563,7 @@ int arrow_probe_empty(void* stream) {
 }
 
 int arrow_probe_grid_1d_blockspec(const void* x, void* out, void* stream) {
-  add_one_tiles<<<4, 256, 0, STREAM>>>(in<int32_t>(x), out_<int32_t>(out));
+  add_one_tiles<<<kGridRows / kTileRows, kTileThreads, 0, STREAM>>>(in<int4>(x), out_<int4>(out));
   return done();
 }
 
@@ -551,7 +684,7 @@ int arrow_probe_lax_sort_in_kernel(const void* a, void* out, void* stream) {
 }
 
 int arrow_probe_matmul_int8_s32acc(const void* a, const void* b, void* out, void* stream) {
-  matmul_s8<<<1, 8 * 32, 0, STREAM>>>(in<int8_t>(a), in<int8_t>(b), out_<int32_t>(out));
+  matmul_s8<<<dim3(kLanes / 64, kLanes / kTileN), 128, 0, STREAM>>>(in<int4>(a), in<uint32_t>(b), out_<int32_t>(out));
   return done();
 }
 

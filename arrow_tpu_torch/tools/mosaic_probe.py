@@ -315,7 +315,9 @@ def launch(probe: Probe, *args: torch.Tensor, blocks: int = 1) -> torch.Tensor:
         raise ValueError(f"{probe.label}: the kernel needs CUDA tensors")
     if blocks != 1 and not (probe.blocked and blocks > 1):
         raise ValueError(f"{probe.label}: {blocks} blocks")
+    # the kernels move 16 bytes at a time: an input that starts off a 16-byte boundary is copied
     args = [a.contiguous() for a in args]
+    args = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args]
     out = (torch.zeros if probe.zeroed else torch.empty)((blocks, *probe.shape), dtype=probe.dtype, device=device)
     fn = c_entry(f"arrow_probe_{probe.label}", len(args) + 1, int(probe.blocked))
     counts = (blocks,) if probe.blocked else ()

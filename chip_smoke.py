@@ -121,9 +121,14 @@ Phases, each printing lines that start with its name:
    device), beside an empty kernel timed the same way, its bound (bytes, or
    for the two matmuls the tensor-core operations where larger), its plain
    version (host-bound for the merge steps, which read R on the host) and
-   its library call (take_along_dim, roll, cumsum, sort, _int_mm, a bf16
-   matmul, a slice's clone, pad, x + 1, ...), and back to back (the
-   wrapper's rate);
+   its library call (take_along_dim, roll, cumsum, sort, _int_mm, a slice's
+   clone, pad, x + 1, ...; none for the mask product, whose bf16 matmul of a
+   mask made beforehand is printed apart), and back to back (the wrapper's
+   rate); the two redesigned kernels, grid_1d_blockspec and
+   matmul_int8_s32acc, timed in turns with their other designs
+   (arrow_tpu_torch.tools.probe_designs: the earlier mosaic_probe.cu where
+   build/parent holds it, and the int8 product's staging alone and its
+   wider tiles), each held to its plain version first;
 10. profile: each query at each size under torch.profiler: device busy time,
    the device time in fills and in copies, the device's idle share of the
    query's wall time (also without the idle time spent in the profiler's
@@ -2785,8 +2790,9 @@ PROBE_R4_OUT = HERE / "build" / "arrow_tpu_torch" / "TORCH_PROBE_R4.json"
 
 def probe_library_call(label, args):
     """One PyTorch call that computes the probe's function on its inputs, or
-    None where PyTorch has none; int64 indices, host shifts and offsets and
-    the bf16 mask are made here, outside its time."""
+    None where PyTorch has none (i1_to_bf16_astype: no one call compares,
+    casts and multiplies); int64 indices, host shifts and offsets are made
+    here, outside its time."""
     import torch
     import torch.nn.functional as F
 
@@ -2806,10 +2812,6 @@ def probe_library_call(label, args):
         return lambda: torch.sort(args[0], 1)
     if label == "matmul_int8_s32acc":
         return lambda: torch._int_mm(args[0], args[1])
-    if label == "i1_to_bf16_astype":
-        mask = (args[0] > 0).to(torch.bfloat16)
-        ones = torch.ones_like(mask)
-        return lambda: torch.matmul(mask, ones)
     if label == "transpose_32b_128x128":
         return lambda: args[0].t().contiguous()
     if label in ("dma_unaligned_row_offset", "dynamic_slice_vmem_rows"):
@@ -2853,7 +2855,9 @@ def phase_probes(smi):
     0 just before and read just after; then each of their kernels against
     its plain version on the card and the JAX probe's oracle, timed on the
     device (utils.timing.queued_seconds_per_call) beside an empty kernel,
-    its bound, its plain version and its library call, and back to back.
+    its bound, its plain version and its library call, and back to back;
+    the redesigned kernels in turns with their other designs
+    (arrow_tpu_torch.tools.probe_designs).
     The merge steps' plain versions read R on the host, so their time is
     host-bound (back to back).  Returns (launches by kernel, Measured by
     probe kernel)."""
@@ -2861,14 +2865,10 @@ def phase_probes(smi):
 
     from arrow_tpu_torch.compute.kernels import _build
     from arrow_tpu_torch.tools import mosaic_probe as MP
+    from arrow_tpu_torch.tools import probe_designs as PD
     from arrow_tpu_torch.tools import probe_r4 as PR
-    from arrow_tpu_torch.utils.timing import queued_seconds_per_call
 
-    def queued_ms(fn, what):
-        s = queued_seconds_per_call(fn)
-        require(s is not None, f"{what}: the host does not get ahead of the device")
-        return s * 1e3
-
+    queued_ms = PD.queued_ms
     device = torch.device("cuda")
     t0 = time.perf_counter()
     _build.reset_launch_counts()
@@ -2923,6 +2923,12 @@ def phase_probes(smi):
             plain_ms, plain_how = queued_ms(lambda: MP.plain(p, *args), f"{p.label}'s plain version"), "queued"
         lib = probe_library_call(p.label, args)
         library_ms = queued_ms(lib, f"{p.label}'s library call") if lib is not None else None
+        reference = ""
+        if p.label == "i1_to_bf16_astype":  # a yardstick of its product alone, the bf16 mask made outside
+            mask = (args[0] > 0).to(torch.bfloat16)
+            ones = torch.ones_like(mask)
+            reference = (f"; not its function: the bf16 matmul of the mask made beforehand "
+                         f"{queued_ms(lambda: torch.matmul(mask, ones), 'the mask matmul'):.5f} ms queued")
         bytes_ms = probe_bytes(p.label, args, got) / HBM_BYTES_PER_S * 1e3
         ops_ms = p.ops / TENSOR_OPS_PER_S[p.label] * 1e3 if p.ops else 0.0
         m = Measured(err, ms, plain_ms, library_ms, max(bytes_ms, ops_ms),
@@ -2931,7 +2937,10 @@ def phase_probes(smi):
         print(f"probes: {p.label} ({p.kernel.replaces}; inputs {[tuple(a.shape) for a in args]}): matches plain"
               f"{' and oracle' if p.oracle is not None else ''}; {m.line(5)} (kernel queued, plain {plain_how}"
               f"{', library queued' if lib is not None else ''}); {ms / empty_ms:.2f}x an empty kernel; "
-              f"{host_ms:.5f} ms a call back to back ({smi})")
+              f"{host_ms:.5f} ms a call back to back{reference} ({smi})")
+
+    # the two redesigned kernels in turns with their other designs
+    PD.run(device, lambda line: print(f"probes: {line} ({smi})"))
     print(f"probes: phase {time.perf_counter() - t0:.1f} s")
     return launches, measured
 

@@ -9,6 +9,7 @@ so that it runs where JAX is not installed:
 """
 
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -1042,6 +1043,59 @@ def test_probe_kernel_matches_plain_on_random_inputs(cuda, label):
     got = MP.launch(probe, *args)
     want = MP.plain(probe, *args)
     assert torch.equal(got, want)
+
+
+# the int8 product's cases: the identity on either side (a descriptor or
+# layout fault shows as the rows and columns it moves), the extremes (-128 @
+# -128 is 2 097 152 in every cell), and the full int8 range from three seeds
+INT8_CASES = ["A = I", "B = I", "-128 @ -128", "-128 @ 127", "seed 21", "seed 22", "seed 23"]
+
+
+def _int8_case(case):
+    rng = np.random.default_rng(int(case.split()[-1]) if case.startswith("seed") else 7)
+    full = lambda: rng.integers(-128, 128, (128, 128)).astype(np.int8)  # noqa: E731
+    eye = np.eye(128, dtype=np.int8)
+    return {
+        "A = I": lambda: (eye, full()),
+        "B = I": lambda: (full(), eye),
+        "-128 @ -128": lambda: (np.full((128, 128), -128, np.int8),) * 2,
+        "-128 @ 127": lambda: (np.full((128, 128), -128, np.int8), np.full((128, 128), 127, np.int8)),
+    }.get(case, lambda: (full(), full()))()
+
+
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_matmul_int8_s32acc_cases(cuda, case):
+    """The wgmma product against the exact product on the host; a fault
+    names its first wrong (row, column)s."""
+    a, b = _int8_case(case)
+    got = MP.launch(MP.BY_LABEL["matmul_int8_s32acc"], torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+    got = got.cpu().numpy()
+    want = a.astype(np.int64) @ b.astype(np.int64)
+    wrong = np.argwhere(got != want)
+    assert not len(wrong), f"{case}: {len(wrong)} wrong, first (row, column) {wrong[:8].tolist()}"
+    if case == "-128 @ -128":
+        assert (got == 2_097_152).all()
+
+
+def test_grid_1d_blockspec_is_one_launch_of_its_grid(cuda, tmp_path):
+    """One call is one kernel on the card: 32 blocks (an 8-row tile each) of
+    256 threads (one 16-byte load and store each), equal to x + 1."""
+    probe = MP.BY_LABEL["grid_1d_blockspec"]
+    (x,) = MP.inputs_on(probe, cuda)
+    MP.launch(probe, x)
+    torch.cuda.synchronize()
+    before = probe.kernel.launches
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        got = MP.launch(probe, x)
+        torch.cuda.synchronize()
+    assert probe.kernel.launches == before + 1
+    assert torch.equal(got, x + 1)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert len(kernels) == 1 and "add_one_tiles" in kernels[0]["name"], [e["name"] for e in kernels]
+    assert (kernels[0]["args"]["grid"], kernels[0]["args"]["block"]) == ([32, 1, 1], [256, 1, 1]), kernels[0]["args"]
 
 
 @pytest.mark.parametrize("name", PR.MERGE_STEPS)
