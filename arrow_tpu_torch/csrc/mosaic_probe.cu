@@ -15,18 +15,37 @@
 //   that holds a 128-wide row as 4 registers a lane, element c in register
 //   c >> 5 of lane c & 31, with __shfl_sync / __shfl_up_sync / __shfl_xor_sync
 //   and a select on the source register;
-// - row movement (the sublane gather, dynamic row windows, the transpose)
-//   goes through a tile in shared memory;
+// - row movement (the sublane gather, the row store, the transpose) goes
+//   through a tile in shared memory;
 // - the DMA probes are bulk copies (cp.async.bulk, the TMA's one-dimensional
 //   form): global to shared completing on an mbarrier, shared to global
 //   completing in a bulk group.  Hopper has no global-to-global bulk copy, so
 //   hbm_to_hbm_dma stages its rows through shared memory.  The rows are 512
 //   bytes, so every row offset meets the bulk copy's 16-byte alignment.
 //
-// Two kernels are laid out for the card rather than for the TPU's tiles, so
+// Four kernels are laid out for the card rather than for the TPU's tiles, so
 // that every global load is in flight at once and nothing waits on a
 // round trip that an earlier one could have covered:
 //
+// - dynamic_slice_vmem_rows (the probe through simple_call, :61: rows
+//   [s, s + 8) of a (64, 128) int32 tile, s a device scalar).  Bound by
+//   bytes: the window's 4 KB read and written, 0.0025 us.  8 blocks of 8
+//   warps, a warp a row of the tile: each thread loads s and its 16 bytes of
+//   the row at once, and stores them at row - s if its row is in the window.
+//   That is one round trip for 32 KB read.  Reading s first and then only
+//   the window (kSliceEveryRow false: 4 KB, one 16-byte load a thread) puts
+//   a second round trip behind the first: 1.055x as long on an H100, in
+//   turns (tools/probe_designs.py).
+// - dma_unaligned_row_write (:254: src's 8 rows written at row s of a
+//   (64, 128) int32 output, zeros elsewhere).  Bound by bytes: 36 KB,
+//   0.011 us.  The kernel writes the zeros itself, so a call is one launch
+//   and no fill.  8 blocks of 8 warps, a warp an output row: each block loads
+//   s and all of src (16 bytes a thread) at once, src into shared memory, so
+//   that no load waits on an address computed from s.  A thread outside the
+//   window stores its zeros before the block's barrier; after it the
+//   window's rows leave as 16-byte stores from shared memory.  A bulk copy a
+//   block of its window rows, shared to global (kWriteBulk true), took
+//   1.024x as long on an H100, in turns (tools/probe_designs.py).
 // - grid_1d_blockspec (mosaic_probe.py:77, p_grid: x + 1 over a (256, 128)
 //   int32 array in a grid of (64, 128) blocks).  Bound by bytes: 256 KB,
 //   0.078 us.  The grid is 32 blocks of (8, 128) tiles, one 16-byte read-only
@@ -69,6 +88,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kGridRows = 256;
 constexpr int kTileRows = 8;
 constexpr int kTileThreads = kTileRows * kLanes / 4;
+constexpr int kRowWords = kLanes / 4;  // 16-byte words of a 128-lane int32 row
 
 __global__ void __launch_bounds__(kTileThreads) add_one_tiles(const int4* __restrict__ x, int4* __restrict__ out) {
   const int i = blockIdx.x * kTileThreads + threadIdx.x;
@@ -185,22 +205,33 @@ __global__ void gather_sublanes(const int32_t* x, const int32_t* idx, int32_t* o
   for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) out[i] = tile[idx[i] * kLanes + (i & (kLanes - 1))];
 }
 
-// The first row of an 8-row window at device row s[0] of a 64-row tile; a
-// window past the tile traps (a launch error) rather than reading or writing
-// outside its buffers.
-__device__ __forceinline__ int window_row(const int32_t* s) {
-  const int first = s[0];
-  if (first < 0 || first > 64 - 8) __trap();
+// The first row of an 8-row window at row `first` (read from the device) of
+// a 64-row tile; a window past the tile traps (a launch error) rather than
+// reading or writing outside its buffers.
+__device__ __forceinline__ int window_row(int first) {
+  if (first < 0 || first > 64 - kTileRows) __trap();
   return first;
 }
 
-// dynamic_slice_vmem_rows: rows [s, s + 8) of a (64, 128) tile in shared memory
-__global__ void slice_rows(const int32_t* s, const int32_t* a, int32_t* out) {
-  __shared__ int32_t tile[64 * kLanes];
-  for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) tile[i] = a[i];
-  __syncthreads();
-  const int first = window_row(s);
-  for (int i = threadIdx.x; i < 8 * kLanes; i += blockDim.x) out[i] = tile[first * kLanes + i];
+// dynamic_slice_vmem_rows' two designs: every row at once (one round trip),
+// or s and then the window alone (two)
+constexpr bool kSliceEveryRow = true;
+
+// 8 blocks of 8 warps, a warp a row of the (64, 128) tile: s and the thread's
+// 16 bytes loaded together, stored at row - s when the row is in the window
+__global__ void __launch_bounds__(kTileThreads)
+    slice_every_row(const int32_t* __restrict__ s, const int4* __restrict__ a, int4* __restrict__ out) {
+  const int got = __ldg(s);
+  const int i = blockIdx.x * kTileThreads + threadIdx.x;  // 16-byte word i of the tile, in row i / kRowWords
+  const int4 v = __ldg(a + i);
+  const int row = i / kRowWords - window_row(got);
+  if (row >= 0 && row < kTileRows) out[row * kRowWords + i % kRowWords] = v;
+}
+
+// one block: s, then one 16-byte word of the window a thread
+__global__ void __launch_bounds__(kTileThreads)
+    slice_window(const int32_t* __restrict__ s, const int4* __restrict__ a, int4* __restrict__ out) {
+  out[threadIdx.x] = __ldg(a + window_row(__ldg(s)) * kRowWords + threadIdx.x);
 }
 
 // dynamic_store_vmem_rows: a zeroed (64, 128) tile in shared memory with a's
@@ -209,7 +240,7 @@ __global__ void store_rows(const int32_t* s, const int32_t* a, int32_t* out) {
   __shared__ int32_t tile[64 * kLanes];
   for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) tile[i] = 0;
   __syncthreads();
-  const int first = window_row(s);
+  const int first = window_row(s[0]);
   for (int i = threadIdx.x; i < 8 * kLanes; i += blockDim.x) tile[first * kLanes + i] = a[i];
   __syncthreads();
   for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) out[i] = tile[i];
@@ -288,19 +319,47 @@ __global__ void copy_rows_in(const int32_t* s, const int32_t* src, int32_t* out)
   __shared__ alignas(128) int32_t buf[8 * kLanes];
   __shared__ alignas(8) unsigned long long bar;
   init_barrier(&bar);
-  if (threadIdx.x == 0) bulk_load(buf, src + window_row(s) * kLanes, 8 * kRowBytes, &bar);
+  if (threadIdx.x == 0) bulk_load(buf, src + window_row(s[0]) * kLanes, 8 * kRowBytes, &bar);
   wait_barrier(&bar, 0);
   for (int i = threadIdx.x; i < 8 * kLanes; i += blockDim.x) out[i] = buf[i];
 }
 
-// dma_unaligned_row_write: src's 8 rows into shared memory, then shared to
-// global at row s of out (the wrapper zeroes the other rows)
-__global__ void copy_rows_out(const int32_t* s, const int32_t* src, int32_t* out) {
-  __shared__ alignas(128) int32_t buf[8 * kLanes];
-  for (int i = threadIdx.x; i < 8 * kLanes; i += blockDim.x) buf[i] = src[i];
-  fence_async_shared();
+// dma_unaligned_row_write's two designs: the window's rows leave as 16-byte
+// stores, or as one bulk copy a block (kWriteBulk)
+constexpr bool kWriteBulk = false;
+
+// The whole (64, 128) output, src's 8 rows at [s, s + 8) and zeros elsewhere:
+// 8 blocks of 8 warps, a warp an output row.  s and all of src (into shared
+// memory) are loaded together; a thread outside the window stores its zeros
+// before the barrier, and the window leaves after it.  The zero stores
+// and the bulk copy touch disjoint rows, and the bulk copy has read shared
+// memory before the block exits.
+template <bool kBulk>
+__global__ void __launch_bounds__(kTileThreads)
+    write_rows(const int32_t* __restrict__ s, const int4* __restrict__ src, int4* __restrict__ out) {
+  __shared__ alignas(128) int4 rows[kTileRows * kRowWords];
+  const int got = __ldg(s);
+  rows[threadIdx.x] = __ldg(src + threadIdx.x);
+  const int first = window_row(got);
+  const int i = blockIdx.x * kTileThreads + threadIdx.x;  // 16-byte word i of the output, in row i / kRowWords
+  const int row = i / kRowWords - first;
+  const bool window = row >= 0 && row < kTileRows;
+  if (!window) out[i] = make_int4(0, 0, 0, 0);
+  if constexpr (kBulk) fence_async_shared();
   __syncthreads();
-  if (threadIdx.x == 0) bulk_store(out + window_row(s) * kLanes, buf, 8 * kRowBytes);
+  if constexpr (!kBulk) {
+    if (window) out[i] = rows[row * kRowWords + i % kRowWords];
+  } else if (threadIdx.x == 0) {
+    const int lo = max(first, kTileRows * static_cast<int>(blockIdx.x));
+    const int hi = min(first, kTileRows * static_cast<int>(blockIdx.x)) + kTileRows;
+    if (lo < hi) {
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                   : : "l"(out + lo * kRowWords), "r"(smem_addr(rows + (lo - first) * kRowWords)),
+                     "r"(static_cast<unsigned>(hi - lo) * kRowBytes) : "memory");
+      asm volatile("cp.async.bulk.commit_group;" : : : "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" : : : "memory");
+    }
+  }
 }
 
 // dma_dynamic_size_rows: the first s[0] rows (read on the device, clamped to
@@ -634,7 +693,11 @@ int arrow_probe_gather_sublanes_taa_axis0(const void* x, const void* idx, void* 
 }
 
 int arrow_probe_dynamic_slice_vmem_rows(const void* s, const void* a, void* out, void* stream) {
-  slice_rows<<<1, 1024, 0, STREAM>>>(in<int32_t>(s), in<int32_t>(a), out_<int32_t>(out));
+  if (kSliceEveryRow) {
+    slice_every_row<<<64 / kTileRows, kTileThreads, 0, STREAM>>>(in<int32_t>(s), in<int4>(a), out_<int4>(out));
+  } else {
+    slice_window<<<1, kTileThreads, 0, STREAM>>>(in<int32_t>(s), in<int4>(a), out_<int4>(out));
+  }
   return done();
 }
 
@@ -654,7 +717,7 @@ int arrow_probe_dma_unaligned_row_offset(const void* s, const void* src, void* o
 }
 
 int arrow_probe_dma_unaligned_row_write(const void* s, const void* src, void* out, void* stream) {
-  copy_rows_out<<<1, 256, 0, STREAM>>>(in<int32_t>(s), in<int32_t>(src), out_<int32_t>(out));
+  write_rows<kWriteBulk><<<64 / kTileRows, kTileThreads, 0, STREAM>>>(in<int32_t>(s), in<int4>(src), out_<int4>(out));
   return done();
 }
 

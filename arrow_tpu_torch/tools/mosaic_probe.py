@@ -20,9 +20,12 @@ plain version for tensors on the CPU) and checks the result against the JAX
 probe's numpy oracle, printing ``[OK]`` or ``[FAIL]`` and going on; the
 ``=== MATRIX ===`` at the end lists every probe run.  Unsigned 32-bit values
 are held in int32 storage, as everywhere in the port.  Where the JAX output
-holds uninitialised rows (the DMA probes that write part of it), the port
-zeroes them and its oracle holds them to zero; ``Probe.rows`` names the
-rows that the JAX probe writes, which are all that can be held against it.
+holds uninitialised rows (the DMA probes that write part of it), the
+port's kernels write zeros there and its oracle holds them to zero;
+``Probe.rows`` names the rows that the JAX probe writes, which are all that
+can be held against it.  :func:`library_call` gives, where there is one, a
+PyTorch call of a probe's function: a yardstick timed beside the kernel,
+called nowhere else.
 """
 
 from __future__ import annotations
@@ -61,7 +64,6 @@ class Probe:
     shape: Tuple[int, ...]
     dtype: torch.dtype
     rows: Optional[Callable[..., slice]] = None  # rows the JAX probe writes, from the inputs (all when None)
-    zeroed: bool = False  # the kernel writes part of the output; the wrapper zeroes it first
     ops: int = 0  # tensor-core operations, for the bound
     blocked: bool = False  # the C entry takes a block count, each block on the same data into its own output
 
@@ -220,7 +222,7 @@ PROBES: List[Probe] = [  # in the JAX tool's order of runs
           lambda s, src: src[_rows_of(s, 8)], lambda s, src: src[_at(s)], (8, 128), torch.int32),
     Probe("dma_unaligned_row_write", 254, lambda: (_scalar(5), _arange(8)),
           lambda s, src: _store_rows(s, src, 64), _store_oracle, (64, 128), torch.int32,
-          rows=lambda s, src: _at(s), zeroed=True),
+          rows=lambda s, src: _at(s)),
     Probe("dynamic_slice_vmem_rows", SIMPLE_CALL, lambda: (_scalar(21), _arange(64)),
           lambda s, a: a[_rows_of(s, 8)], lambda s, a: a[_at(s)], (8, 128), torch.int32),
     Probe("dynamic_store_vmem_rows", SIMPLE_CALL, lambda: (_scalar(13), _arange(8)),
@@ -318,7 +320,7 @@ def launch(probe: Probe, *args: torch.Tensor, blocks: int = 1) -> torch.Tensor:
     # the kernels move 16 bytes at a time: an input that starts off a 16-byte boundary is copied
     args = [a.contiguous() for a in args]
     args = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args]
-    out = (torch.zeros if probe.zeroed else torch.empty)((blocks, *probe.shape), dtype=probe.dtype, device=device)
+    out = torch.empty((blocks, *probe.shape), dtype=probe.dtype, device=device)
     fn = c_entry(f"arrow_probe_{probe.label}", len(args) + 1, int(probe.blocked))
     counts = (blocks,) if probe.blocked else ()
     with torch.cuda.device(device):
@@ -348,6 +350,52 @@ def empty_launch(device) -> None:
     fn = c_entry("arrow_probe_empty", 0)
     with torch.cuda.device(device):
         _build.check(fn(torch.cuda.current_stream(device).cuda_stream), "empty kernel")
+
+
+def library_call(label: str, args: Sequence[torch.Tensor]) -> Optional[Callable[[], object]]:
+    """One PyTorch call that computes the probe's function on its inputs (a
+    probe of this module or of probe_r4), or None where PyTorch has none
+    (i1_to_bf16_astype: no one call compares, casts and multiplies; the
+    merge steps).  int64 indices, host shifts and offsets are made here,
+    outside the call."""
+    import torch.nn.functional as F
+
+    if label.startswith("gather_lanes"):
+        x, idx = args[0], args[1].long()
+        return lambda: torch.take_along_dim(x, idx, 1)
+    if label == "gather_sublanes_taa_axis0":
+        x, idx = args[0], args[1].long()
+        return lambda: torch.take_along_dim(x, idx, 0)
+    if label.startswith("pltpu_roll"):
+        shift, a = (3, args[0]) if label == "pltpu_roll_static" else (int(args[0][0]), args[1])
+        return lambda: torch.roll(a, shift, 1)
+    if label.startswith("cumsum"):
+        a, dim = args[0], 1 if label == "cumsum_lanes_i32" else 0
+        return lambda: torch.cumsum(a, dim, dtype=a.dtype)
+    if label == "lax_sort_in_kernel":
+        return lambda: torch.sort(args[0], 1)
+    if label == "matmul_int8_s32acc":
+        return lambda: torch._int_mm(args[0], args[1])
+    if label == "transpose_32b_128x128":
+        return lambda: args[0].t().contiguous()
+    if label in ("dma_unaligned_row_offset", "dynamic_slice_vmem_rows"):
+        first = int(args[0][0])
+        return lambda: args[1][first:first + 8].clone()
+    if label == "hbm_to_hbm_dma":
+        return lambda: args[0][8:16].clone()
+    if label in ("dma_unaligned_row_write", "dynamic_store_vmem_rows"):
+        first, rows = int(args[0][0]), args[1]
+        return lambda: F.pad(rows, (0, 0, first, 64 - len(rows) - first))
+    if label == "dma_dynamic_size_rows":
+        count, src = int(args[0][0]), args[1]
+        return lambda: F.pad(src[:count], (0, 0, 0, len(src) - count))
+    if label == "bitcast_f32_u32":
+        return lambda: args[0].view(torch.int32).clone()
+    if label == "grid_1d_blockspec":
+        return lambda: args[0] + 1
+    if label == "prefetch_scalar_grid":
+        return lambda: args[1] + args[0]
+    return None
 
 
 # ---------------------------------------------------------------------------

@@ -1,55 +1,73 @@
-"""The two redesigned probe kernels against other designs of theirs, timed in
+"""The redesigned probe kernels against other designs of theirs, timed in
 turns on one card.
 
     python -m arrow_tpu_torch.tools.probe_designs
 
-``grid_1d_blockspec`` and ``matmul_int8_s32acc`` (``csrc/mosaic_probe.cu``)
-are laid out for the card.  Each other design is a variant of a
-``mosaic_probe.cu``, built into a library of its own under
-``build/arrow_tpu_torch/designs/`` (the port's nvcc flags, one process a
-design, all started together):
+``grid_1d_blockspec``, ``matmul_int8_s32acc``, ``dynamic_slice_vmem_rows``
+and ``dma_unaligned_row_write`` (``csrc/mosaic_probe.cu``) are laid out for
+the card.  Each other design is a variant of a ``mosaic_probe.cu``, built
+into a library of its own under ``build/arrow_tpu_torch/designs/`` (the
+port's nvcc flags, one process a design, all started together):
 
-- ``earlier``: the source before the redesign, where the checkout holds it
-  as ``build/parent/arrow_tpu_torch/csrc/mosaic_probe.cu`` (unpacked from
-  git as the README says; not measured otherwise);
+- ``earlier``: the source before the kernel's redesign, where the checkout
+  holds it as ``build/parent/<commit>/arrow_tpu_torch/csrc/mosaic_probe.cu``
+  for the kernel's commit in ``BEFORE`` (unpacked from git as the README
+  says; not measured otherwise).  ``dma_unaligned_row_write``'s earlier
+  design wrote only the window, into an output that its wrapper zeroed
+  first: that fill is part of its call and of its time;
 - ``staging``: the int8 product with its wgmma call cut out, whose output is
   then the zeroed accumulators: the staging and the stores alone;
 - ``tile64``, ``tile128``: the int8 product in output tiles of 64 x 64 and
-  64 x 128 (4 and 2 blocks) in place of 64 x 32 (8 blocks).
+  64 x 128 (4 and 2 blocks) in place of 64 x 32 (8 blocks);
+- ``window``: the row slice reading s first and then only the window's 8
+  rows (two round trips), in place of every row at once (one);
+- ``bulk``: the row write sending the window out as a bulk copy a block,
+  shared to global, in place of 16-byte stores.
 
 Every design but ``staging`` is first held to the plain version on the
-probe's inputs.  Then each kernel is timed in turns: plain, new, a design,
-new, the next design, new, ...; device ms a call, queued behind a spin
-kernel (:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`),
-beside an empty kernel's and the library call's (``x + 1``,
-``torch._int_mm``).  ``chip_smoke.py``'s ``probes`` phase runs the same.
+probe's inputs, and a row window's at every legal s on random rows.  Then
+each kernel is timed in turns: plain, new, library, new, a design, new, the
+next design, new, ...; device ms a call, queued behind a spin kernel
+(:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`), beside an
+empty kernel's; the library call is :func:`mosaic_probe.library_call`'s
+(``x + 1``, ``torch._int_mm``, a slice's ``clone``, ``F.pad``).
+``chip_smoke.py``'s ``probes`` phase runs the same.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import pathlib
 import statistics
 import sys
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
+import numpy as np
 import torch
 
 from ..compute.kernels import _build
 from . import mosaic_probe as MP
 from .common import gpu_line
 
-REDESIGNED = ("grid_1d_blockspec", "matmul_int8_s32acc")
 SOURCE = _build.CSRC_DIR / "mosaic_probe.cu"
-EARLIER = _build.BUILD_DIR.parent / "parent" / "arrow_tpu_torch" / "csrc" / "mosaic_probe.cu"
+PARENT = _build.BUILD_DIR.parent / "parent"
+# the commit before each kernel's redesign, whose source is its earlier design
+BEFORE = {"grid_1d_blockspec": "9d785cc", "matmul_int8_s32acc": "9d785cc",
+          "dynamic_slice_vmem_rows": "70dca0e", "dma_unaligned_row_write": "70dca0e"}
+REDESIGNED = tuple(BEFORE)
+FILLED_BEFORE = ("dma_unaligned_row_write",)  # earlier designs that wrote into an output zeroed by the wrapper
+WINDOWED = ("dynamic_slice_vmem_rows", "dma_unaligned_row_write")  # a window at device row s in [0, 56]
 OUT_DIR = _build.BUILD_DIR / "designs"
 PRODUCT_CALL = "  wgmma_product(d, sa, sb);\n"
 TILE = 32  # the source's output columns a block (kTileN)
 WRAPPER_START = "__device__ __forceinline__ void wgmma_m64nNk32("
-LIBRARY = {"grid_1d_blockspec": lambda x: x + 1, "matmul_int8_s32acc": torch._int_mm}
+SLICE_EVERY_ROW = "constexpr bool kSliceEveryRow = true;"
+WRITE_BULK = "constexpr bool kWriteBulk = false;"
 # the designs that each kernel is timed against, in their turn's order
-TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "staging", "tile64", "tile128")}
+TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "staging", "tile64", "tile128"),
+         "dynamic_slice_vmem_rows": ("earlier", "window"), "dma_unaligned_row_write": ("earlier", "bulk")}
 
 
 def wgmma_wrapper(n: int) -> str:
@@ -83,12 +101,27 @@ def _tile(text: str, n: int) -> str:
     return _once(text, f"constexpr int kTileN = {TILE};", f"constexpr int kTileN = {n};")
 
 
+def earlier_source(label: str) -> pathlib.Path:
+    """Where the checkout holds the source before `label`'s redesign."""
+    return PARENT / BEFORE[label] / "arrow_tpu_torch" / "csrc" / "mosaic_probe.cu"
+
+
+def library_name(label: str, design: str) -> str:
+    """The name of the library that holds `label`'s `design`: the earlier
+    designs by commit, the rest by their own name."""
+    return f"earlier_{BEFORE[label]}" if design == "earlier" else design
+
+
 def design_sources() -> Dict[str, str]:
-    """Each design's source, by name (``earlier`` where the checkout holds it)."""
+    """Each design's source, by library name (the earlier ones where the
+    checkout holds them)."""
     text = SOURCE.read_text()
-    designs = {"staging": _once(text, PRODUCT_CALL, ""), "tile64": _tile(text, 64), "tile128": _tile(text, 128)}
-    if EARLIER.is_file():
-        designs["earlier"] = EARLIER.read_text()
+    designs = {"staging": _once(text, PRODUCT_CALL, ""), "tile64": _tile(text, 64), "tile128": _tile(text, 128),
+               "window": _once(text, SLICE_EVERY_ROW, SLICE_EVERY_ROW.replace("true", "false")),
+               "bulk": _once(text, WRITE_BULK, WRITE_BULK.replace("false", "true"))}
+    for label in REDESIGNED:
+        if earlier_source(label).is_file():
+            designs[library_name(label, "earlier")] = earlier_source(label).read_text()
     return designs
 
 
@@ -108,19 +141,29 @@ def build() -> Tuple[Dict[str, ctypes.CDLL], float]:
     return {name: ctypes.CDLL(str(lib)) for name, (lib, _) in jobs.items()}, time.perf_counter() - t0
 
 
-def design_call(lib: ctypes.CDLL, probe: MP.Probe, args) -> Callable[[], torch.Tensor]:
+def design_call(lib: ctypes.CDLL, probe: MP.Probe, args, zeroed: bool = False) -> Callable[[], torch.Tensor]:
     """A call of `lib`'s C entry of the probe on `args` into a new output, as
-    the probe's wrapper makes it (no launch counted)."""
+    the probe's wrapper makes it (no launch counted); `zeroed`: the output
+    is zeroed first, as the wrapper of a design that writes part of it did."""
     fn = getattr(lib, f"arrow_probe_{probe.label}")
     fn.argtypes = [ctypes.c_void_p] * (len(args) + 2)
     fn.restype = ctypes.c_int
 
     def call():
-        out = torch.empty(probe.shape, dtype=probe.dtype, device=args[0].device)
+        out = (torch.zeros if zeroed else torch.empty)(probe.shape, dtype=probe.dtype, device=args[0].device)
         _build.check(fn(*[a.data_ptr() for a in args], out.data_ptr(), _build.stream_of(out)), probe.label)
         return out
 
     return call
+
+
+def design_calls(libs: Dict[str, ctypes.CDLL], label: str, args) -> Dict[str, Callable[[], torch.Tensor]]:
+    """Calls of `label`'s designs that were built, on `args`, by design name;
+    an earlier design that wrote part of the output gets a zeroed one."""
+    probe = MP.BY_LABEL[label]
+    return {name: design_call(libs[library_name(label, name)], probe, args,
+                              zeroed=name == "earlier" and label in FILLED_BEFORE)
+            for name in TURNS[label] if library_name(label, name) in libs}
 
 
 def queued_ms(fn: Callable, what: str) -> float:
@@ -132,25 +175,39 @@ def queued_ms(fn: Callable, what: str) -> float:
     return s * 1e3
 
 
+def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
+    """The inputs each design is held to the plain version on: the probe's,
+    and for a row window every legal s on full-range random rows."""
+    yield MP.inputs_on(probe, device)
+    if probe.label in WINDOWED:
+        shape = probe.inputs()[1].shape
+        rows = torch.from_numpy(np.random.default_rng(15).integers(-2 ** 31, 2 ** 31, shape, np.int32)).to(device)
+        for s in range(64 - 8 + 1):
+            yield [torch.full((1,), s, dtype=torch.int32, device=device), rows]
+
+
 def run(device, log: Callable[[str], None] = print) -> Dict[str, list]:
     """Build the designs, hold them to the plain versions and time them in
     turns on `device`; logs a line a kernel and returns its (name, ms)
     turns by label."""
     libs, seconds = build()
-    missing = "" if "earlier" in libs else f"; the earlier design: not measured ({EARLIER} is not there)"
-    log(f"built the designs {sorted(libs)} in {seconds:.1f} s{missing}")
+    missing = sorted({str(earlier_source(label)) for label in REDESIGNED
+                      if library_name(label, "earlier") not in libs})
+    log(f"built the designs {sorted(libs)} in {seconds:.1f} s"
+        + (f"; not measured, the earlier designs in {missing} (not there)" if missing else ""))
     empty_ms = queued_ms(lambda: MP.empty_launch(device), "an empty kernel")
     result = {}
     for label in REDESIGNED:
         probe = MP.BY_LABEL[label]
+        for args in held_inputs(probe, device):
+            want = MP.plain(probe, *args)
+            for name, fn in {"new": lambda: MP.launch(probe, *args), **design_calls(libs, label, args)}.items():
+                if name != "staging" and not torch.equal(fn(), want):
+                    raise RuntimeError(f"{label}: the {name} design disagrees with the plain version "
+                                       f"on inputs {[a.flatten()[:4].tolist() for a in args]}")
         args = MP.inputs_on(probe, device)
         fns = {"plain": lambda: MP.plain(probe, *args), "new": lambda: MP.launch(probe, *args),
-               "library": lambda: LIBRARY[label](*args)}
-        fns.update((name, design_call(libs[name], probe, args)) for name in TURNS[label] if name in libs)
-        want = fns["plain"]()
-        for name in fns.keys() - {"staging"}:
-            if not torch.equal(fns[name](), want):
-                raise RuntimeError(f"{label}: the {name} design disagrees with the plain version")
+               "library": MP.library_call(label, args), **design_calls(libs, label, args)}
         turns = ["plain", "new", "library", "new"]
         for name in TURNS[label]:
             turns += [name, "new"] if name in fns else []

@@ -124,11 +124,13 @@ Phases, each printing lines that start with its name:
    its library call (take_along_dim, roll, cumsum, sort, _int_mm, a slice's
    clone, pad, x + 1, ...; none for the mask product, whose bf16 matmul of a
    mask made beforehand is printed apart), and back to back (the wrapper's
-   rate); the two redesigned kernels, grid_1d_blockspec and
-   matmul_int8_s32acc, timed in turns with their other designs
+   rate); the four redesigned kernels, grid_1d_blockspec,
+   matmul_int8_s32acc, dynamic_slice_vmem_rows and dma_unaligned_row_write,
+   timed in turns with their other designs
    (arrow_tpu_torch.tools.probe_designs: the earlier mosaic_probe.cu where
-   build/parent holds it, and the int8 product's staging alone and its
-   wider tiles), each held to its plain version first;
+   build/parent/<commit> holds it, the int8 product's staging alone and its
+   wider tiles, the slice's window-only read, the write's bulk copies),
+   each held to its plain version first (the row windows at every s);
 10. profile: each query at each size under torch.profiler: device busy time,
    the device time in fills and in copies, the device's idle share of the
    query's wall time (also without the idle time spent in the profiler's
@@ -2788,52 +2790,6 @@ TENSOR_OPS_PER_S = {"matmul_int8_s32acc": 1979e12, "i1_to_bf16_astype": 989e12}
 PROBE_R4_OUT = HERE / "build" / "arrow_tpu_torch" / "TORCH_PROBE_R4.json"
 
 
-def probe_library_call(label, args):
-    """One PyTorch call that computes the probe's function on its inputs, or
-    None where PyTorch has none (i1_to_bf16_astype: no one call compares,
-    casts and multiplies); int64 indices, host shifts and offsets are made
-    here, outside its time."""
-    import torch
-    import torch.nn.functional as F
-
-    if label.startswith("gather_lanes"):
-        x, idx = args[0], args[1].long()
-        return lambda: torch.take_along_dim(x, idx, 1)
-    if label == "gather_sublanes_taa_axis0":
-        x, idx = args[0], args[1].long()
-        return lambda: torch.take_along_dim(x, idx, 0)
-    if label.startswith("pltpu_roll"):
-        shift, a = (3, args[0]) if label == "pltpu_roll_static" else (int(args[0][0]), args[1])
-        return lambda: torch.roll(a, shift, 1)
-    if label.startswith("cumsum"):
-        a, dim = args[0], 1 if label == "cumsum_lanes_i32" else 0
-        return lambda: torch.cumsum(a, dim, dtype=a.dtype)
-    if label == "lax_sort_in_kernel":
-        return lambda: torch.sort(args[0], 1)
-    if label == "matmul_int8_s32acc":
-        return lambda: torch._int_mm(args[0], args[1])
-    if label == "transpose_32b_128x128":
-        return lambda: args[0].t().contiguous()
-    if label in ("dma_unaligned_row_offset", "dynamic_slice_vmem_rows"):
-        first = int(args[0][0])
-        return lambda: args[1][first:first + 8].clone()
-    if label == "hbm_to_hbm_dma":
-        return lambda: args[0][8:16].clone()
-    if label in ("dma_unaligned_row_write", "dynamic_store_vmem_rows"):
-        first, rows = int(args[0][0]), args[1]
-        return lambda: F.pad(rows, (0, 0, first, 64 - len(rows) - first))
-    if label == "dma_dynamic_size_rows":
-        count, src = int(args[0][0]), args[1]
-        return lambda: F.pad(src[:count], (0, 0, 0, len(src) - count))
-    if label == "bitcast_f32_u32":
-        return lambda: args[0].view(torch.int32).clone()
-    if label == "grid_1d_blockspec":
-        return lambda: args[0] + 1
-    if label == "prefetch_scalar_grid":
-        return lambda: args[1] + args[0]
-    return None
-
-
 def probe_bytes(label, args, out) -> int:
     """The bytes a probe must move: each input row it needs read once (the
     row windows' 8 rows, the sized copy's rows, one column of the scalar
@@ -2921,7 +2877,7 @@ def phase_probes(smi):
             plain_ms, plain_how = cuda_ms(lambda: MP.plain(p, *args), CALLS_PER_SAMPLE), "host-bound"
         else:
             plain_ms, plain_how = queued_ms(lambda: MP.plain(p, *args), f"{p.label}'s plain version"), "queued"
-        lib = probe_library_call(p.label, args)
+        lib = MP.library_call(p.label, args)
         library_ms = queued_ms(lib, f"{p.label}'s library call") if lib is not None else None
         reference = ""
         if p.label == "i1_to_bf16_astype":  # a yardstick of its product alone, the bf16 mask made outside
@@ -2939,7 +2895,7 @@ def phase_probes(smi):
               f"{', library queued' if lib is not None else ''}); {ms / empty_ms:.2f}x an empty kernel; "
               f"{host_ms:.5f} ms a call back to back{reference} ({smi})")
 
-    # the two redesigned kernels in turns with their other designs
+    # the redesigned kernels in turns with their other designs
     PD.run(device, lambda line: print(f"probes: {line} ({smi})"))
     print(f"probes: phase {time.perf_counter() - t0:.1f} s")
     return launches, measured

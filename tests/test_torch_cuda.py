@@ -1027,13 +1027,16 @@ def _random_inputs(label, rng):
         "pltpu_roll_dynamic": lambda: (np.full((1,), 131, np.int32), i32(-2 ** 31, 2 ** 31, (8, 128))),
         "cmp_to_bf16_vector": lambda: (i32(-2 ** 31, 2 ** 31, (32, 128)),),
         "transpose_32b_128x128": lambda: (i32(-2 ** 31, 2 ** 31, (128, 128)),),
+        "dynamic_slice_vmem_rows": lambda: (np.full((1,), 56, np.int32), i32(-2 ** 31, 2 ** 31, (64, 128))),
+        "dma_unaligned_row_write": lambda: (np.full((1,), 0, np.int32), i32(-2 ** 31, 2 ** 31, (8, 128))),
     }[label]()
 
 
 RANDOM_LABELS = ["mb_step_rollpair", "mb_step_taa", "lax_sort_in_kernel", "matmul_int8_s32acc",
                  "i1_to_bf16_astype", "u32_shifts_popcount", "cumsum_sublanes_f32", "cumsum_lanes_i32",
                  "gather_lanes_taa_8x128_i32", "gather_lanes_256wide_2gathers", "gather_sublanes_taa_axis0",
-                 "pltpu_roll_dynamic", "cmp_to_bf16_vector", "transpose_32b_128x128"]
+                 "pltpu_roll_dynamic", "cmp_to_bf16_vector", "transpose_32b_128x128", "dynamic_slice_vmem_rows",
+                 "dma_unaligned_row_write"]
 
 
 @pytest.mark.parametrize("label", RANDOM_LABELS)
@@ -1096,6 +1099,48 @@ def test_grid_1d_blockspec_is_one_launch_of_its_grid(cuda, tmp_path):
     kernels = [e for e in events if e.get("cat") == "kernel"]
     assert len(kernels) == 1 and "add_one_tiles" in kernels[0]["name"], [e["name"] for e in kernels]
     assert (kernels[0]["args"]["grid"], kernels[0]["args"]["block"]) == ([32, 1, 1], [256, 1, 1]), kernels[0]["args"]
+
+
+@pytest.mark.parametrize("s", range(64 - 8 + 1))
+@pytest.mark.parametrize("label", ["dynamic_slice_vmem_rows", "dma_unaligned_row_write"])
+def test_row_window_kernel_at_every_row(cuda, label, s):
+    """The row slice and the row write at every legal device row s, on
+    full-range random rows: equal to the plain version on the card and to
+    the JAX probe's oracle (zeros outside the written window)."""
+    probe = MP.BY_LABEL[label]
+    rows = np.random.default_rng(s).integers(-2 ** 31, 2 ** 31, probe.inputs()[1].shape, np.int32)
+    at = np.full((1,), s, np.int32)
+    args = [torch.from_numpy(at).to(cuda), torch.from_numpy(rows).to(cuda)]
+    got = MP.launch(probe, *args)
+    assert torch.equal(got, MP.plain(probe, *args))
+    np.testing.assert_array_equal(got.cpu().numpy(), probe.oracle(at, rows))
+
+
+def test_dma_unaligned_row_write_is_one_launch_with_no_fill(cuda, tmp_path):
+    """One call is one kernel on the card, with no fill before it: 8 blocks
+    of 256 threads write the whole output, the zeros too (the output's
+    memory held -1s just before), equal to the plain version."""
+    probe = MP.BY_LABEL["dma_unaligned_row_write"]
+    args = MP.inputs_on(probe, cuda)
+    MP.launch(probe, *args)
+    torch.cuda.synchronize()
+    before = probe.kernel.launches
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    junk = torch.full((1, *probe.shape), -1, dtype=probe.dtype, device=cuda)
+    junk_ptr = junk.data_ptr()
+    del junk
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        got = MP.launch(probe, *args)
+        torch.cuda.synchronize()
+    assert probe.kernel.launches == before + 1
+    assert got.data_ptr() == junk_ptr  # the same memory, so the zeros are the kernel's
+    assert torch.equal(got, MP.plain(probe, *args))
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert len(kernels) == 1 and "write_rows" in kernels[0]["name"], [e["name"] for e in kernels]
+    assert (kernels[0]["args"]["grid"], kernels[0]["args"]["block"]) == ([8, 1, 1], [256, 1, 1]), kernels[0]["args"]
 
 
 @pytest.mark.parametrize("name", PR.MERGE_STEPS)

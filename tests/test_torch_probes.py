@@ -23,6 +23,7 @@ cumsum adds ones).
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -219,6 +220,30 @@ def test_probe_oracle_on_the_cpu(label):
     before = probe.kernel.launches
     MP.check(probe, "cpu")
     assert probe.kernel.launches == before
+
+
+# the two probes of a row window at a device row s, whose kernels read s
+# on the card; every legal s, on full-range random rows
+WINDOW_LABELS = ["dynamic_slice_vmem_rows", "dma_unaligned_row_write"]
+
+
+@pytest.mark.parametrize("s", range(64 - 8 + 1))
+@pytest.mark.parametrize("label", WINDOW_LABELS)
+def test_row_window_plain_matches_oracle_at_every_row(label, s):
+    probe = MP.BY_LABEL[label]
+    rows = np.random.default_rng(s).integers(-2 ** 31, 2 ** 31, probe.inputs()[1].shape, np.int32)
+    at = np.full((1,), s, np.int32)
+    got = MP.run(probe, torch.from_numpy(at), torch.from_numpy(rows))
+    np.testing.assert_array_equal(got.numpy(), probe.oracle(at, rows))
+
+
+def test_no_probe_output_is_zeroed_by_its_wrapper():
+    """dma_unaligned_row_write's kernel writes its own zeros outside the
+    window, so the Probe table has no fill option left and the launcher
+    allocates every output with torch.empty: a call is one kernel."""
+    assert "zeroed" not in {f.name for f in dataclasses.fields(MP.Probe)}
+    p4 = MP.BY_LABEL["dma_unaligned_row_write"]
+    assert p4.rows(*p4.inputs()) == slice(5, 13) and p4.shape == (64, 128)
 
 
 @pytest.mark.parametrize("label", ["grid_1d_blockspec", "mb_step_taa"])
