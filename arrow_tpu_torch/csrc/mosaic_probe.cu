@@ -17,19 +17,22 @@
 //   and a select on the source register;
 // - row movement (the sublane gather, the row store, the transpose) goes
 //   through a tile in shared memory;
-// - the DMA probes are bulk copies (cp.async.bulk, the TMA's one-dimensional
-//   form): global to shared completing on an mbarrier, shared to global
-//   completing in a bulk group.  Hopper has no global-to-global bulk copy, so
-//   hbm_to_hbm_dma stages its rows through shared memory.  The rows are 512
-//   bytes, so every row offset meets the bulk copy's 16-byte alignment.
+// - two DMA probes are bulk copies (cp.async.bulk, the TMA's one-dimensional
+//   form): dma_dynamic_size_rows global to shared, completing on an mbarrier,
+//   and hbm_to_hbm_dma global to shared and back, completing in a bulk group
+//   (Hopper has no global-to-global bulk copy, so its rows are staged through
+//   shared memory).  The rows are 512 bytes, so every row offset meets the
+//   bulk copy's 16-byte alignment.  The other two DMA probes, the row-offset
+//   copy and the row write, move 16 bytes a thread since their redesigns
+//   (below); their bulk-copy designs stay behind kOffsetBulk and kWriteBulk.
 //
-// Four kernels are laid out for the card rather than for the TPU's tiles, so
+// Six kernels are laid out for the card rather than for the TPU's tiles, so
 // that every global load is in flight at once and nothing waits on a
 // round trip that an earlier one could have covered:
 //
 // - dynamic_slice_vmem_rows (the probe through simple_call, :61: rows
 //   [s, s + 8) of a (64, 128) int32 tile, s a device scalar).  Bound by
-//   bytes: the window's 4 KB read and written, 0.0025 us.  8 blocks of 8
+//   bytes: the window's 4 KB read and written, 0.0024 us.  8 blocks of 8
 //   warps, a warp a row of the tile: each thread loads s and its 16 bytes of
 //   the row at once, and stores them at row - s if its row is in the window.
 //   That is one round trip for 32 KB read.  Reading s first and then only
@@ -46,6 +49,21 @@
 //   window's rows leave as 16-byte stores from shared memory.  A bulk copy a
 //   block of its window rows, shared to global (kWriteBulk true), took
 //   1.024x as long on an H100, in turns (tools/probe_designs.py).
+// - dma_unaligned_row_offset (:230: rows [s, s + 8) of a (64, 128) int32
+//   src, s a device scalar) is the row slice's function, so its C entry
+//   launches slice_every_row.  Bound by bytes: the window's 4 KB read and
+//   written, 0.0024 us.  Its bulk design (kOffsetBulk true, copy_rows_in: 8
+//   blocks, each thread loading s first and thread 0 bringing the block's 8
+//   rows, whose address does not depend on s, into shared memory by one bulk
+//   copy on an mbarrier; the window's threads store 16 bytes after the wait)
+//   is one round trip too, but its barrier set-up and wait took it to 1.087x
+//   as long on an H100, in turns.
+// - prefetch_scalar_grid (:428: x + s over (16, 128) int32, s a device
+//   scalar, in the JAX grid's two (8, 128) blocks).  Bound by bytes: 16 KB,
+//   0.0049 us.  Each of 2 x 256 threads loads s and its 16 bytes of x at once
+//   through restrict pointers and makes one 16-byte store: no shared memory
+//   and no barrier, so no load waits on the scalar.  One block of 512
+//   threads (kScalarOneBlock true) took 1.050x as long on an H100, in turns.
 // - grid_1d_blockspec (mosaic_probe.py:77, p_grid: x + 1 over a (256, 128)
 //   int32 array in a grid of (64, 128) blocks).  Bound by bytes: 256 KB,
 //   0.078 us.  The grid is 32 blocks of (8, 128) tiles, one 16-byte read-only
@@ -100,14 +118,21 @@ __global__ void __launch_bounds__(kTileThreads) add_one_tiles(const int4* __rest
   out[i] = v;
 }
 
-// prefetch_scalar_grid: one block an (8, 128) tile, x + s[0]; the block reads
-// the scalar once
-__global__ void add_scalar_tiles(const int32_t* s, const int32_t* x, int32_t* out) {
-  __shared__ int32_t add;
-  if (threadIdx.x == 0) add = s[0];
-  __syncthreads();
-  const int base = blockIdx.x * 8 * kLanes;
-  for (int i = threadIdx.x; i < 8 * kLanes; i += blockDim.x) out[base + i] = x[base + i] + add;
+// prefetch_scalar_grid's two designs: the JAX grid, one block an (8, 128)
+// tile, or the whole (16, 128) array in one block (kScalarOneBlock)
+constexpr bool kScalarOneBlock = false;
+constexpr int kScalarThreads = kScalarOneBlock ? 2 * kTileThreads : kTileThreads;
+
+// x + s[0] over (16, 128) int32, wrapping: each thread loads s and its 16
+// bytes of x together, adds and stores 16 bytes (no shared memory, no
+// barrier, so no load waits on the scalar)
+__global__ void __launch_bounds__(kScalarThreads)
+    add_scalar_tiles(const int32_t* __restrict__ s, const int4* __restrict__ x, int4* __restrict__ out) {
+  const unsigned add = static_cast<unsigned>(__ldg(s));
+  const int i = blockIdx.x * kScalarThreads + threadIdx.x;
+  const int4 v = __ldg(x + i);
+  out[i] = make_int4(static_cast<int>(v.x + add), static_cast<int>(v.y + add), static_cast<int>(v.z + add),
+                     static_cast<int>(v.w + add));
 }
 
 __global__ void greater_to_int8(const int32_t* a, int8_t* out, int n, int32_t than) {
@@ -265,13 +290,17 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// One thread initialises the barrier (one arrival a phase); the fence makes
-// it visible to the async proxy, the block barrier to the other threads.
+// Thread 0: initialise the barrier (one arrival a phase) and make it visible
+// to the async proxy, so that a bulk copy may arrive on it.
+__device__ __forceinline__ void init_barrier_async(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" : : "r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" : : : "memory");
+}
+
+// One thread initialises the barrier; the block barrier makes it visible to
+// the other threads.
 __device__ __forceinline__ void init_barrier(unsigned long long* bar) {
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" : : "r"(smem_addr(bar)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" : : : "memory");
-  }
+  if (threadIdx.x == 0) init_barrier_async(bar);
   __syncthreads();
 }
 
@@ -314,14 +343,30 @@ __device__ __forceinline__ void fence_async_shared() {
 
 constexpr unsigned kRowBytes = kLanes * 4;
 
-// dma_unaligned_row_offset: rows [s, s + 8) of src, global to shared, then out
-__global__ void copy_rows_in(const int32_t* s, const int32_t* src, int32_t* out) {
-  __shared__ alignas(128) int32_t buf[8 * kLanes];
+// dma_unaligned_row_offset's two designs: the row slice's slice_every_row
+// (16-byte loads of every row with s), or a bulk copy a block of its own rows
+// (kOffsetBulk)
+constexpr bool kOffsetBulk = false;
+
+// Rows [s, s + 8) of the (64, 128) src: 8 blocks of 8 warps, a block 8 rows
+// of src (4 KB) and a warp a row.  Every thread loads s first; thread 0 sets
+// up the block's barrier and brings the block's rows, whose address does not
+// depend on s, into shared memory by one bulk copy.  After the wait a thread
+// whose row is in the window stores its 16 bytes at row - s.
+__global__ void __launch_bounds__(kTileThreads)
+    copy_rows_in(const int32_t* __restrict__ s, const int4* __restrict__ src, int4* __restrict__ out) {
+  __shared__ alignas(128) int4 rows[kTileThreads];
   __shared__ alignas(8) unsigned long long bar;
-  init_barrier(&bar);
-  if (threadIdx.x == 0) bulk_load(buf, src + window_row(s[0]) * kLanes, 8 * kRowBytes, &bar);
+  const int got = __ldg(s);
+  if (threadIdx.x == 0) {
+    init_barrier_async(&bar);
+    bulk_load(rows, src + blockIdx.x * kTileThreads, kTileRows * kRowBytes, &bar);
+  }
+  __syncthreads();  // the barrier's set-up, seen by every thread before it waits
   wait_barrier(&bar, 0);
-  for (int i = threadIdx.x; i < 8 * kLanes; i += blockDim.x) out[i] = buf[i];
+  const int i = blockIdx.x * kTileThreads + threadIdx.x;  // 16-byte word i of src, in row i / kRowWords
+  const int row = i / kRowWords - window_row(got);
+  if (row >= 0 && row < kTileRows) out[row * kRowWords + i % kRowWords] = rows[threadIdx.x];
 }
 
 // dma_unaligned_row_write's two designs: the window's rows leave as 16-byte
@@ -627,7 +672,8 @@ int arrow_probe_grid_1d_blockspec(const void* x, void* out, void* stream) {
 }
 
 int arrow_probe_prefetch_scalar_grid(const void* s, const void* x, void* out, void* stream) {
-  add_scalar_tiles<<<2, 256, 0, STREAM>>>(in<int32_t>(s), in<int32_t>(x), out_<int32_t>(out));
+  add_scalar_tiles<<<2 * kTileThreads / kScalarThreads, kScalarThreads, 0, STREAM>>>(in<int32_t>(s), in<int4>(x),
+                                                                                   out_<int4>(out));
   return done();
 }
 
@@ -712,7 +758,11 @@ int arrow_probe_transpose_32b_128x128(const void* a, void* out, void* stream) {
 }
 
 int arrow_probe_dma_unaligned_row_offset(const void* s, const void* src, void* out, void* stream) {
-  copy_rows_in<<<1, 256, 0, STREAM>>>(in<int32_t>(s), in<int32_t>(src), out_<int32_t>(out));
+  if (kOffsetBulk) {
+    copy_rows_in<<<64 / kTileRows, kTileThreads, 0, STREAM>>>(in<int32_t>(s), in<int4>(src), out_<int4>(out));
+  } else {
+    slice_every_row<<<64 / kTileRows, kTileThreads, 0, STREAM>>>(in<int32_t>(s), in<int4>(src), out_<int4>(out));
+  }
   return done();
 }
 

@@ -3,9 +3,10 @@ turns on one card.
 
     python -m arrow_tpu_torch.tools.probe_designs
 
-``grid_1d_blockspec``, ``matmul_int8_s32acc``, ``dynamic_slice_vmem_rows``
-and ``dma_unaligned_row_write`` (``csrc/mosaic_probe.cu``) are laid out for
-the card.  Each other design is a variant of a ``mosaic_probe.cu``, built
+``grid_1d_blockspec``, ``matmul_int8_s32acc``, ``dynamic_slice_vmem_rows``,
+``dma_unaligned_row_write``, ``dma_unaligned_row_offset`` and
+``prefetch_scalar_grid`` (``csrc/mosaic_probe.cu``) are laid out for the
+card.  Each other design is a variant of a ``mosaic_probe.cu``, built
 into a library of its own under ``build/arrow_tpu_torch/designs/`` (the
 port's nvcc flags, one process a design, all started together):
 
@@ -22,15 +23,21 @@ port's nvcc flags, one process a design, all started together):
 - ``window``: the row slice reading s first and then only the window's 8
   rows (two round trips), in place of every row at once (one);
 - ``bulk``: the row write sending the window out as a bulk copy a block,
-  shared to global, in place of 16-byte stores.
+  shared to global, in place of 16-byte stores;
+- ``bulk_in``: the row-offset copy bringing each block's 8 rows into
+  shared memory by one bulk copy on an mbarrier, in place of the row
+  slice's kernel (16-byte loads of every row with s);
+- ``one_block``: the scalar add in one block of 512 threads, in place of
+  the JAX grid's two blocks of 256.
 
 Every design but ``staging`` is first held to the plain version on the
-probe's inputs, and a row window's at every legal s on random rows.  Then
+probe's inputs, a row window's at every legal s on random rows, and the
+scalar add's on full-range rows and scalars, where the sum wraps.  Then
 each kernel is timed in turns: plain, new, library, new, a design, new, the
 next design, new, ...; device ms a call, queued behind a spin kernel
 (:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`), beside an
 empty kernel's; the library call is :func:`mosaic_probe.library_call`'s
-(``x + 1``, ``torch._int_mm``, a slice's ``clone``, ``F.pad``).
+(``x + 1``, ``torch._int_mm``, a slice's ``clone``, ``F.pad``, ``x + s``).
 ``chip_smoke.py``'s ``probes`` phase runs the same.
 """
 
@@ -55,19 +62,25 @@ SOURCE = _build.CSRC_DIR / "mosaic_probe.cu"
 PARENT = _build.BUILD_DIR.parent / "parent"
 # the commit before each kernel's redesign, whose source is its earlier design
 BEFORE = {"grid_1d_blockspec": "9d785cc", "matmul_int8_s32acc": "9d785cc",
-          "dynamic_slice_vmem_rows": "70dca0e", "dma_unaligned_row_write": "70dca0e"}
+          "dynamic_slice_vmem_rows": "70dca0e", "dma_unaligned_row_write": "70dca0e",
+          "dma_unaligned_row_offset": "829306e", "prefetch_scalar_grid": "829306e"}
 REDESIGNED = tuple(BEFORE)
 FILLED_BEFORE = ("dma_unaligned_row_write",)  # earlier designs that wrote into an output zeroed by the wrapper
-WINDOWED = ("dynamic_slice_vmem_rows", "dma_unaligned_row_write")  # a window at device row s in [0, 56]
+# a window at device row s in [0, 56]
+WINDOWED = ("dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset")
+WRAPPED = ("prefetch_scalar_grid",)  # an int32 sum that wraps
 OUT_DIR = _build.BUILD_DIR / "designs"
 PRODUCT_CALL = "  wgmma_product(d, sa, sb);\n"
 TILE = 32  # the source's output columns a block (kTileN)
 WRAPPER_START = "__device__ __forceinline__ void wgmma_m64nNk32("
 SLICE_EVERY_ROW = "constexpr bool kSliceEveryRow = true;"
 WRITE_BULK = "constexpr bool kWriteBulk = false;"
+OFFSET_BULK = "constexpr bool kOffsetBulk = false;"
+SCALAR_ONE_BLOCK = "constexpr bool kScalarOneBlock = false;"
 # the designs that each kernel is timed against, in their turn's order
 TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "staging", "tile64", "tile128"),
-         "dynamic_slice_vmem_rows": ("earlier", "window"), "dma_unaligned_row_write": ("earlier", "bulk")}
+         "dynamic_slice_vmem_rows": ("earlier", "window"), "dma_unaligned_row_write": ("earlier", "bulk"),
+         "dma_unaligned_row_offset": ("earlier", "bulk_in"), "prefetch_scalar_grid": ("earlier", "one_block")}
 
 
 def wgmma_wrapper(n: int) -> str:
@@ -118,7 +131,9 @@ def design_sources() -> Dict[str, str]:
     text = SOURCE.read_text()
     designs = {"staging": _once(text, PRODUCT_CALL, ""), "tile64": _tile(text, 64), "tile128": _tile(text, 128),
                "window": _once(text, SLICE_EVERY_ROW, SLICE_EVERY_ROW.replace("true", "false")),
-               "bulk": _once(text, WRITE_BULK, WRITE_BULK.replace("false", "true"))}
+               "bulk": _once(text, WRITE_BULK, WRITE_BULK.replace("false", "true")),
+               "bulk_in": _once(text, OFFSET_BULK, OFFSET_BULK.replace("false", "true")),
+               "one_block": _once(text, SCALAR_ONE_BLOCK, SCALAR_ONE_BLOCK.replace("false", "true"))}
     for label in REDESIGNED:
         if earlier_source(label).is_file():
             designs[library_name(label, "earlier")] = earlier_source(label).read_text()
@@ -176,13 +191,14 @@ def queued_ms(fn: Callable, what: str) -> float:
 
 
 def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
-    """The inputs each design is held to the plain version on: the probe's,
-    and for a row window every legal s on full-range random rows."""
+    """The inputs each design is held to the plain version on: the probe's;
+    for a row window every legal s on full-range random rows; for the scalar
+    add full-range rows with a scalar at either end of the int32 range."""
     yield MP.inputs_on(probe, device)
-    if probe.label in WINDOWED:
+    if probe.label in WINDOWED + WRAPPED:
         shape = probe.inputs()[1].shape
         rows = torch.from_numpy(np.random.default_rng(15).integers(-2 ** 31, 2 ** 31, shape, np.int32)).to(device)
-        for s in range(64 - 8 + 1):
+        for s in range(64 - 8 + 1) if probe.label in WINDOWED else (2 ** 31 - 3, -2 ** 31 + 3):
             yield [torch.full((1,), s, dtype=torch.int32, device=device), rows]
 
 

@@ -1029,6 +1029,8 @@ def _random_inputs(label, rng):
         "transpose_32b_128x128": lambda: (i32(-2 ** 31, 2 ** 31, (128, 128)),),
         "dynamic_slice_vmem_rows": lambda: (np.full((1,), 56, np.int32), i32(-2 ** 31, 2 ** 31, (64, 128))),
         "dma_unaligned_row_write": lambda: (np.full((1,), 0, np.int32), i32(-2 ** 31, 2 ** 31, (8, 128))),
+        "dma_unaligned_row_offset": lambda: (np.full((1,), 37, np.int32), i32(-2 ** 31, 2 ** 31, (64, 128))),
+        "prefetch_scalar_grid": lambda: (np.full((1,), 2 ** 31 - 7, np.int32), i32(-2 ** 31, 2 ** 31, (16, 128))),
     }[label]()
 
 
@@ -1036,7 +1038,7 @@ RANDOM_LABELS = ["mb_step_rollpair", "mb_step_taa", "lax_sort_in_kernel", "matmu
                  "i1_to_bf16_astype", "u32_shifts_popcount", "cumsum_sublanes_f32", "cumsum_lanes_i32",
                  "gather_lanes_taa_8x128_i32", "gather_lanes_256wide_2gathers", "gather_sublanes_taa_axis0",
                  "pltpu_roll_dynamic", "cmp_to_bf16_vector", "transpose_32b_128x128", "dynamic_slice_vmem_rows",
-                 "dma_unaligned_row_write"]
+                 "dma_unaligned_row_write", "dma_unaligned_row_offset", "prefetch_scalar_grid"]
 
 
 @pytest.mark.parametrize("label", RANDOM_LABELS)
@@ -1102,11 +1104,12 @@ def test_grid_1d_blockspec_is_one_launch_of_its_grid(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("s", range(64 - 8 + 1))
-@pytest.mark.parametrize("label", ["dynamic_slice_vmem_rows", "dma_unaligned_row_write"])
+@pytest.mark.parametrize("label", ["dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset"])
 def test_row_window_kernel_at_every_row(cuda, label, s):
-    """The row slice and the row write at every legal device row s, on
-    full-range random rows: equal to the plain version on the card and to
-    the JAX probe's oracle (zeros outside the written window)."""
+    """The row slice, the row write and the row-offset copy at every legal
+    device row s, on full-range random rows: equal to the plain version on
+    the card and to the JAX probe's oracle (zeros outside the written
+    window)."""
     probe = MP.BY_LABEL[label]
     rows = np.random.default_rng(s).integers(-2 ** 31, 2 ** 31, probe.inputs()[1].shape, np.int32)
     at = np.full((1,), s, np.int32)
@@ -1141,6 +1144,35 @@ def test_dma_unaligned_row_write_is_one_launch_with_no_fill(cuda, tmp_path):
     kernels = [e for e in events if e.get("cat") == "kernel"]
     assert len(kernels) == 1 and "write_rows" in kernels[0]["name"], [e["name"] for e in kernels]
     assert (kernels[0]["args"]["grid"], kernels[0]["args"]["block"]) == ([8, 1, 1], [256, 1, 1]), kernels[0]["args"]
+
+
+# the kernel that one call of each probe launches: (name, grid, block)
+ONE_KERNEL = {"dma_unaligned_row_offset": ("slice_every_row", [8, 1, 1], [256, 1, 1]),
+              "prefetch_scalar_grid": ("add_scalar_tiles", [2, 1, 1], [256, 1, 1])}
+
+
+@pytest.mark.parametrize("label", ONE_KERNEL)
+def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
+    """One call of the row-offset copy or of the scalar add is one counted
+    launch and exactly one kernel on the card, with its name, grid and
+    block (no fill, no host read of s), equal to the plain version."""
+    probe = MP.BY_LABEL[label]
+    args = MP.inputs_on(probe, cuda)
+    MP.launch(probe, *args)
+    torch.cuda.synchronize()
+    before = probe.kernel.launches
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        got = MP.launch(probe, *args)
+        torch.cuda.synchronize()
+    assert probe.kernel.launches == before + 1
+    assert torch.equal(got, MP.plain(probe, *args))
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    name, grid, block = ONE_KERNEL[label]
+    assert len(kernels) == 1 and name in kernels[0]["name"], [e["name"] for e in kernels]
+    assert (kernels[0]["args"]["grid"], kernels[0]["args"]["block"]) == (grid, block), kernels[0]["args"]
 
 
 @pytest.mark.parametrize("name", PR.MERGE_STEPS)

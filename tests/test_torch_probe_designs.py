@@ -17,7 +17,7 @@ def test_wrapper_is_the_sources():
     assert PD.SOURCE.read_text().count(PD.wgmma_wrapper(PD.TILE)) == 1
 
 
-@pytest.mark.parametrize("design", ["staging", "tile64", "tile128", "window", "bulk"])
+@pytest.mark.parametrize("design", ["staging", "tile64", "tile128", "window", "bulk", "bulk_in", "one_block"])
 def test_design_sources(design):
     source = PD.SOURCE.read_text()
     text = PD.design_sources()[design]
@@ -30,6 +30,12 @@ def test_design_sources(design):
     elif design == "bulk":
         assert source.count(PD.WRITE_BULK) == 1
         assert PD.WRITE_BULK not in text and text.count("constexpr bool kWriteBulk = true;") == 1
+    elif design == "bulk_in":
+        assert source.count(PD.OFFSET_BULK) == 1
+        assert PD.OFFSET_BULK not in text and text.count("constexpr bool kOffsetBulk = true;") == 1
+    elif design == "one_block":
+        assert source.count(PD.SCALAR_ONE_BLOCK) == 1
+        assert PD.SCALAR_ONE_BLOCK not in text and text.count("constexpr bool kScalarOneBlock = true;") == 1
     else:
         n = int(design[4:])
         assert f"constexpr int kTileN = {n};" in text and f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8" in text
@@ -62,3 +68,17 @@ def test_held_inputs_cover_every_window_row():
         rows = cases[1][1]
         assert all(r is rows for _, r in cases[1:]) and rows.min() < -2 ** 30 and rows.max() > 2 ** 30
         assert [tuple(a.shape) for a in cases[0]] == [tuple(a.shape) for a in cases[1]]
+
+
+def test_held_inputs_wrap_the_scalar_add():
+    """The scalar add's designs are held at the probe's own inputs and on
+    full-range rows with a scalar near either end of the int32 range, where
+    the sum wraps both ways."""
+    for label in PD.WRAPPED:
+        probe = MP.BY_LABEL[label]
+        cases = list(PD.held_inputs(probe, "cpu"))
+        assert [int(s) for s, _ in cases[1:]] == [2 ** 31 - 3, -2 ** 31 + 3]
+        for s, rows in cases[1:]:
+            exact = rows.long() + int(s)
+            assert ((exact > 2 ** 31 - 1) | (exact < -2 ** 31)).any()
+            assert torch.equal(MP.plain(probe, s, rows).long(), (exact + 2 ** 31) % 2 ** 32 - 2 ** 31)

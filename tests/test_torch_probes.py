@@ -222,9 +222,9 @@ def test_probe_oracle_on_the_cpu(label):
     assert probe.kernel.launches == before
 
 
-# the two probes of a row window at a device row s, whose kernels read s
-# on the card; every legal s, on full-range random rows
-WINDOW_LABELS = ["dynamic_slice_vmem_rows", "dma_unaligned_row_write"]
+# the probes of a row window at a device row s, whose kernels read s on the
+# card; every legal s, on full-range random rows
+WINDOW_LABELS = ["dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset"]
 
 
 @pytest.mark.parametrize("s", range(64 - 8 + 1))
@@ -235,6 +235,21 @@ def test_row_window_plain_matches_oracle_at_every_row(label, s):
     at = np.full((1,), s, np.int32)
     got = MP.run(probe, torch.from_numpy(at), torch.from_numpy(rows))
     np.testing.assert_array_equal(got.numpy(), probe.oracle(at, rows))
+
+
+@pytest.mark.parametrize("s", [2 ** 31 - 7, -2 ** 31 + 7])
+def test_prefetch_scalar_grid_plain_wraps_as_the_oracle(s):
+    """x + s on full-range rows with s near either end of the int32 range:
+    the plain version wraps as the JAX probe's numpy oracle does, and some
+    sums do wrap."""
+    probe = MP.BY_LABEL["prefetch_scalar_grid"]
+    x = np.random.default_rng(16).integers(-2 ** 31, 2 ** 31, probe.inputs()[1].shape, np.int32)
+    at = np.full((1,), s, np.int32)
+    exact = x.astype(np.int64) + s
+    assert ((exact > 2 ** 31 - 1) | (exact < -2 ** 31)).any()
+    got = MP.run(probe, torch.from_numpy(at), torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, probe.oracle(at, x))
+    np.testing.assert_array_equal(got, ((exact + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32))
 
 
 def test_no_probe_output_is_zeroed_by_its_wrapper():
