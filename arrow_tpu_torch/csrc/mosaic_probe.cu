@@ -17,17 +17,16 @@
 //   and a select on the source register;
 // - row movement (the sublane gather, the row store, the transpose) goes
 //   through a tile in shared memory;
-// - two DMA probes are bulk copies (cp.async.bulk, the TMA's one-dimensional
-//   form): dma_dynamic_size_rows global to shared, completing on an mbarrier,
-//   and hbm_to_hbm_dma global to shared and back, completing in a bulk group
-//   (Hopper has no global-to-global bulk copy, so its rows are staged through
-//   shared memory).  The rows are 512 bytes, so every row offset meets the
-//   bulk copy's 16-byte alignment.  The other two DMA probes, the row-offset
-//   copy and the row write, move 16 bytes a thread since their redesigns
-//   (below); their bulk-copy designs stay behind kOffsetBulk and kWriteBulk.
+// - one DMA probe is a bulk copy (cp.async.bulk, the TMA's one-dimensional
+//   form): dma_dynamic_size_rows, global to shared, completing on an
+//   mbarrier.  The rows are 512 bytes, so every row offset meets the bulk
+//   copy's 16-byte alignment.  The other three DMA probes, the row-offset
+//   copy, the row write and the HBM-to-HBM copy, move 16 bytes a thread
+//   since their redesigns (below); their bulk-copy designs stay behind
+//   kOffsetBulk, kWriteBulk and kHbmBulk.
 //
-// Six kernels are laid out for the card rather than for the TPU's tiles, so
-// that every global load is in flight at once and nothing waits on a
+// Eight kernels are laid out for the card rather than for the TPU's tiles,
+// so that every global load is in flight at once and nothing waits on a
 // round trip that an earlier one could have covered:
 //
 // - dynamic_slice_vmem_rows (the probe through simple_call, :61: rows
@@ -82,6 +81,27 @@
 //   columns into the no-swizzle K-major layout, whose row groups are padded
 //   by 16 bytes so that those stores meet no bank conflict.  A goes in as
 //   16-byte chunks; the outputs leave as 8-byte pairs.
+// - transpose_32b_128x128 (the probe through simple_call, :61: a.T over a
+//   (128, 128) int32 tile).  Bound by bytes: 128 KB read and written,
+//   0.039 us.  16 blocks of 256 threads, a block a 32 x 32 tile: each thread
+//   makes one 16-byte load of a row into shared memory, whose rows are padded
+//   by 16 bytes every 4 rows so that the 16-byte stores stay aligned and a
+//   warp's column reads fall in 32 banks; after the one barrier it reads 4
+//   words of a column and makes one 16-byte store.  The earlier design moved
+//   4 bytes a thread 4 times each way.  Transposing 4 x 4 blocks in registers
+//   instead (kTransposeShared false: a quad's 4 lanes swap words by two
+//   rounds of __shfl_xor_sync, no shared memory and no barrier, but each
+//   16-byte store fills half a 32-byte sector) took 1.05x as long on an
+//   H100, in turns, in 32 blocks of 128 threads, and 1.08-1.11x in 16 of
+//   256.
+// - hbm_to_hbm_dma (:387: rows [8, 16) of a (64, 128) int32 src, copied HBM
+//   to HBM).  Bound by bytes: 4 KB read and written, 0.0024 us.  One block
+//   of 256 threads, one 16-byte load and one 16-byte store a thread.  8
+//   blocks of one warp, a warp a row, took 1.00-1.03x as long on an H100,
+//   in turns, and the bulk copies through shared memory as the TPU's DMA
+//   makes them (kHbmBulk true: one thread brings the rows in on an mbarrier
+//   and sends them out, waiting only until the store has read shared
+//   memory) 1.03x.
 //
 // One C entry a probe, arrow_probe_<label>(inputs..., out, stream), in the
 // order of the JAX probe's pallas_call arguments (the device scalar first
@@ -271,15 +291,73 @@ __global__ void store_rows(const int32_t* s, const int32_t* a, int32_t* out) {
   for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) out[i] = tile[i];
 }
 
-// (128, 128) transpose through 32 x 32 tiles in shared memory, rows padded by
-// one word so that a column's reads fall in 32 banks
-__global__ void transpose128(const int32_t* a, int32_t* out) {
-  __shared__ int32_t tile[32][33];
-  const int x = blockIdx.x * 32 + threadIdx.x;
-  for (int y = threadIdx.y; y < 32; y += blockDim.y) tile[y][threadIdx.x] = a[(blockIdx.y * 32 + y) * kLanes + x];
+// transpose_32b_128x128's designs: a 32 x 32 tile a block in shared memory
+// (kTransposeShared), or 4 x 4 blocks transposed in registers, in blocks of
+// kTransposeThreads
+constexpr bool kTransposeShared = true;
+constexpr int kTransposeThreads = 128;
+constexpr int kTransposeWords = kLanes * kRowWords;  // 16-byte words of the (128, 128) tile, a thread each
+
+// One round of a 4 x 4 transpose across the 4 lanes of a quad, lane k holding
+// row k in r[0..3]: bit M of the lane index trades places with bit M of the
+// register index, so r[j] with (j & M) != (k & M) becomes the partner lane's
+// r[j ^ M].  Each register is picked by a select on a compile-time index, so
+// nothing goes to local memory.
+template <int M>
+__device__ __forceinline__ void swap_index_bit(int32_t (&r)[4], int k) {
+  const bool high = (k & M) != 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j & M) continue;  // each pair (j, j | M) once
+    const int32_t got = __shfl_xor_sync(kFull, high ? r[j] : r[j | M], M);
+    if (high) {
+      r[j] = got;
+    } else {
+      r[j | M] = got;
+    }
+  }
+}
+
+// out = a.T over (128, 128) int32, a thread a 16-byte word; a and out 16-byte
+// aligned.  The 4 lanes of a quad load rows 4p..4p+3 of 4-column group g, and
+// two rounds of swap_index_bit (xor 1, then xor 2) leave lane k holding output
+// row 4g + k, columns 4p..4p+3: one 16-byte store.  A warp's 8 quads take 8
+// consecutive groups of one p, so its loads cover 4 whole 128-byte row
+// segments, and its stores 16 of each 32-byte sector of 32 output rows (the
+// warp at p ^ 1 writes the other 16).  No shared memory, no barrier.
+__global__ void __launch_bounds__(kTransposeThreads)
+    transpose_quads(const int4* __restrict__ a, int4* __restrict__ out) {
+  const int t = blockIdx.x * kTransposeThreads + threadIdx.x;
+  const int k = t & 3, warp = t >> 5;
+  const int p = warp >> 2, g = 8 * (warp & 3) + ((t >> 2) & 7);
+  const int4 v = __ldg(a + (4 * p + k) * kRowWords + g);
+  int32_t r[4] = {v.x, v.y, v.z, v.w};
+  swap_index_bit<1>(r, k);
+  swap_index_bit<2>(r, k);
+  out[(4 * g + k) * kRowWords + p] = make_int4(r[0], r[1], r[2], r[3]);
+}
+
+// A 32 x 32 tile in shared memory, its rows in groups of 4 padded by 4 words:
+// every row starts 16-byte aligned, and a warp's 4-byte reads of rows 4q + i
+// (q < 8) in 4 columns fall in 32 banks.
+constexpr int kSide = 32;
+__host__ __device__ constexpr int padded_row(int row) { return row * kSide + 4 * (row >> 2); }
+
+// out = a.T, a block a 32 x 32 tile (block (x, y): rows 32 y.., columns
+// 32 x..): each thread loads 16 bytes of a row into the tile; after the
+// barrier it reads 4 words of a column and stores them as 16 bytes of an
+// output row.  Loads and stores each cover whole 128-byte row segments.
+__global__ void __launch_bounds__(kSide * kSide / 4)
+    transpose_tile(const int4* __restrict__ a, int4* __restrict__ out) {
+  __shared__ alignas(16) int32_t tile[padded_row(kSide)];
+  const int row = threadIdx.x >> 3, q = threadIdx.x & 7;
+  const int4 v = __ldg(a + (kSide * blockIdx.y + row) * kRowWords + kSide / 4 * blockIdx.x + q);
+  *reinterpret_cast<int4*>(tile + padded_row(row) + 4 * q) = v;
   __syncthreads();
-  const int ox = blockIdx.y * 32 + threadIdx.x;
-  for (int y = threadIdx.y; y < 32; y += blockDim.y) out[(blockIdx.x * 32 + y) * kLanes + ox] = tile[threadIdx.x][y];
+  // output row 32 x + row is tile column `row`; its word q, tile rows 4q..4q+3
+  const int4 w = make_int4(tile[padded_row(4 * q) + row], tile[padded_row(4 * q + 1) + row],
+                           tile[padded_row(4 * q + 2) + row], tile[padded_row(4 * q + 3) + row]);
+  out[(kSide * blockIdx.x + row) * kRowWords + kSide / 4 * blockIdx.y + q] = w;
 }
 
 // ---------------------------------------------------------------------------
@@ -326,13 +404,14 @@ __device__ __forceinline__ void bulk_load(void* smem, const void* gmem, unsigned
   }
 }
 
-// Thread 0: copy `bytes` from shared to global and wait until the copy has
-// read its source and written its destination.
+// One thread: copy `bytes` from shared to global and wait until the copy has
+// read its source, so that the block may exit (the write lands after it;
+// nothing in the kernel reads it).
 __device__ __forceinline__ void bulk_store(void* gmem, const void* smem, unsigned bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
                : : "l"(gmem), "r"(smem_addr(smem)), "r"(bytes) : "memory");
   asm volatile("cp.async.bulk.commit_group;" : : : "memory");
-  asm volatile("cp.async.bulk.wait_group 0;" : : : "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" : : : "memory");
 }
 
 // Make this thread's generic-proxy writes to shared memory visible to the
@@ -397,13 +476,7 @@ __global__ void __launch_bounds__(kTileThreads)
   } else if (threadIdx.x == 0) {
     const int lo = max(first, kTileRows * static_cast<int>(blockIdx.x));
     const int hi = min(first, kTileRows * static_cast<int>(blockIdx.x)) + kTileRows;
-    if (lo < hi) {
-      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                   : : "l"(out + lo * kRowWords), "r"(smem_addr(rows + (lo - first) * kRowWords)),
-                     "r"(static_cast<unsigned>(hi - lo) * kRowBytes) : "memory");
-      asm volatile("cp.async.bulk.commit_group;" : : : "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;" : : : "memory");
-    }
+    if (lo < hi) bulk_store(out + lo * kRowWords, rows + (lo - first) * kRowWords, (hi - lo) * kRowBytes);
   }
 }
 
@@ -424,17 +497,32 @@ __global__ void copy_rows_sized(const int32_t* s, const int32_t* src, int32_t* o
   for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) out[i] = buf[i];
 }
 
-// hbm_to_hbm_dma: rows [8, 16) of src to out.  Hopper has no bulk copy from
-// global to global, so the rows go through shared memory: a bulk load on the
-// barrier, then a bulk store from the same buffer.
-__global__ void copy_rows_staged(const int32_t* src, int32_t* out) {
-  __shared__ alignas(128) int32_t buf[8 * kLanes];
+// hbm_to_hbm_dma's designs: 16-byte loads and stores in blocks of
+// kHbmThreads (256: one block; 32: a warp a row), or bulk copies through
+// shared memory (kHbmBulk)
+constexpr bool kHbmBulk = false;
+constexpr int kHbmThreads = 256;
+
+// Rows [8, 16) of the (64, 128) src: one 16-byte load and one 16-byte store
+// a thread (src and out 16-byte aligned), no shared memory, no barrier.
+__global__ void __launch_bounds__(kHbmThreads)
+    copy_rows_direct(const int4* __restrict__ src, int4* __restrict__ out) {
+  const int i = blockIdx.x * kHbmThreads + threadIdx.x;
+  out[i] = __ldg(src + kTileRows * kRowWords + i);
+}
+
+// The same through shared memory, as the TPU's DMA engine copies HBM to HBM
+// (Hopper has no bulk copy from global to global): one thread sets up the
+// mbarrier, brings the rows in by one bulk load, waits on the barrier and
+// sends them out by one bulk store.
+__global__ void copy_rows_staged(const int4* src, int4* out) {
+  __shared__ alignas(128) int4 buf[kTileRows * kRowWords];
   __shared__ alignas(8) unsigned long long bar;
-  init_barrier(&bar);
   if (threadIdx.x == 0) {
-    bulk_load(buf, src + 8 * kLanes, 8 * kRowBytes, &bar);
+    init_barrier_async(&bar);
+    bulk_load(buf, src + kTileRows * kRowWords, kTileRows * kRowBytes, &bar);
     wait_barrier(&bar, 0);
-    bulk_store(out, buf, 8 * kRowBytes);
+    bulk_store(out, buf, kTileRows * kRowBytes);
   }
 }
 
@@ -753,7 +841,13 @@ int arrow_probe_dynamic_store_vmem_rows(const void* s, const void* a, void* out,
 }
 
 int arrow_probe_transpose_32b_128x128(const void* a, void* out, void* stream) {
-  transpose128<<<dim3(4, 4), dim3(32, 8), 0, STREAM>>>(in<int32_t>(a), out_<int32_t>(out));
+  if (kTransposeShared) {
+    transpose_tile<<<dim3(kLanes / kSide, kLanes / kSide), kSide * kSide / 4, 0, STREAM>>>(in<int4>(a),
+                                                                                          out_<int4>(out));
+  } else {
+    transpose_quads<<<kTransposeWords / kTransposeThreads, kTransposeThreads, 0, STREAM>>>(in<int4>(a),
+                                                                                         out_<int4>(out));
+  }
   return done();
 }
 
@@ -777,7 +871,12 @@ int arrow_probe_dma_dynamic_size_rows(const void* s, const void* src, void* out,
 }
 
 int arrow_probe_hbm_to_hbm_dma(const void* src, void* out, void* stream) {
-  copy_rows_staged<<<1, 32, 0, STREAM>>>(in<int32_t>(src), out_<int32_t>(out));
+  if (kHbmBulk) {
+    copy_rows_staged<<<1, 32, 0, STREAM>>>(in<int4>(src), out_<int4>(out));
+  } else {
+    copy_rows_direct<<<kTileRows * kRowWords / kHbmThreads, kHbmThreads, 0, STREAM>>>(in<int4>(src),
+                                                                                     out_<int4>(out));
+  }
   return done();
 }
 

@@ -4,11 +4,12 @@ turns on one card.
     python -m arrow_tpu_torch.tools.probe_designs
 
 ``grid_1d_blockspec``, ``matmul_int8_s32acc``, ``dynamic_slice_vmem_rows``,
-``dma_unaligned_row_write``, ``dma_unaligned_row_offset`` and
-``prefetch_scalar_grid`` (``csrc/mosaic_probe.cu``) are laid out for the
-card.  Each other design is a variant of a ``mosaic_probe.cu``, built
-into a library of its own under ``build/arrow_tpu_torch/designs/`` (the
-port's nvcc flags, one process a design, all started together):
+``dma_unaligned_row_write``, ``dma_unaligned_row_offset``,
+``prefetch_scalar_grid``, ``transpose_32b_128x128`` and ``hbm_to_hbm_dma``
+(``csrc/mosaic_probe.cu``) are laid out for the card.  Each other design is
+a variant of a ``mosaic_probe.cu``, built into a library of its own under
+``build/arrow_tpu_torch/designs/`` (the port's nvcc flags, one process a
+design, all started together):
 
 - ``earlier``: the source before the kernel's redesign, where the checkout
   holds it as ``build/parent/<commit>/arrow_tpu_torch/csrc/mosaic_probe.cu``
@@ -28,16 +29,27 @@ port's nvcc flags, one process a design, all started together):
   shared memory by one bulk copy on an mbarrier, in place of the row
   slice's kernel (16-byte loads of every row with s);
 - ``one_block``: the scalar add in one block of 512 threads, in place of
-  the JAX grid's two blocks of 256.
+  the JAX grid's two blocks of 256;
+- ``quads``, ``quads256``: the transpose as 4 x 4 blocks swapped between
+  the lanes of a quad by warp shuffles, in 32 blocks of 128 threads or 16
+  of 256, in place of a 32 x 32 tile a block in shared memory (16-byte
+  loads and stores, one barrier);
+- ``staged``: the HBM-to-HBM copy as a bulk copy into shared memory and one
+  back out, in place of a 16-byte load and store a thread;
+- ``warp_rows``: that copy's 16-byte loads and stores in 8 blocks of one
+  warp, a warp a row, in place of one block of 256 threads.
 
 Every design but ``staging`` is first held to the plain version on the
-probe's inputs, a row window's at every legal s on random rows, and the
-scalar add's on full-range rows and scalars, where the sum wraps.  Then
-each kernel is timed in turns: plain, new, library, new, a design, new, the
-next design, new, ...; device ms a call, queued behind a spin kernel
+probe's inputs, a row window's at every legal s on random rows, the
+scalar add's on full-range rows and scalars, where the sum wraps, and the
+transpose's and the copy's on a full-range random tile.  Then each kernel
+is timed in turns: plain, new, library, new, a design, new, the next
+design, new, ...; device ms a call, queued behind a spin kernel
 (:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`), beside an
 empty kernel's; the library call is :func:`mosaic_probe.library_call`'s
-(``x + 1``, ``torch._int_mm``, a slice's ``clone``, ``F.pad``, ``x + s``).
+(``x + 1``, ``torch._int_mm``, a slice's ``clone``, ``F.pad``, ``x + s``,
+``t().contiguous()``).  ``bitcast_f32_u32``, not redesigned, is timed in
+turns against its ``clone`` alone (new, library, new).
 ``chip_smoke.py``'s ``probes`` phase runs the same.
 """
 
@@ -63,12 +75,15 @@ PARENT = _build.BUILD_DIR.parent / "parent"
 # the commit before each kernel's redesign, whose source is its earlier design
 BEFORE = {"grid_1d_blockspec": "9d785cc", "matmul_int8_s32acc": "9d785cc",
           "dynamic_slice_vmem_rows": "70dca0e", "dma_unaligned_row_write": "70dca0e",
-          "dma_unaligned_row_offset": "829306e", "prefetch_scalar_grid": "829306e"}
+          "dma_unaligned_row_offset": "829306e", "prefetch_scalar_grid": "829306e",
+          "transpose_32b_128x128": "9f34100", "hbm_to_hbm_dma": "9f34100"}
 REDESIGNED = tuple(BEFORE)
+UNCHANGED = ("bitcast_f32_u32",)  # timed in turns against its library call only
 FILLED_BEFORE = ("dma_unaligned_row_write",)  # earlier designs that wrote into an output zeroed by the wrapper
 # a window at device row s in [0, 56]
 WINDOWED = ("dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset")
 WRAPPED = ("prefetch_scalar_grid",)  # an int32 sum that wraps
+FULL_RANGE = ("transpose_32b_128x128", "hbm_to_hbm_dma")  # held on a full-range random tile too
 OUT_DIR = _build.BUILD_DIR / "designs"
 PRODUCT_CALL = "  wgmma_product(d, sa, sb);\n"
 TILE = 32  # the source's output columns a block (kTileN)
@@ -77,10 +92,16 @@ SLICE_EVERY_ROW = "constexpr bool kSliceEveryRow = true;"
 WRITE_BULK = "constexpr bool kWriteBulk = false;"
 OFFSET_BULK = "constexpr bool kOffsetBulk = false;"
 SCALAR_ONE_BLOCK = "constexpr bool kScalarOneBlock = false;"
+TRANSPOSE_SHARED = "constexpr bool kTransposeShared = true;"
+TRANSPOSE_THREADS = "constexpr int kTransposeThreads = 128;"
+HBM_BULK = "constexpr bool kHbmBulk = false;"
+HBM_THREADS = "constexpr int kHbmThreads = 256;"
 # the designs that each kernel is timed against, in their turn's order
 TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "staging", "tile64", "tile128"),
          "dynamic_slice_vmem_rows": ("earlier", "window"), "dma_unaligned_row_write": ("earlier", "bulk"),
-         "dma_unaligned_row_offset": ("earlier", "bulk_in"), "prefetch_scalar_grid": ("earlier", "one_block")}
+         "dma_unaligned_row_offset": ("earlier", "bulk_in"), "prefetch_scalar_grid": ("earlier", "one_block"),
+         "transpose_32b_128x128": ("earlier", "quads", "quads256"),
+         "hbm_to_hbm_dma": ("earlier", "staged", "warp_rows")}
 
 
 def wgmma_wrapper(n: int) -> str:
@@ -129,11 +150,16 @@ def design_sources() -> Dict[str, str]:
     """Each design's source, by library name (the earlier ones where the
     checkout holds them)."""
     text = SOURCE.read_text()
+    quads = _once(text, TRANSPOSE_SHARED, TRANSPOSE_SHARED.replace("true", "false"))
     designs = {"staging": _once(text, PRODUCT_CALL, ""), "tile64": _tile(text, 64), "tile128": _tile(text, 128),
                "window": _once(text, SLICE_EVERY_ROW, SLICE_EVERY_ROW.replace("true", "false")),
                "bulk": _once(text, WRITE_BULK, WRITE_BULK.replace("false", "true")),
                "bulk_in": _once(text, OFFSET_BULK, OFFSET_BULK.replace("false", "true")),
-               "one_block": _once(text, SCALAR_ONE_BLOCK, SCALAR_ONE_BLOCK.replace("false", "true"))}
+               "one_block": _once(text, SCALAR_ONE_BLOCK, SCALAR_ONE_BLOCK.replace("false", "true")),
+               "quads": quads,
+               "quads256": _once(quads, TRANSPOSE_THREADS, TRANSPOSE_THREADS.replace("128", "256")),
+               "staged": _once(text, HBM_BULK, HBM_BULK.replace("false", "true")),
+               "warp_rows": _once(text, HBM_THREADS, HBM_THREADS.replace("256", "32"))}
     for label in REDESIGNED:
         if earlier_source(label).is_file():
             designs[library_name(label, "earlier")] = earlier_source(label).read_text()
@@ -178,7 +204,7 @@ def design_calls(libs: Dict[str, ctypes.CDLL], label: str, args) -> Dict[str, Ca
     probe = MP.BY_LABEL[label]
     return {name: design_call(libs[library_name(label, name)], probe, args,
                               zeroed=name == "earlier" and label in FILLED_BEFORE)
-            for name in TURNS[label] if library_name(label, name) in libs}
+            for name in TURNS.get(label, ()) if library_name(label, name) in libs}
 
 
 def queued_ms(fn: Callable, what: str) -> float:
@@ -190,14 +216,22 @@ def queued_ms(fn: Callable, what: str) -> float:
     return s * 1e3
 
 
+def _full_range(shape, device) -> torch.Tensor:
+    """Random int32 values over the whole range, the same at every call."""
+    return torch.from_numpy(np.random.default_rng(15).integers(-2 ** 31, 2 ** 31, shape, np.int32)).to(device)
+
+
 def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
     """The inputs each design is held to the plain version on: the probe's;
     for a row window every legal s on full-range random rows; for the scalar
-    add full-range rows with a scalar at either end of the int32 range."""
+    add full-range rows with a scalar at either end of the int32 range; for
+    the transpose and the copy a full-range random tile."""
     yield MP.inputs_on(probe, device)
+    if probe.label in FULL_RANGE:
+        (tile,) = probe.inputs()
+        yield [_full_range(tile.shape, device)]
     if probe.label in WINDOWED + WRAPPED:
-        shape = probe.inputs()[1].shape
-        rows = torch.from_numpy(np.random.default_rng(15).integers(-2 ** 31, 2 ** 31, shape, np.int32)).to(device)
+        rows = _full_range(probe.inputs()[1].shape, device)
         for s in range(64 - 8 + 1) if probe.label in WINDOWED else (2 ** 31 - 3, -2 ** 31 + 3):
             yield [torch.full((1,), s, dtype=torch.int32, device=device), rows]
 
@@ -213,7 +247,7 @@ def run(device, log: Callable[[str], None] = print) -> Dict[str, list]:
         + (f"; not measured, the earlier designs in {missing} (not there)" if missing else ""))
     empty_ms = queued_ms(lambda: MP.empty_launch(device), "an empty kernel")
     result = {}
-    for label in REDESIGNED:
+    for label in (*REDESIGNED, *UNCHANGED):
         probe = MP.BY_LABEL[label]
         for args in held_inputs(probe, device):
             want = MP.plain(probe, *args)
@@ -224,8 +258,8 @@ def run(device, log: Callable[[str], None] = print) -> Dict[str, list]:
         args = MP.inputs_on(probe, device)
         fns = {"plain": lambda: MP.plain(probe, *args), "new": lambda: MP.launch(probe, *args),
                "library": MP.library_call(label, args), **design_calls(libs, label, args)}
-        turns = ["plain", "new", "library", "new"]
-        for name in TURNS[label]:
+        turns = ["plain", "new", "library", "new"] if label in REDESIGNED else ["new", "library", "new"]
+        for name in TURNS.get(label, ()):
             turns += [name, "new"] if name in fns else []
         times = [(name, queued_ms(fns[name], f"{label}, {name}")) for name in turns]
         new = statistics.median(t for name, t in times if name == "new")

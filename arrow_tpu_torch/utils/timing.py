@@ -108,7 +108,7 @@ def queued_seconds_per_call(fn: Callable, calls: int = 32, repeats: int = 5) -> 
     on the host), so only its host-bound time exists."""
     fn()
     rate = _spin_cycles_per_ms(torch.cuda.current_device())
-    spin_start, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     while True:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -118,17 +118,18 @@ def queued_seconds_per_call(fn: Callable, calls: int = 32, repeats: int = 5) -> 
         spin = int((2 * (time.perf_counter() - t0) * 1e3 + 1.0) * rate)
         samples = []
         for _ in range(repeats):
-            spin_start.record()
             torch.cuda._sleep(spin)
             start.record()
-            t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
-            host_ms = (time.perf_counter() - t0) * 1e3
+            # the spin ended before the host had enqueued the calls: the
+            # device waited on the host between them (a host clock against
+            # the spin's length misses this when the host is slow to start)
+            behind = start.query()
             end.record()
             end.synchronize()
-            if host_ms >= spin_start.elapsed_time(start):
-                break  # the spin ended before the host had enqueued the calls
+            if behind:
+                break
             samples.append(start.elapsed_time(end) / 1e3 / calls)
         if len(samples) == repeats:
             return statistics.median(samples)

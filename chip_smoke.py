@@ -124,15 +124,19 @@ Phases, each printing lines that start with its name:
    its library call (take_along_dim, roll, cumsum, sort, _int_mm, a slice's
    clone, pad, x + 1, ...; none for the mask product, whose bf16 matmul of a
    mask made beforehand is printed apart), and back to back (the wrapper's
-   rate); the six redesigned kernels, grid_1d_blockspec,
+   rate); the eight redesigned kernels, grid_1d_blockspec,
    matmul_int8_s32acc, dynamic_slice_vmem_rows, dma_unaligned_row_write,
-   dma_unaligned_row_offset and prefetch_scalar_grid, timed in turns with
-   their other designs (arrow_tpu_torch.tools.probe_designs: the earlier
-   mosaic_probe.cu where build/parent/<commit> holds it, the int8 product's
-   staging alone and its wider tiles, the slice's window-only read, the
-   write's bulk copies, the row-offset copy's bulk copy in, the scalar add
-   in one block), each held to its plain version first (the row windows at
-   every s, the scalar add where its sum wraps);
+   dma_unaligned_row_offset, prefetch_scalar_grid, transpose_32b_128x128
+   and hbm_to_hbm_dma, timed in turns with their other designs
+   (arrow_tpu_torch.tools.probe_designs: the earlier mosaic_probe.cu where
+   build/parent/<commit> holds it, the int8 product's staging alone and its
+   wider tiles, the slice's window-only read, the write's bulk copies, the
+   row-offset copy's bulk copy in, the scalar add in one block, the
+   transpose's 4 x 4 register blocks in blocks of 128 and 256 threads, the
+   copy's bulk copies and its warp a row), each held to its plain version
+   first (the row windows at every s, the scalar add where its sum wraps,
+   the transpose and the copy on a full-range tile), and bitcast_f32_u32 in
+   turns with its clone;
 10. profile: each query at each size under torch.profiler: device busy time,
    the device time in fills and in copies, the device's idle share of the
    query's wall time (also without the idle time spent in the profiler's

@@ -1027,6 +1027,7 @@ def _random_inputs(label, rng):
         "pltpu_roll_dynamic": lambda: (np.full((1,), 131, np.int32), i32(-2 ** 31, 2 ** 31, (8, 128))),
         "cmp_to_bf16_vector": lambda: (i32(-2 ** 31, 2 ** 31, (32, 128)),),
         "transpose_32b_128x128": lambda: (i32(-2 ** 31, 2 ** 31, (128, 128)),),
+        "hbm_to_hbm_dma": lambda: (i32(-2 ** 31, 2 ** 31, (64, 128)),),
         "dynamic_slice_vmem_rows": lambda: (np.full((1,), 56, np.int32), i32(-2 ** 31, 2 ** 31, (64, 128))),
         "dma_unaligned_row_write": lambda: (np.full((1,), 0, np.int32), i32(-2 ** 31, 2 ** 31, (8, 128))),
         "dma_unaligned_row_offset": lambda: (np.full((1,), 37, np.int32), i32(-2 ** 31, 2 ** 31, (64, 128))),
@@ -1038,7 +1039,7 @@ RANDOM_LABELS = ["mb_step_rollpair", "mb_step_taa", "lax_sort_in_kernel", "matmu
                  "i1_to_bf16_astype", "u32_shifts_popcount", "cumsum_sublanes_f32", "cumsum_lanes_i32",
                  "gather_lanes_taa_8x128_i32", "gather_lanes_256wide_2gathers", "gather_sublanes_taa_axis0",
                  "pltpu_roll_dynamic", "cmp_to_bf16_vector", "transpose_32b_128x128", "dynamic_slice_vmem_rows",
-                 "dma_unaligned_row_write", "dma_unaligned_row_offset", "prefetch_scalar_grid"]
+                 "dma_unaligned_row_write", "dma_unaligned_row_offset", "prefetch_scalar_grid", "hbm_to_hbm_dma"]
 
 
 @pytest.mark.parametrize("label", RANDOM_LABELS)
@@ -1148,14 +1149,17 @@ def test_dma_unaligned_row_write_is_one_launch_with_no_fill(cuda, tmp_path):
 
 # the kernel that one call of each probe launches: (name, grid, block)
 ONE_KERNEL = {"dma_unaligned_row_offset": ("slice_every_row", [8, 1, 1], [256, 1, 1]),
-              "prefetch_scalar_grid": ("add_scalar_tiles", [2, 1, 1], [256, 1, 1])}
+              "prefetch_scalar_grid": ("add_scalar_tiles", [2, 1, 1], [256, 1, 1]),
+              "transpose_32b_128x128": ("transpose_tile", [4, 4, 1], [256, 1, 1]),
+              "hbm_to_hbm_dma": ("copy_rows_direct", [1, 1, 1], [256, 1, 1])}
 
 
 @pytest.mark.parametrize("label", ONE_KERNEL)
 def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
-    """One call of the row-offset copy or of the scalar add is one counted
-    launch and exactly one kernel on the card, with its name, grid and
-    block (no fill, no host read of s), equal to the plain version."""
+    """One call of the row-offset copy, the scalar add, the transpose or the
+    HBM-to-HBM copy is one counted launch and exactly one kernel on the
+    card, with its name, grid and block (no fill, no wrapper-side copy, no
+    host read of s), equal to the plain version."""
     probe = MP.BY_LABEL[label]
     args = MP.inputs_on(probe, cuda)
     MP.launch(probe, *args)
@@ -1172,6 +1176,8 @@ def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
     kernels = [e for e in events if e.get("cat") == "kernel"]
     name, grid, block = ONE_KERNEL[label]
     assert len(kernels) == 1 and name in kernels[0]["name"], [e["name"] for e in kernels]
+    copies = [e["name"] for e in events if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
+    assert not copies, copies
     assert (kernels[0]["args"]["grid"], kernels[0]["args"]["block"]) == (grid, block), kernels[0]["args"]
 
 

@@ -17,7 +17,16 @@ def test_wrapper_is_the_sources():
     assert PD.SOURCE.read_text().count(PD.wgmma_wrapper(PD.TILE)) == 1
 
 
-@pytest.mark.parametrize("design", ["staging", "tile64", "tile128", "window", "bulk", "bulk_in", "one_block"])
+# each switch's design: the source's lines and the design's in their place
+TRANSPOSE_REGISTERS = (PD.TRANSPOSE_SHARED, "constexpr bool kTransposeShared = false;")
+SWITCHES = {"quads": [TRANSPOSE_REGISTERS],
+            "quads256": [TRANSPOSE_REGISTERS, (PD.TRANSPOSE_THREADS, "constexpr int kTransposeThreads = 256;")],
+            "staged": [(PD.HBM_BULK, "constexpr bool kHbmBulk = true;")],
+            "warp_rows": [(PD.HBM_THREADS, "constexpr int kHbmThreads = 32;")]}
+
+
+@pytest.mark.parametrize("design", ["staging", "tile64", "tile128", "window", "bulk", "bulk_in", "one_block",
+                                    *SWITCHES])
 def test_design_sources(design):
     source = PD.SOURCE.read_text()
     text = PD.design_sources()[design]
@@ -36,6 +45,12 @@ def test_design_sources(design):
     elif design == "one_block":
         assert source.count(PD.SCALAR_ONE_BLOCK) == 1
         assert PD.SCALAR_ONE_BLOCK not in text and text.count("constexpr bool kScalarOneBlock = true;") == 1
+    elif design in SWITCHES:
+        want = source
+        for line, changed in SWITCHES[design]:
+            assert source.count(line) == 1 and line not in text and text.count(changed) == 1
+            want = want.replace(line, changed)
+        assert text == want
     else:
         n = int(design[4:])
         assert f"constexpr int kTileN = {n};" in text and f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8" in text
@@ -82,3 +97,21 @@ def test_held_inputs_wrap_the_scalar_add():
             exact = rows.long() + int(s)
             assert ((exact > 2 ** 31 - 1) | (exact < -2 ** 31)).any()
             assert torch.equal(MP.plain(probe, s, rows).long(), (exact + 2 ** 31) % 2 ** 32 - 2 ** 31)
+
+
+def test_held_inputs_hold_the_transpose_and_the_copy_on_full_range_tiles():
+    """The transpose and the HBM-to-HBM copy are held at the probe's own
+    arange tile, whose values never set the high bits, and on a full-range
+    random tile, where a misplaced word or a wrong select shows; their plain
+    versions are a.T and src[8:16]."""
+    for label in PD.FULL_RANGE:
+        probe = MP.BY_LABEL[label]
+        cases = list(PD.held_inputs(probe, "cpu"))
+        assert len(cases) == 2 and [tuple(a.shape) for a in cases[0]] == [tuple(a.shape) for a in cases[1]]
+        (tile,) = cases[1]
+        assert tile.dtype == torch.int32 and tile.min() < -2 ** 30 and tile.max() > 2 ** 30
+        assert (tile < 0).any() and len(torch.unique(tile)) > tile.numel() * 0.99
+        for (a,) in cases:
+            want = a.T if label == "transpose_32b_128x128" else a[8:16]
+            got = MP.plain(probe, a)
+            assert got.is_contiguous() and torch.equal(got, want)
