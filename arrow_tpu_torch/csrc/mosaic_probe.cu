@@ -25,9 +25,10 @@
 //   since their redesigns (below); their bulk-copy designs stay behind
 //   kOffsetBulk, kWriteBulk and kHbmBulk.
 //
-// Eight kernels are laid out for the card rather than for the TPU's tiles,
-// so that every global load is in flight at once and nothing waits on a
-// round trip that an earlier one could have covered:
+// Nine kernels here (and probe_r4.cu's merge step, the tenth) are laid out
+// for the card rather than for the TPU's tiles, so that every global load is
+// in flight at once and nothing waits on a round trip that an earlier one
+// could have covered:
 //
 // - dynamic_slice_vmem_rows (the probe through simple_call, :61: rows
 //   [s, s + 8) of a (64, 128) int32 tile, s a device scalar).  Bound by
@@ -102,6 +103,13 @@
 //   makes them (kHbmBulk true: one thread brings the rows in on an mbarrier
 //   and sends them out, waiting only until the store has read shared
 //   memory) 1.03x.
+// - bitcast_f32_u32 (the probe through simple_call, :61: the bits of an
+//   (8, 128) float32 tile as uint32).  Bound by bytes: 4 KB read and
+//   written, 0.0024 us.  A bit copy, so its C entry launches the HBM-to-HBM
+//   copy's kernel at row 0: one block of 256 threads, one 16-byte load and
+//   store a thread.  The earlier design, 4 blocks of 4-byte loads and stores
+//   through plain pointers, took 1.044x as long on an H100, and 8 blocks of
+//   one warp 1.055x, in ten rounds of turns (tools/probe_designs.py).
 //
 // One C entry a probe, arrow_probe_<label>(inputs..., out, stream), in the
 // order of the JAX probe's pallas_call arguments (the device scalar first
@@ -171,11 +179,6 @@ __global__ void shifts_popcount(const uint32_t* a, uint32_t* out, int n) {
     const uint32_t x = a[i];
     out[i] = (x >> 3) ^ (x << 2) ^ static_cast<uint32_t>(__popc(x));
   }
-}
-
-__global__ void bitcast_f32(const float* a, uint32_t* out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = __float_as_uint(a[i]);
 }
 
 // smem_scratch_scalar_loop: one thread sums a[i, 0] for i < 8 into a scalar
@@ -503,12 +506,14 @@ __global__ void copy_rows_sized(const int32_t* s, const int32_t* src, int32_t* o
 constexpr bool kHbmBulk = false;
 constexpr int kHbmThreads = 256;
 
-// Rows [8, 16) of the (64, 128) src: one 16-byte load and one 16-byte store
-// a thread (src and out 16-byte aligned), no shared memory, no barrier.
+// Rows [first, first + 8) of src (the HBM-to-HBM copy's [8, 16), the
+// bitcast's [0, 8) of its float tile, as bits): one 16-byte load and one
+// 16-byte store a thread (src and out 16-byte aligned), no shared memory, no
+// barrier.
 __global__ void __launch_bounds__(kHbmThreads)
-    copy_rows_direct(const int4* __restrict__ src, int4* __restrict__ out) {
+    copy_rows_direct(const int4* __restrict__ src, int first, int4* __restrict__ out) {
   const int i = blockIdx.x * kHbmThreads + threadIdx.x;
-  out[i] = __ldg(src + kTileRows * kRowWords + i);
+  out[i] = __ldg(src + first * kRowWords + i);
 }
 
 // The same through shared memory, as the TPU's DMA engine copies HBM to HBM
@@ -782,7 +787,7 @@ int arrow_probe_u32_shifts_popcount(const void* a, void* out, void* stream) {
 }
 
 int arrow_probe_bitcast_f32_u32(const void* a, void* out, void* stream) {
-  bitcast_f32<<<8 * kLanes / kElems, kElems, 0, STREAM>>>(in<float>(a), out_<uint32_t>(out), 8 * kLanes);
+  copy_rows_direct<<<kTileRows * kRowWords / kHbmThreads, kHbmThreads, 0, STREAM>>>(in<int4>(a), 0, out_<int4>(out));
   return done();
 }
 
@@ -874,7 +879,7 @@ int arrow_probe_hbm_to_hbm_dma(const void* src, void* out, void* stream) {
   if (kHbmBulk) {
     copy_rows_staged<<<1, 32, 0, STREAM>>>(in<int4>(src), out_<int4>(out));
   } else {
-    copy_rows_direct<<<kTileRows * kRowWords / kHbmThreads, kHbmThreads, 0, STREAM>>>(in<int4>(src),
+    copy_rows_direct<<<kTileRows * kRowWords / kHbmThreads, kHbmThreads, 0, STREAM>>>(in<int4>(src), kTileRows,
                                                                                      out_<int4>(out));
   }
   return done();

@@ -4,25 +4,49 @@
 //   step's compute on tiles held on the chip.  A step takes 4096-row windows
 //   of A and B (8192-row buffers, A's at row hA, B's at hA + 7, both wrapping;
 //   merge.py:86 _flat_roll_left_dyn), reverses B's (merge.py:98
-//   _reverse_tile), selects the bitonic (key, tag, value) planes, cleans them
-//   by 12 half-cleaner stages (distance 2048 down to 1) and adds key + value
-//   into an int32 accumulator (wrapping); hA advances by 1789 mod 8192.  Two
-//   forms, as in the JAX tool, that differ in the stages of distance < 128:
-//   the roll-pair form runs every stage through shared memory, with the
-//   roll-pair rule (the lower row keeps itself when (k, t) <= its partner's,
-//   the upper row reads that decision); the XOR form runs those stages in
-//   registers and through __shfl_xor_sync with the XOR-partner rule (a row
-//   takes its partner where (k, t) < the partner's, negated on the upper
-//   row), so it cleans them in the opposite order, as its JAX form does.
-//   A block of 1024 threads holds the 4096 rows, 4 a thread: thread
-//   (warp w, lane l) holds rows 128w + 32j + l, j < 4, so that distances 32
-//   and 64 are between a thread's registers and shorter ones between lanes.
-//   A and B live in shared memory for the whole run (the JAX kernel's VMEM),
-//   beside the three exchange planes: 112 KB of dynamic shared memory.
-//   The work is latency-bound: 12 stages a step, each two block barriers
-//   where it exchanges through shared memory.  One block is the JAX
-//   kernel's one core; the wrapper can launch one block an SM, each on the
-//   same data, for the card's rate.
+//   _reverse_tile), selects the bitonic (key k, tag t, value v) rows, cleans
+//   them by 12 half-cleaner stages (distance 2048 down to 1) and adds k + v
+//   into an int32 accumulator (wrapping); hA advances by 1789 mod 8192.  Row
+//   i takes A's value where A's <= B's (t = i, v = k ^ 3), else B's (t =
+//   8191 - i, v = k ^ 5).  Two forms, as in the JAX tool: the roll-pair form
+//   puts the lesser row of each pair on the lower row (bit d of the row
+//   index clear) at every stage; the XOR form does so at distances of 128
+//   and more, and puts it on the upper row below 128, as its JAX form does.
+//
+//   Two invariants make a row one 64-bit key.  The tags are unique (i <
+//   4096 for A's values, 8191 - i >= 4096 for B's), so no two rows have
+//   equal (k, t), and both forms' rules are a plain min/max of (k, t) a
+//   pair.  And v is a function of (k, t): v = k ^ (t < 4096 ? 3 : 5).  So a
+//   step cleans key = (k ^ 0x80000000) << 13 | t, unsigned, which orders as
+//   (k, t), and rebuilds k and v from it at the end.
+//
+//   A block of 256 threads holds the 4096 rows, 16 a thread, in layouts of
+//   the row index's 12 bits with 4 of them in a thread's registers, so that
+//   a stage is between two registers of a thread or two lanes of a warp:
+//   (1) bits 11-8 in registers (stages 2048-256), built from the windows;
+//   (2) bits 7-4 in registers (stages 128-16) and bits 3-0 in the lane
+//   (stages 8-1 by __shfl_xor_sync), which holds the accumulator.  One
+//   exchange through shared memory a step moves the keys from (1) to (2),
+//   8 bytes a row each way, behind one block barrier; the steps take two
+//   buffers in turns, so that no write of a step meets a read of the step
+//   before.  The writer stores a row as 8 bytes, the reader loads two rows
+//   as 16 (16 bytes both ways would need a bit in registers in both
+//   layouts); layout 1's lane bits 3 and 4 are the row's 4 and 3, so that
+//   both sides are free of bank conflicts.  The exchange design
+//   (kStepShuffle false) moves the keys a second time, through a buffer
+//   padded by 16 bytes every 128, to (3) bits 3-0 in registers (stages 8-1,
+//   the accumulator, 16-byte stores out): two barriers a step, 16 more
+//   shared bytes a row and no shuffle; on an H100 it took 1.004-1.006x as
+//   long a step and 1.05-1.07x as long a call at R = 3, in turns, and the
+//   earlier design (1024 threads of 4 rows, every stage or the five longest
+//   through shared memory between two barriers) 3.07x (roll-pair) and 2.50x
+//   (XOR) as long a step (tools/probe_designs.py).  A and B live in shared
+//   memory for the whole run (the JAX kernel's VMEM), brought in by 16-byte
+//   loads: 64 KB beside 68 KB of exchange buffers.  Bound by operations: a
+//   step is 12 stages of 2048 64-bit compare-exchanges (2 compares and 4
+//   selects each) on one SM's 64 integer lanes a clock.  One block is the
+//   JAX kernel's one core; the wrapper can launch one block an SM, each on
+//   the same data, for the card's rate.
 // - mask_matmul (probe_r4.py:209, conv_kern): (x > 0) on a (128, 128) int32
 //   tile as bf16 A fragments built in registers, times ones(128, 128) bf16,
 //   by mma.sync m16n8k16 with f32 accumulators, rounded to bf16.  The TPU's
@@ -40,119 +64,151 @@
 namespace {
 
 constexpr int kLanes = 128;
-constexpr int kT = 4096;          // rows a window
-constexpr int kBuf = 2 * kT;      // rows of A and of B
-constexpr int kThreads = 1024;    // 4 rows a thread
+constexpr int kT = 4096;      // rows a window
+constexpr int kBuf = 2 * kT;  // rows of A and of B
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kStepSmem = (2 * kBuf + 3 * kT) * 4;
 
-struct Planes {
-  int32_t k[4], t[4], v[4];
-};
+// the merge step's designs: stages 8-1 between the lanes of layout 2
+// (kStepShuffle), or in layout 3 through a second exchange
+constexpr bool kStepShuffle = true;
+constexpr int kStepThreads = 256;
+constexpr int kRows = kT / kStepThreads;     // rows a thread
+constexpr int kSlots = kT / 2 + kT / 16;     // 16-byte slots of the second buffer: one pad every 8
+constexpr int kStepSmem = 2 * kBuf * 4 + (kT / 2 + kSlots) * 16;
 
-// The roll-pair rule at one row: keep itself where the lower of the pair is
-// (k, t) <= the upper, on the lower row as on the upper.
-__device__ __forceinline__ void roll_pair_rule(Planes& s, int j, bool upper, int32_t pk, int32_t pt, int32_t pv) {
-  const int32_t lk = upper ? pk : s.k[j], lt = upper ? pt : s.t[j];
-  const int32_t hk = upper ? s.k[j] : pk, ht = upper ? s.t[j] : pt;
-  const bool keep = lk < hk || (lk == hk && lt <= ht);
-  if (!keep) {
-    s.k[j] = pk;
-    s.t[j] = pt;
-    s.v[j] = pv;
+// (k, t) as one unsigned 64-bit key that orders as (k, t)
+__device__ __forceinline__ uint64_t pack_row(int32_t k, int t) {
+  return static_cast<uint64_t>(static_cast<uint32_t>(k) ^ 0x80000000u) << 13 | static_cast<uint32_t>(t);
+}
+
+// k + v of a cleaned key, both rebuilt from it (wrapping)
+__device__ __forceinline__ uint32_t row_sum(uint64_t key) {
+  const uint32_t k = static_cast<uint32_t>(key >> 13) ^ 0x80000000u;
+  return k + (k ^ (key & kT ? 5u : 3u));
+}
+
+// One stage between the registers kDist apart: the lesser key to the lower
+// register, which holds the lower row, or to the upper one (kMaxLower).
+template <int kDist, bool kMaxLower>
+__device__ __forceinline__ void clean(uint64_t (&key)[kRows]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r & kDist) continue;
+    const uint64_t lo = key[r], hi = key[r | kDist];
+    const bool swap = kMaxLower ? lo < hi : hi < lo;
+    key[r] = swap ? hi : lo;
+    key[r | kDist] = swap ? lo : hi;
   }
 }
 
-// The XOR-partner rule at one row: take the partner where (k, t) < the
-// partner's, negated on the upper row.
-__device__ __forceinline__ void xor_rule(Planes& s, int j, bool upper, int32_t pk, int32_t pt, int32_t pv) {
-  const bool less = s.k[j] < pk || (s.k[j] == pk && s.t[j] < pt);
-  if (less != upper) {
-    s.k[j] = pk;
-    s.t[j] = pt;
-    s.v[j] = pv;
+// One stage between the lanes kDist apart: the lesser key to the lane whose
+// bit kDist is clear, which holds the lower row, or to the other (kMaxLower).
+template <int kDist, bool kMaxLower>
+__device__ __forceinline__ void clean_lanes(uint64_t (&key)[kRows], int lane) {
+  const bool lower = (lane & kDist) == 0;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const uint64_t p = __shfl_xor_sync(kFull, key[r], kDist);
+    key[r] = (p < key[r]) == (lower != kMaxLower) ? p : key[r];
   }
 }
 
 template <bool kXor>
-__global__ void __launch_bounds__(kThreads) merge_step(const int32_t* r_dev, const int32_t* a, const int32_t* b,
-                                                       int32_t* out) {
-  extern __shared__ int32_t smem[];
-  int32_t* sa = smem;
-  int32_t* sb = sa + kBuf;
-  int32_t* sk = sb + kBuf;
-  int32_t* st = sk + kT;
-  int32_t* sv = st + kT;
-  for (int i = threadIdx.x; i < kBuf; i += kThreads) {
-    sa[i] = a[i];
-    sb[i] = b[i];
+__global__ void __launch_bounds__(kStepThreads, 1)
+    merge_step(const int32_t* __restrict__ r_dev, const int4* __restrict__ a, const int4* __restrict__ b,
+               int4* __restrict__ out) {
+  extern __shared__ int4 smem[];
+  const int32_t* sa = reinterpret_cast<const int32_t*>(smem);
+  const int32_t* sb = sa + kBuf;
+  uint64_t* x1 = reinterpret_cast<uint64_t*>(smem + 2 * kBuf / 4);  // layout 1 to 2
+  uint64_t* x2 = x1 + kT;  // the odd steps' 1 to 2; without kStepShuffle, 2 to 3
+  const int tid = threadIdx.x;
+  const int steps = __ldg(r_dev);
+#pragma unroll
+  for (int j = 0; j < kBuf / 4; j += kStepThreads) {
+    smem[j + tid] = __ldg(a + j + tid);
+    smem[kBuf / 4 + j + tid] = __ldg(b + j + tid);
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int steps = r_dev[0];
+  // Layout 1: register r holds row r << 8 | t1, t1 the thread index with
+  // bits 3 and 4 swapped, so that a half-warp's rows cover row bit 4, which
+  // pairs the rows of the first buffer.  Layout 2: register r holds row
+  // row2 | r << 4.  Layout 3: register r holds row tid << 4 | r.
+  const int t1 = (tid & ~0x18) | (tid & 8) << 1 | (tid & 16) >> 1;
+  const int row2 = (tid >> 4) << 8 | (tid & 15);
+  // The first buffer holds row i at word (i >> 5) << 5 | (i & 15) << 1 |
+  // (i >> 4 & 1): rows i and i | 16 share 16 bytes.  The second holds rows
+  // 2c and 2c + 1 at 16-byte slot c + (c >> 3).
+  const int put1 = (t1 & 0xE0) | (t1 & 15) << 1 | (t1 >> 4 & 1);       // + (r << 8)
+  const int get1 = (tid >> 4) << 8 | (tid & 15) << 1;                   // + (q << 5): rows of 2q and 2q + 1
+  const int put2 = 2 * ((tid >> 4) * 144 + ((tid & 15) >> 1)) + (tid & 1);  // + 18 r
+  const int get2 = 18 * tid;                                             // + 2 q
   __syncthreads();
-  uint32_t acc[4] = {0, 0, 0, 0};
+  uint32_t acc[kRows] = {};
   int h = 0;
   for (int step = 0; step < steps; ++step) {
-    Planes s;
+    uint64_t key[kRows];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = warp * kLanes + j * 32 + lane;
+    for (int r = 0; r < kRows; ++r) {
+      const int i = r << 8 | t1;
       const int32_t wa = sa[(i + h) & (kBuf - 1)];
-      const int32_t rb = sb[(kT - 1 - i + h + 7) & (kBuf - 1)];
-      const bool less = wa <= rb;
-      s.k[j] = less ? wa : rb;
-      s.t[j] = less ? i : 2 * kT - 1 - i;
-      s.v[j] = less ? wa ^ 3 : rb ^ 5;
+      const int32_t rb = sb[(kT + 6 - i + h) & (kBuf - 1)];
+      key[r] = pack_row(min(wa, rb), wa <= rb ? i : kBuf - 1 - i);
     }
+    clean<8, false>(key);  // distances 2048-256
+    clean<4, false>(key);
+    clean<2, false>(key);
+    clean<1, false>(key);
+    uint64_t* x = kStepShuffle && (step & 1) ? x2 : x1;
 #pragma unroll
-    for (int d = kT / 2; d >= 1; d >>= 1) {
-      if (kXor && d < kLanes) {
-        int32_t pk[4], pt[4], pv[4];
+    for (int r = 0; r < kRows; ++r) x[(r << 8) + put1] = key[r];
+    __syncthreads();
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (d >= 32) {
-            pk[j] = s.k[j ^ (d >> 5)];
-            pt[j] = s.t[j ^ (d >> 5)];
-            pv[j] = s.v[j ^ (d >> 5)];
-          } else {
-            pk[j] = __shfl_xor_sync(kFull, s.k[j], d);
-            pt[j] = __shfl_xor_sync(kFull, s.t[j], d);
-            pv[j] = __shfl_xor_sync(kFull, s.v[j], d);
-          }
-        }
+    for (int q = 0; q < kRows / 2; ++q) {
+      const ulonglong2 two = *reinterpret_cast<const ulonglong2*>(x + get1 + (q << 5));
+      key[2 * q] = two.x;
+      key[2 * q + 1] = two.y;
+    }
+    clean<8, false>(key);  // distances 128-16: the XOR form's lesser row goes up below 128
+    clean<4, kXor>(key);
+    clean<2, kXor>(key);
+    clean<1, kXor>(key);
+    if constexpr (kStepShuffle) {
+      const int lane = tid & 31;
+      clean_lanes<8, kXor>(key, lane);
+      clean_lanes<4, kXor>(key, lane);
+      clean_lanes<2, kXor>(key, lane);
+      clean_lanes<1, kXor>(key, lane);
+    } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) xor_rule(s, j, ((j * 32 + lane) & d) != 0, pk[j], pt[j], pv[j]);
-      } else {
+      for (int r = 0; r < kRows; ++r) x2[put2 + 18 * r] = key[r];
+      __syncthreads();
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = warp * kLanes + j * 32 + lane;
-          sk[i] = s.k[j];
-          st[i] = s.t[j];
-          sv[i] = s.v[j];
-        }
-        __syncthreads();
-        int32_t pk[4], pt[4], pv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = (warp * kLanes + j * 32 + lane) ^ d;
-          pk[j] = sk[p];
-          pt[j] = st[p];
-          pv[j] = sv[p];
-        }
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = warp * kLanes + j * 32 + lane;
-          roll_pair_rule(s, j, (i & d) != 0, pk[j], pt[j], pv[j]);
-        }
+      for (int q = 0; q < kRows / 2; ++q) {
+        const ulonglong2 two = *reinterpret_cast<const ulonglong2*>(x2 + get2 + 2 * q);
+        key[2 * q] = two.x;
+        key[2 * q + 1] = two.y;
       }
+      clean<8, kXor>(key);  // distances 8-1
+      clean<4, kXor>(key);
+      clean<2, kXor>(key);
+      clean<1, kXor>(key);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j] += static_cast<uint32_t>(s.k[j]) + static_cast<uint32_t>(s.v[j]);
-    h = (h + 1789) % kBuf;
+    for (int r = 0; r < kRows; ++r) acc[r] += row_sum(key[r]);
+    h = (h + 1789) & (kBuf - 1);
   }
+  if constexpr (kStepShuffle) {
+    int32_t* o = reinterpret_cast<int32_t*>(out + blockIdx.x * (kT / 4)) + row2;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) out[blockIdx.x * kT + warp * kLanes + j * 32 + lane] = static_cast<int32_t>(acc[j]);
+    for (int r = 0; r < kRows; ++r) o[r << 4] = static_cast<int32_t>(acc[r]);
+  } else {
+    int4* o = out + blockIdx.x * (kT / 4) + tid * (kRows / 4);
+#pragma unroll
+    for (int j = 0; j < kRows / 4; ++j) {
+      o[j] = make_int4(static_cast<int32_t>(acc[4 * j]), static_cast<int32_t>(acc[4 * j + 1]),
+                       static_cast<int32_t>(acc[4 * j + 2]), static_cast<int32_t>(acc[4 * j + 3]));
+    }
+  }
 }
 
 // (x > 0) as bf16 @ ones(128, 128) bf16 -> bf16: warp w computes rows
@@ -198,9 +254,9 @@ template <bool kXor>
 int launch_step(const void* r, const void* a, const void* b, void* out, int blocks, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(merge_step<kXor>, cudaFuncAttributeMaxDynamicSharedMemorySize, kStepSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_step<kXor><<<blocks, kThreads, kStepSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(r), static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
-      static_cast<int32_t*>(out));
+  merge_step<kXor><<<blocks, kStepThreads, kStepSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(r), static_cast<const int4*>(a), static_cast<const int4*>(b),
+      static_cast<int4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -64,7 +64,7 @@ class Probe:
     shape: Tuple[int, ...]
     dtype: torch.dtype
     rows: Optional[Callable[..., slice]] = None  # rows the JAX probe writes, from the inputs (all when None)
-    ops: int = 0  # tensor-core operations, for the bound
+    ops: int = 0  # operations, for the bound (at the rate chip_smoke.py's OPS_PER_S gives the probe)
     blocked: bool = False  # the C entry takes a block count, each block on the same data into its own output
 
     @property

@@ -1,22 +1,24 @@
 """The redesigned probe kernels against other designs of theirs, timed in
 turns on one card.
 
-    python -m arrow_tpu_torch.tools.probe_designs
+    python -m arrow_tpu_torch.tools.probe_designs [--labels LABEL ...] [--rounds N] [--sass]
 
 ``grid_1d_blockspec``, ``matmul_int8_s32acc``, ``dynamic_slice_vmem_rows``,
 ``dma_unaligned_row_write``, ``dma_unaligned_row_offset``,
-``prefetch_scalar_grid``, ``transpose_32b_128x128`` and ``hbm_to_hbm_dma``
-(``csrc/mosaic_probe.cu``) are laid out for the card.  Each other design is
-a variant of a ``mosaic_probe.cu``, built into a library of its own under
+``prefetch_scalar_grid``, ``transpose_32b_128x128``, ``hbm_to_hbm_dma`` and
+``bitcast_f32_u32`` (``csrc/mosaic_probe.cu``), and the merge step in its
+two forms, ``mb_step_rollpair`` and ``mb_step_taa`` (``csrc/probe_r4.cu``),
+are laid out for the card.  Each other design is a variant of the kernel's
+source, built into a library of its own under
 ``build/arrow_tpu_torch/designs/`` (the port's nvcc flags, one process a
 design, all started together):
 
 - ``earlier``: the source before the kernel's redesign, where the checkout
-  holds it as ``build/parent/<commit>/arrow_tpu_torch/csrc/mosaic_probe.cu``
-  for the kernel's commit in ``BEFORE`` (unpacked from git as the README
-  says; not measured otherwise).  ``dma_unaligned_row_write``'s earlier
-  design wrote only the window, into an output that its wrapper zeroed
-  first: that fill is part of its call and of its time;
+  holds it as ``build/parent/<commit>/arrow_tpu_torch/csrc/<source>`` for
+  the kernel's commit in ``BEFORE`` (unpacked from git as the README says;
+  not measured otherwise).  ``dma_unaligned_row_write``'s earlier design
+  wrote only the window, into an output that its wrapper zeroed first: that
+  fill is part of its call and of its time;
 - ``staging``: the int8 product with its wgmma call cut out, whose output is
   then the zeroed accumulators: the staging and the stores alone;
 - ``tile64``, ``tile128``: the int8 product in output tiles of 64 x 64 and
@@ -36,20 +38,29 @@ design, all started together):
   loads and stores, one barrier);
 - ``staged``: the HBM-to-HBM copy as a bulk copy into shared memory and one
   back out, in place of a 16-byte load and store a thread;
-- ``warp_rows``: that copy's 16-byte loads and stores in 8 blocks of one
-  warp, a warp a row, in place of one block of 256 threads.
+- ``warp_rows``: that copy's (and the bitcast's, the same kernel's)
+  16-byte loads and stores in 8 blocks of one warp, a warp a row, in place
+  of one block of 256 threads;
+- ``exchange``: the merge step cleaning its stages of distance 8-1 in
+  registers after a second exchange through shared memory, in place of
+  between lanes by ``__shfl_xor_sync``.
 
 Every design but ``staging`` is first held to the plain version on the
 probe's inputs, a row window's at every legal s on random rows, the
-scalar add's on full-range rows and scalars, where the sum wraps, and the
-transpose's and the copy's on a full-range random tile.  Then each kernel
-is timed in turns: plain, new, library, new, a design, new, the next
-design, new, ...; device ms a call, queued behind a spin kernel
-(:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`), beside an
-empty kernel's; the library call is :func:`mosaic_probe.library_call`'s
-(``x + 1``, ``torch._int_mm``, a slice's ``clone``, ``F.pad``, ``x + s``,
-``t().contiguous()``).  ``bitcast_f32_u32``, not redesigned, is timed in
-turns against its ``clone`` alone (new, library, new).
+scalar add's on full-range rows and scalars, where the sum wraps, the
+transpose's, the copy's and the bitcast's on a full-range random tile, and
+the merge step's (one block) on keys in [0, 100) with many ties, on
+full-range keys and on all INT_MIN against all INT_MAX, each at R = 0, 1
+and 5.  Then each kernel is timed in turns: plain, new, library, new, a
+design, new, the next design, new, ...; device ms a call, queued behind a
+spin kernel (:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`),
+beside an empty kernel's; the library call is
+:func:`mosaic_probe.library_call`'s (``x + 1``, ``torch._int_mm``, a slice's
+``clone``, ``F.pad``, ``x + s``, ``t().contiguous()``).  The merge step has
+no library call, and its plain version reads R on the host, so it is timed
+new, a design, new, ...: the probe's call at R = 3, and us a step on one
+block from the slope between two R (:func:`probe_r4.us_per_step`), beside
+one SM's floor for a step (its operations over one SM's integer rate).
 ``chip_smoke.py``'s ``probes`` phase runs the same.
 """
 
@@ -57,8 +68,12 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import functools
+import os
 import pathlib
+import re
 import statistics
+import subprocess
 import sys
 import time
 from typing import Callable, Dict, Iterator, List, Tuple
@@ -68,23 +83,27 @@ import torch
 
 from ..compute.kernels import _build
 from . import mosaic_probe as MP
+from . import probe_r4 as PR
 from .common import gpu_line
 
 SOURCE = _build.CSRC_DIR / "mosaic_probe.cu"
+R4_SOURCE = _build.CSRC_DIR / "probe_r4.cu"
 PARENT = _build.BUILD_DIR.parent / "parent"
 # the commit before each kernel's redesign, whose source is its earlier design
 BEFORE = {"grid_1d_blockspec": "9d785cc", "matmul_int8_s32acc": "9d785cc",
           "dynamic_slice_vmem_rows": "70dca0e", "dma_unaligned_row_write": "70dca0e",
           "dma_unaligned_row_offset": "829306e", "prefetch_scalar_grid": "829306e",
-          "transpose_32b_128x128": "9f34100", "hbm_to_hbm_dma": "9f34100"}
+          "transpose_32b_128x128": "9f34100", "hbm_to_hbm_dma": "9f34100",
+          "bitcast_f32_u32": "aeb9ac2", "mb_step_rollpair": "aeb9ac2", "mb_step_taa": "aeb9ac2"}
 REDESIGNED = tuple(BEFORE)
-UNCHANGED = ("bitcast_f32_u32",)  # timed in turns against its library call only
 FILLED_BEFORE = ("dma_unaligned_row_write",)  # earlier designs that wrote into an output zeroed by the wrapper
 # a window at device row s in [0, 56]
 WINDOWED = ("dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset")
 WRAPPED = ("prefetch_scalar_grid",)  # an int32 sum that wraps
-FULL_RANGE = ("transpose_32b_128x128", "hbm_to_hbm_dma")  # held on a full-range random tile too
+FULL_RANGE = ("transpose_32b_128x128", "hbm_to_hbm_dma", "bitcast_f32_u32")  # held on a full-range random tile too
+STEP_HELD_R = (0, 1, 5)  # the merge steps' R on the held inputs beyond the probe's
 OUT_DIR = _build.BUILD_DIR / "designs"
+BUF_ROWS = PR.BUF // MP.LANES  # rows of 128 of each merge-step input
 PRODUCT_CALL = "  wgmma_product(d, sa, sb);\n"
 TILE = 32  # the source's output columns a block (kTileN)
 WRAPPER_START = "__device__ __forceinline__ void wgmma_m64nNk32("
@@ -96,12 +115,17 @@ TRANSPOSE_SHARED = "constexpr bool kTransposeShared = true;"
 TRANSPOSE_THREADS = "constexpr int kTransposeThreads = 128;"
 HBM_BULK = "constexpr bool kHbmBulk = false;"
 HBM_THREADS = "constexpr int kHbmThreads = 256;"
+STEP_SHUFFLE = "constexpr bool kStepShuffle = true;"
+SASS_KERNELS = ("merge_step", "copy_rows_direct", "bitcast_f32")  # the kernels whose SASS --sass counts
+SASS_OPS = ("BAR.SYNC", "LDS", "STS", "SHFL", "LDG", "STG", "ISETP", "SEL")
+SASS_LINE = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")  # an instruction's opcode
 # the designs that each kernel is timed against, in their turn's order
 TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "staging", "tile64", "tile128"),
          "dynamic_slice_vmem_rows": ("earlier", "window"), "dma_unaligned_row_write": ("earlier", "bulk"),
          "dma_unaligned_row_offset": ("earlier", "bulk_in"), "prefetch_scalar_grid": ("earlier", "one_block"),
          "transpose_32b_128x128": ("earlier", "quads", "quads256"),
-         "hbm_to_hbm_dma": ("earlier", "staged", "warp_rows")}
+         "hbm_to_hbm_dma": ("earlier", "staged", "warp_rows"), "bitcast_f32_u32": ("earlier", "warp_rows"),
+         "mb_step_rollpair": ("earlier", "exchange"), "mb_step_taa": ("earlier", "exchange")}
 
 
 def wgmma_wrapper(n: int) -> str:
@@ -125,7 +149,7 @@ def wgmma_wrapper(n: int) -> str:
 
 def _once(text: str, old: str, new: str) -> str:
     if text.count(old) != 1:
-        raise RuntimeError(f"mosaic_probe.cu: {old.strip()[:60]!r} is not there once")
+        raise RuntimeError(f"the source: {old.strip()[:60]!r} is not there once")
     return text.replace(old, new)
 
 
@@ -135,15 +159,24 @@ def _tile(text: str, n: int) -> str:
     return _once(text, f"constexpr int kTileN = {TILE};", f"constexpr int kTileN = {n};")
 
 
+def probe_of(label: str) -> MP.Probe:
+    return MP.BY_LABEL.get(label) or PR.BY_NAME[label]
+
+
+def source_of(label: str) -> pathlib.Path:
+    """The source that holds `label`'s kernel."""
+    return R4_SOURCE if label in PR.BY_NAME else SOURCE
+
+
 def earlier_source(label: str) -> pathlib.Path:
     """Where the checkout holds the source before `label`'s redesign."""
-    return PARENT / BEFORE[label] / "arrow_tpu_torch" / "csrc" / "mosaic_probe.cu"
+    return PARENT / BEFORE[label] / "arrow_tpu_torch" / "csrc" / source_of(label).name
 
 
 def library_name(label: str, design: str) -> str:
     """The name of the library that holds `label`'s `design`: the earlier
-    designs by commit, the rest by their own name."""
-    return f"earlier_{BEFORE[label]}" if design == "earlier" else design
+    designs by commit and source, the rest by their own name."""
+    return f"earlier_{BEFORE[label]}_{source_of(label).stem}" if design == "earlier" else design
 
 
 def design_sources() -> Dict[str, str]:
@@ -159,7 +192,8 @@ def design_sources() -> Dict[str, str]:
                "quads": quads,
                "quads256": _once(quads, TRANSPOSE_THREADS, TRANSPOSE_THREADS.replace("128", "256")),
                "staged": _once(text, HBM_BULK, HBM_BULK.replace("false", "true")),
-               "warp_rows": _once(text, HBM_THREADS, HBM_THREADS.replace("256", "32"))}
+               "warp_rows": _once(text, HBM_THREADS, HBM_THREADS.replace("256", "32")),
+               "exchange": _once(R4_SOURCE.read_text(), STEP_SHUFFLE, STEP_SHUFFLE.replace("true", "false"))}
     for label in REDESIGNED:
         if earlier_source(label).is_file():
             designs[library_name(label, "earlier")] = earlier_source(label).read_text()
@@ -172,7 +206,7 @@ def build() -> Tuple[Dict[str, ctypes.CDLL], float]:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, text in design_sources().items():
-        src = OUT_DIR / f"mosaic_probe_{name}.cu"
+        src = OUT_DIR / f"{name}.cu"
         src.write_text(text)
         jobs[name] = (OUT_DIR / f"lib_{name}.so", src)
     t0 = time.perf_counter()
@@ -182,29 +216,36 @@ def build() -> Tuple[Dict[str, ctypes.CDLL], float]:
     return {name: ctypes.CDLL(str(lib)) for name, (lib, _) in jobs.items()}, time.perf_counter() - t0
 
 
-def design_call(lib: ctypes.CDLL, probe: MP.Probe, args, zeroed: bool = False) -> Callable[[], torch.Tensor]:
-    """A call of `lib`'s C entry of the probe on `args` into a new output, as
-    the probe's wrapper makes it (no launch counted); `zeroed`: the output
-    is zeroed first, as the wrapper of a design that writes part of it did."""
+def design_call(lib: ctypes.CDLL, probe: MP.Probe, zeroed: bool = False) -> Callable[..., torch.Tensor]:
+    """`lib`'s C entry of the probe as a call on the probe's inputs into a new
+    output, as the probe's wrapper makes it (one block for a merge step; no
+    launch counted); `zeroed`: the output is zeroed first, as the wrapper of
+    a design that writes part of it did."""
     fn = getattr(lib, f"arrow_probe_{probe.label}")
-    fn.argtypes = [ctypes.c_void_p] * (len(args) + 2)
+    counts = (1,) if probe.blocked else ()
+    fn.argtypes = [ctypes.c_void_p] * (len(probe.inputs()) + 1) + [ctypes.c_int] * len(counts) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
-    def call():
+    def call(*args):
         out = (torch.zeros if zeroed else torch.empty)(probe.shape, dtype=probe.dtype, device=args[0].device)
-        _build.check(fn(*[a.data_ptr() for a in args], out.data_ptr(), _build.stream_of(out)), probe.label)
+        err = fn(*[a.data_ptr() for a in args], out.data_ptr(), *counts, _build.stream_of(out))
+        _build.check(err, probe.label)
         return out
 
     return call
 
 
-def design_calls(libs: Dict[str, ctypes.CDLL], label: str, args) -> Dict[str, Callable[[], torch.Tensor]]:
-    """Calls of `label`'s designs that were built, on `args`, by design name;
-    an earlier design that wrote part of the output gets a zeroed one."""
-    probe = MP.BY_LABEL[label]
-    return {name: design_call(libs[library_name(label, name)], probe, args,
+def design_entries(libs: Dict[str, ctypes.CDLL], label: str) -> Dict[str, Callable[..., torch.Tensor]]:
+    """Calls of `label`'s designs that were built, by design name; an earlier
+    design that wrote part of the output gets a zeroed one."""
+    return {name: design_call(libs[library_name(label, name)], probe_of(label),
                               zeroed=name == "earlier" and label in FILLED_BEFORE)
             for name in TURNS.get(label, ()) if library_name(label, name) in libs}
+
+
+def design_calls(libs: Dict[str, ctypes.CDLL], label: str, args) -> Dict[str, Callable[[], torch.Tensor]]:
+    """Calls of `label`'s designs that were built, on `args`, by design name."""
+    return {name: functools.partial(fn, *args) for name, fn in design_entries(libs, label).items()}
 
 
 def queued_ms(fn: Callable, what: str) -> float:
@@ -221,25 +262,50 @@ def _full_range(shape, device) -> torch.Tensor:
     return torch.from_numpy(np.random.default_rng(15).integers(-2 ** 31, 2 ** 31, shape, np.int32)).to(device)
 
 
+def step_pairs(device) -> Dict[str, torch.Tensor]:
+    """The merge step's (A, B) pairs beyond the probe's, stacked: keys in
+    [0, 100) with many ties, full-range keys, all INT_MIN against all
+    INT_MAX."""
+    shape = (2, BUF_ROWS, MP.LANES)
+    ends = torch.tensor([-2 ** 31, 2 ** 31 - 1], dtype=torch.int32)[:, None, None].expand(shape)
+    return {"ties": torch.from_numpy(np.random.default_rng(18).integers(0, 100, shape, np.int32)).to(device),
+            "full range": _full_range(shape, device), "ends": ends.contiguous().to(device)}
+
+
 def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
     """The inputs each design is held to the plain version on: the probe's;
     for a row window every legal s on full-range random rows; for the scalar
     add full-range rows with a scalar at either end of the int32 range; for
-    the transpose and the copy a full-range random tile."""
+    the transpose, the copy and the bitcast a full-range random tile; for
+    the merge steps each of ``step_pairs`` at each R of STEP_HELD_R."""
     yield MP.inputs_on(probe, device)
+    if probe.label in PR.MERGE_STEPS:
+        for a, b in step_pairs(device).values():
+            for r in STEP_HELD_R:
+                yield [torch.full((1,), r, dtype=torch.int32, device=device), a, b]
     if probe.label in FULL_RANGE:
-        (tile,) = probe.inputs()
-        yield [_full_range(tile.shape, device)]
+        (tile,) = probe.inputs()  # the bitcast's float tile as the bits of full-range int32s
+        yield [_full_range(tile.shape, device).view(torch.from_numpy(tile).dtype)]
     if probe.label in WINDOWED + WRAPPED:
         rows = _full_range(probe.inputs()[1].shape, device)
         for s in range(64 - 8 + 1) if probe.label in WINDOWED else (2 ** 31 - 3, -2 ** 31 + 3):
             yield [torch.full((1,), s, dtype=torch.int32, device=device), rows]
 
 
-def run(device, log: Callable[[str], None] = print) -> Dict[str, list]:
-    """Build the designs, hold them to the plain versions and time them in
-    turns on `device`; logs a line a kernel and returns its (name, ms)
-    turns by label."""
+def _in_turns(times: List[Tuple[str, float]], digits: int) -> str:
+    """The turns, then each design's median over new's (plain left out)."""
+    medians = {name: statistics.median(t for n, t in times if n == name) for name, _ in times}
+    ratios = ", ".join(f"{name} {t / medians['new']:.3f}" for name, t in medians.items()
+                       if name not in ("new", "plain"))
+    return ", ".join(f"{name} {t:.{digits}f}" for name, t in times) + f"; over new's median: {ratios}"
+
+
+def run(device, log: Callable[[str], None] = print, labels=REDESIGNED, rounds: int = 1) -> Dict[str, list]:
+    """Build the designs, hold `labels`' designs to the plain versions and
+    time them in turns on `device`, the turns `rounds` times over; logs a
+    line a kernel (and for a merge step a second, us a step) and returns its
+    (name, ms) turns by label (and the merge steps' (name, us a step) turns
+    by "<label> us_per_step")."""
     libs, seconds = build()
     missing = sorted({str(earlier_source(label)) for label in REDESIGNED
                       if library_name(label, "earlier") not in libs})
@@ -247,8 +313,8 @@ def run(device, log: Callable[[str], None] = print) -> Dict[str, list]:
         + (f"; not measured, the earlier designs in {missing} (not there)" if missing else ""))
     empty_ms = queued_ms(lambda: MP.empty_launch(device), "an empty kernel")
     result = {}
-    for label in (*REDESIGNED, *UNCHANGED):
-        probe = MP.BY_LABEL[label]
+    for label in labels:
+        probe = probe_of(label)
         for args in held_inputs(probe, device):
             want = MP.plain(probe, *args)
             for name, fn in {"new": lambda: MP.launch(probe, *args), **design_calls(libs, label, args)}.items():
@@ -258,28 +324,70 @@ def run(device, log: Callable[[str], None] = print) -> Dict[str, list]:
         args = MP.inputs_on(probe, device)
         fns = {"plain": lambda: MP.plain(probe, *args), "new": lambda: MP.launch(probe, *args),
                "library": MP.library_call(label, args), **design_calls(libs, label, args)}
-        turns = ["plain", "new", "library", "new"] if label in REDESIGNED else ["new", "library", "new"]
-        for name in TURNS.get(label, ()):
+        # a merge step's plain version reads R on the host, and it has no library call
+        turns = ["new"] if label in PR.MERGE_STEPS else ["plain", "new", "library", "new"]
+        for name in TURNS[label]:
             turns += [name, "new"] if name in fns else []
+        turns *= rounds
         times = [(name, queued_ms(fns[name], f"{label}, {name}")) for name in turns]
-        new = statistics.median(t for name, t in times if name == "new")
-        ratios = ", ".join(f"{name} {t / new:.3f}" for name, t in times if name not in ("new", "plain"))
-        log(f"{label}, designs in turns, device ms a call (queued): "
-            + ", ".join(f"{name} {t:.5f}" for name, t in times)
-            + f"; over new's median: {ratios}; an empty kernel {empty_ms:.5f}")
+        log(f"{label}, designs in turns, device ms a call (queued): {_in_turns(times, 5)}; "
+            f"an empty kernel {empty_ms:.5f}")
         result[label] = times
+        if label in PR.MERGE_STEPS:
+            _, a, b = args
+            calls = {"new": functools.partial(MP.launch, probe), **design_entries(libs, label)}
+            steps = [(name, PR.us_per_step(lambda r, call=calls[name]: call(r, a, b), device, PR.STEPS))
+                     for name in turns]
+            log(f"{label}, designs in turns, us a step on one block (slope of R = {PR.STEPS[0]} to "
+                f"{PR.STEPS[1]}): {_in_turns(steps, 3)}; {PR.sm_floor_line()}")
+            result[f"{label} us_per_step"] = steps
     return result
 
 
-def main() -> int:
+def sass_counts(library: pathlib.Path) -> Dict[str, Dict[str, int]]:
+    """Instructions by opcode (SASS_OPS, any suffix) and in all ("all") of
+    each kernel in `library` whose name holds one of SASS_KERNELS, from
+    ``cuobjdump -sass`` (the CUDA toolkit's), by mangled name."""
+    tool = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            current = counts.setdefault(name, dict.fromkeys((*SASS_OPS, "all"), 0)) if any(
+                k in name for k in SASS_KERNELS) else None
+            continue
+        # "        /*0090*/                   @!P0 LDS.64 R4, [R2+0x10] ;"
+        op = SASS_LINE.match(line) if current is not None else None
+        if op:
+            current["all"] += 1
+            for k in SASS_OPS:
+                current[k] += op.group(1) == k or op.group(1).startswith(k + ".")
+    return counts
+
+
+def main(argv=None) -> int:
+    import argparse
+
     from ..parallel.dryrun import device_name
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sass", action="store_true",
+                    help="also print the SASS counts of the merge step's and the copy's kernels in each library")
+    ap.add_argument("--labels", nargs="+", choices=REDESIGNED, default=REDESIGNED, help="the kernels (default: all)")
+    ap.add_argument("--rounds", type=int, default=1, help="time each kernel's turns this many times over")
+    args = ap.parse_args(argv)
     device = torch.device(device_name(None))
     if device.type != "cuda":
         print("probe_designs: needs a CUDA device", file=sys.stderr)
         return 2
     print(f"torch {torch.__version__}, device: {device} ({torch.cuda.get_device_name(device)}; {gpu_line()})")
-    run(device)
+    run(device, labels=args.labels, rounds=args.rounds)
+    if args.sass:
+        for lib in [_build.load().path, *sorted(OUT_DIR.glob("lib_*.so"))]:
+            for name, ops in sass_counts(lib).items():
+                print(f"SASS of {name} in {lib.name}: {ops}")
     return 0
 
 

@@ -80,12 +80,12 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
     return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
 
 
-def merge_step_plain(r: torch.Tensor, a: torch.Tensor, b: torch.Tensor, xor: bool) -> torch.Tensor:
-    """Plain PyTorch merge step (``csrc/probe_r4.cu`` says what it computes),
-    r[0] steps, over the flat 4096 rows."""
+def merge_step_rows(r: torch.Tensor, a: torch.Tensor, b: torch.Tensor, xor: bool):
+    """The plain merge step's rows (k, t, v) after each of its r[0] steps'
+    clean, over the flat 4096 rows (``csrc/probe_r4.cu`` says what a step
+    computes)."""
     fa, fb = a.reshape(-1), b.reshape(-1)
     i = torch.arange(T, device=a.device)
-    acc = torch.zeros(T, dtype=torch.int64, device=a.device)
     h = 0
     for _ in range(int(r[0])):
         wa = fa[(i + h) % BUF]
@@ -106,8 +106,16 @@ def merge_step_plain(r: torch.Tensor, a: torch.Tensor, b: torch.Tensor, xor: boo
                 take = ~((lk < hk) | ((lk == hk) & (lt <= ht)))
             k, t, v = torch.where(take, pk, k), torch.where(take, pt, t), torch.where(take, pv, v)
             d //= 2
-        acc += k.long() + v.long()
+        yield k, t, v
         h = (h + 1789) % BUF
+
+
+def merge_step_plain(r: torch.Tensor, a: torch.Tensor, b: torch.Tensor, xor: bool) -> torch.Tensor:
+    """Plain PyTorch merge step, r[0] steps: k + v summed over the steps,
+    wrapping in int32."""
+    acc = torch.zeros(T, dtype=torch.int64, device=a.device)
+    for k, _, v in merge_step_rows(r, a, b, xor):
+        acc += k.long() + v.long()
     return _wrap32(acc).reshape(TR, LANES)
 
 
@@ -124,11 +132,30 @@ def _step_inputs():
     return np.full((1,), 3, np.int32), a0, a0.copy()
 
 
+# The integer operations of one merge step, counted from the plain version's
+# window and stages with (k, t) as two 32-bit words and v rebuilt from them:
+# the window 3 a row (compare, select k, select t), each of the 12 stages 6
+# a pair of rows (a two-word compare, min and max as 4 selects), the sum 3 a
+# row (select 3 or 5, xor, a three-input add): 4096 x (3 + 12 x 3 + 3) =
+# 172 032.
+STEP_OPS = T * (3 + 12 * 3 + 3)
+# One SM's 32-bit integer rate: 64 lanes a clock at 1.98 GHz, the clock at
+# which the data sheet's 67 TFLOP/s float32 (132 SMs x 128 lanes x 2) holds.
+SM_INT32_OPS_PER_S = 64 * 1.98e9
+STEP_R = int(_step_inputs()[0][0])  # the probe's R
+
+
+def sm_floor_line() -> str:
+    """One SM's floor for a merge step: its operations over one SM's rate."""
+    return (f"one SM's floor {STEP_OPS / SM_INT32_OPS_PER_S * 1e6:.3f} us a step ({STEP_OPS} integer "
+            f"operations at 64 lanes x 1.98 GHz)")
+
+
 KERNELS = [
     Probe("mb_step_rollpair", 177, _step_inputs, lambda r, a, b: merge_step_plain(r, a, b, False), None,
-          (TR, LANES), torch.int32, blocked=True),
+          (TR, LANES), torch.int32, ops=STEP_R * STEP_OPS, blocked=True),
     Probe("mb_step_taa", 177, _step_inputs, lambda r, a, b: merge_step_plain(r, a, b, True), None,
-          (TR, LANES), torch.int32, blocked=True),
+          (TR, LANES), torch.int32, ops=STEP_R * STEP_OPS, blocked=True),
     Probe("i1_to_bf16_astype", 209, lambda: (np.ones((LANES, LANES), np.int32),), mask_matmul_plain,
           lambda x: np.full((LANES, LANES), 128.0, np.float32), (LANES, LANES), torch.bfloat16,
           ops=2 * LANES ** 3),
@@ -177,19 +204,26 @@ def _seconds(fn: Callable[[], object], device: torch.device, calls: int) -> floa
     return start.elapsed_time(end) / 1e3 / calls
 
 
+def us_per_step(call: Callable[[torch.Tensor], object], device: torch.device, steps: Sequence[int]) -> float:
+    """us a step of call(r) from the slope of its time between R = steps[0]
+    and R = steps[1] (r the device scalar R)."""
+
+    def call_seconds(r_steps):
+        r = torch.full((1,), r_steps, dtype=torch.int32, device=device)
+        return _seconds(lambda: call(r), device, STEP_CALLS)
+
+    lo, hi = steps
+    return (call_seconds(hi) - call_seconds(lo)) / (hi - lo) * 1e6
+
+
 def step_rate(probe: Probe, device: torch.device, steps: Sequence[int], blocks: int = 1) -> Dict[str, float]:
     """us_per_step and grows_per_s_per_pass of the merge step (all `blocks`
     blocks together) from the slope between steps[0] and steps[1]."""
     a0 = torch.from_numpy(_step_inputs()[1]).to(device)
-
-    def call_seconds(r_steps):
-        r = torch.full((1,), r_steps, dtype=torch.int32, device=device)
-        fn = (lambda: MP.launch(probe, r, a0, a0, blocks=blocks)) if device.type == "cuda" else (
-            lambda: MP.plain(probe, r, a0, a0))
-        return _seconds(fn, device, STEP_CALLS)
-
-    lo, hi = steps
-    us = (call_seconds(hi) - call_seconds(lo)) / (hi - lo) * 1e6
+    if device.type == "cuda":
+        us = us_per_step(lambda r: MP.launch(probe, r, a0, a0, blocks=blocks), device, steps)
+    else:
+        us = us_per_step(lambda r: MP.plain(probe, r, a0, a0), device, steps)
     return {"us_per_step": us, "grows_per_s_per_pass": blocks * T / us / 1e3}
 
 

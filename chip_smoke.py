@@ -119,24 +119,29 @@ Phases, each printing lines that start with its name:
    enqueued behind a spin kernel, so that the events time the device's work
    alone; a probe's wrapper takes longer on the host than its kernel on the
    device), beside an empty kernel timed the same way, its bound (bytes, or
-   for the two matmuls the tensor-core operations where larger), its plain
+   for the two matmuls the tensor-core operations and for the merge steps
+   the integer operations of their R = 3 steps where larger), its plain
    version (host-bound for the merge steps, which read R on the host) and
    its library call (take_along_dim, roll, cumsum, sort, _int_mm, a slice's
    clone, pad, x + 1, ...; none for the mask product, whose bf16 matmul of a
    mask made beforehand is printed apart), and back to back (the wrapper's
-   rate); the eight redesigned kernels, grid_1d_blockspec,
-   matmul_int8_s32acc, dynamic_slice_vmem_rows, dma_unaligned_row_write,
-   dma_unaligned_row_offset, prefetch_scalar_grid, transpose_32b_128x128
-   and hbm_to_hbm_dma, timed in turns with their other designs
-   (arrow_tpu_torch.tools.probe_designs: the earlier mosaic_probe.cu where
-   build/parent/<commit> holds it, the int8 product's staging alone and its
-   wider tiles, the slice's window-only read, the write's bulk copies, the
-   row-offset copy's bulk copy in, the scalar add in one block, the
-   transpose's 4 x 4 register blocks in blocks of 128 and 256 threads, the
-   copy's bulk copies and its warp a row), each held to its plain version
-   first (the row windows at every s, the scalar add where its sum wraps,
-   the transpose and the copy on a full-range tile), and bitcast_f32_u32 in
-   turns with its clone;
+   rate); the merge steps' us a step beside one SM's floor for a step (its
+   operations over one SM's integer rate); the ten redesigned kernels,
+   grid_1d_blockspec, matmul_int8_s32acc, dynamic_slice_vmem_rows,
+   dma_unaligned_row_write, dma_unaligned_row_offset, prefetch_scalar_grid,
+   transpose_32b_128x128, hbm_to_hbm_dma, bitcast_f32_u32 and the merge step
+   (mb_step_rollpair, mb_step_taa), timed in turns with their other designs
+   (arrow_tpu_torch.tools.probe_designs: the earlier mosaic_probe.cu or
+   probe_r4.cu where build/parent/<commit> holds it, the int8 product's
+   staging alone and its wider tiles, the slice's window-only read, the
+   write's bulk copies, the row-offset copy's bulk copy in, the scalar add
+   in one block, the transpose's 4 x 4 register blocks in blocks of 128 and
+   256 threads, the copy's bulk copies and its warp a row, the merge
+   step's short stages after a second exchange), each held to its plain
+   version first (the row windows at every s, the scalar add where its sum
+   wraps, the transpose, the copy and the bitcast on a full-range tile, the
+   merge steps on tied, full-range and extreme keys at R = 0, 1 and 5); the
+   merge steps also in us a step on one block, in turns;
 10. profile: each query at each size under torch.profiler: device busy time,
    the device time in fills and in copies, the device's idle share of the
    query's wall time (also without the idle time spent in the profiler's
@@ -1200,8 +1205,8 @@ class Measured:
     """A kernel's calls, summed: max abs error against the plain version,
     kernel, plain and library times (library None once a call has no
     library equivalent) and the bound (bytes over HBM_BYTES_PER_S, or for
-    the probes' matmuls operations over the tensor cores' rate where that is
-    larger: bound_by)."""
+    the probes' matmuls and merge steps operations over OPS_PER_S where
+    that is larger: bound_by)."""
 
     err: float = 0.0
     ms: float = 0.0
@@ -2790,9 +2795,14 @@ def phase_profile(smi):
 
 
 # the probe tools: probe_r4's rows (its default, the JAX tool's 2^27), and
-# the tensor-core rates of the two matmul probes' operations (data sheet)
+# the rates of the probes' operations: the tensor cores' for the two matmul
+# probes (data sheet), and for the merge steps the card's 32-bit integer
+# rate, 132 SMs x 64 lanes a clock at 1.98 GHz (the clock at which the data
+# sheet's 67 TFLOP/s float32, 132 SMs x 128 lanes x 2, holds)
 PROBE_R4_ROWS = 1 << 27
-TENSOR_OPS_PER_S = {"matmul_int8_s32acc": 1979e12, "i1_to_bf16_astype": 989e12}
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_PER_S = {"matmul_int8_s32acc": 1979e12, "i1_to_bf16_astype": 989e12,
+             "mb_step_rollpair": INT32_OPS_PER_S, "mb_step_taa": INT32_OPS_PER_S}
 PROBE_R4_OUT = HERE / "build" / "arrow_tpu_torch" / "TORCH_PROBE_R4.json"
 
 
@@ -2854,6 +2864,9 @@ def phase_probes(smi):
         require(report[name]["us_per_step"] > 0 and report[name]["card"]["us_per_step"] > 0,
                 f"probe_r4: {name}: {report[name]}")
     print(f"probes: probe_r4 at {PROBE_R4_ROWS} rows ({smi}): {json.dumps(report)}")
+    for name in PR.MERGE_STEPS:
+        print(f"probes: {name}: {report[name]['us_per_step']:.3f} us a step on one block, "
+              f"{report[name]['card']['us_per_step']:.3f} with one block an SM; {PR.sm_floor_line()} ({smi})")
     probes = [*MP.PROBES, *PR.KERNELS]
     unlaunched = [p.label for p in probes if not launches.get(p.label)]
     require(not unlaunched, f"probe kernels not launched by the tools: {unlaunched}")
@@ -2892,7 +2905,7 @@ def phase_probes(smi):
             reference = (f"; not its function: the bf16 matmul of the mask made beforehand "
                          f"{queued_ms(lambda: torch.matmul(mask, ones), 'the mask matmul'):.5f} ms queued")
         bytes_ms = probe_bytes(p.label, args, got) / HBM_BYTES_PER_S * 1e3
-        ops_ms = p.ops / TENSOR_OPS_PER_S[p.label] * 1e3 if p.ops else 0.0
+        ops_ms = p.ops / OPS_PER_S[p.label] * 1e3 if p.ops else 0.0
         m = Measured(err, ms, plain_ms, library_ms, max(bytes_ms, ops_ms),
                      "bytes" if bytes_ms >= ops_ms else "operations")
         measured[p.label] = m

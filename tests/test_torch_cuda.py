@@ -1007,6 +1007,20 @@ def test_probe_kernel_matches_plain(cuda, label):
         np.testing.assert_array_equal(MP.as_numpy(got), probe.oracle(*probe.inputs()))
 
 
+# float32 bit patterns the bitcast must keep: NaNs with payloads (quiet and
+# signalling, both signs), +-0, +-inf, subnormals at both ends, +-1
+FLOAT_SPECIALS = np.array([0x7FC00001, 0x7F800001, 0xFFC12345, 0xFFBFFFFF, 0x00000000, 0x80000000, 0x7F800000,
+                           0xFF800000, 0x00000001, 0x807FFFFF, 0x3F800000, 0xBF800000], np.uint32).view(np.int32)
+
+
+def _bitcast_tile(rng):
+    """An (8, 128) float32 tile of full-range bit patterns with every one
+    of FLOAT_SPECIALS in it."""
+    bits = rng.integers(-2 ** 31, 2 ** 31, (8, 128)).astype(np.int32)
+    bits.reshape(-1)[rng.permutation(bits.size)[:len(FLOAT_SPECIALS)]] = FLOAT_SPECIALS
+    return bits.view(np.float32)
+
+
 def _random_inputs(label, rng):
     """Inputs of the probe's shapes drawn at random: full-range values, ties,
     negative and zero entries."""
@@ -1014,6 +1028,7 @@ def _random_inputs(label, rng):
     if label in ("mb_step_rollpair", "mb_step_taa"):  # keys with many ties
         return np.full((1,), 5, np.int32), i32(0, 100, (64, 128)), i32(0, 100, (64, 128))
     return {
+        "bitcast_f32_u32": lambda: (_bitcast_tile(rng),),
         "lax_sort_in_kernel": lambda: (i32(-2 ** 31, 2 ** 31, (8, 128)),),
         "matmul_int8_s32acc": lambda: (i32(-128, 128, (128, 128)).astype(np.int8),
                                        i32(-128, 128, (128, 128)).astype(np.int8)),
@@ -1039,16 +1054,40 @@ RANDOM_LABELS = ["mb_step_rollpair", "mb_step_taa", "lax_sort_in_kernel", "matmu
                  "i1_to_bf16_astype", "u32_shifts_popcount", "cumsum_sublanes_f32", "cumsum_lanes_i32",
                  "gather_lanes_taa_8x128_i32", "gather_lanes_256wide_2gathers", "gather_sublanes_taa_axis0",
                  "pltpu_roll_dynamic", "cmp_to_bf16_vector", "transpose_32b_128x128", "dynamic_slice_vmem_rows",
-                 "dma_unaligned_row_write", "dma_unaligned_row_offset", "prefetch_scalar_grid", "hbm_to_hbm_dma"]
+                 "dma_unaligned_row_write", "dma_unaligned_row_offset", "prefetch_scalar_grid", "hbm_to_hbm_dma",
+                 "bitcast_f32_u32"]
 
 
 @pytest.mark.parametrize("label", RANDOM_LABELS)
 def test_probe_kernel_matches_plain_on_random_inputs(cuda, label):
     probe = _probe(label)
-    args = [torch.from_numpy(a).to(cuda) for a in _random_inputs(label, np.random.default_rng(13))]
+    host = _random_inputs(label, np.random.default_rng(13))
+    args = [torch.from_numpy(a).to(cuda) for a in host]
     got = MP.launch(probe, *args)
     want = MP.plain(probe, *args)
     assert torch.equal(got, want)
+    if label == "bitcast_f32_u32":  # every bit, against the host's
+        tile = host[0].view(np.int32)
+        assert set(FLOAT_SPECIALS) <= set(tile.reshape(-1).tolist())
+        np.testing.assert_array_equal(got.cpu().numpy(), tile)
+
+
+@pytest.mark.parametrize("keys", ["full range", "ends"])
+@pytest.mark.parametrize("name", PR.MERGE_STEPS)
+def test_merge_step_matches_plain_on_full_range_keys(cuda, name, keys):
+    """Beside the ties case: full-range random keys, and all INT_MIN against
+    all INT_MAX, at R = 5, one block and one block an SM."""
+    probe = PR.BY_NAME[name]
+    rng = np.random.default_rng(18)
+    if keys == "full range":
+        a, b = (rng.integers(-2 ** 31, 2 ** 31, (64, 128)).astype(np.int32) for _ in "ab")
+    else:
+        a, b = np.full((64, 128), -2 ** 31, np.int32), np.full((64, 128), 2 ** 31 - 1, np.int32)
+    args = [torch.from_numpy(x).to(cuda) for x in (np.full((1,), 5, np.int32), a, b)]
+    want = MP.plain(probe, *args)
+    assert torch.equal(MP.launch(probe, *args), want)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert torch.equal(MP.launch(probe, *args, blocks=sms), want.expand(sms, *want.shape))
 
 
 # the int8 product's cases: the identity on either side (a descriptor or
@@ -1151,16 +1190,20 @@ def test_dma_unaligned_row_write_is_one_launch_with_no_fill(cuda, tmp_path):
 ONE_KERNEL = {"dma_unaligned_row_offset": ("slice_every_row", [8, 1, 1], [256, 1, 1]),
               "prefetch_scalar_grid": ("add_scalar_tiles", [2, 1, 1], [256, 1, 1]),
               "transpose_32b_128x128": ("transpose_tile", [4, 4, 1], [256, 1, 1]),
-              "hbm_to_hbm_dma": ("copy_rows_direct", [1, 1, 1], [256, 1, 1])}
+              "hbm_to_hbm_dma": ("copy_rows_direct", [1, 1, 1], [256, 1, 1]),
+              "bitcast_f32_u32": ("copy_rows_direct", [1, 1, 1], [256, 1, 1]),
+              "mb_step_rollpair": ("merge_step", [1, 1, 1], [256, 1, 1]),
+              "mb_step_taa": ("merge_step", [1, 1, 1], [256, 1, 1])}
 
 
 @pytest.mark.parametrize("label", ONE_KERNEL)
 def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
-    """One call of the row-offset copy, the scalar add, the transpose or the
-    HBM-to-HBM copy is one counted launch and exactly one kernel on the
-    card, with its name, grid and block (no fill, no wrapper-side copy, no
-    host read of s), equal to the plain version."""
-    probe = MP.BY_LABEL[label]
+    """One call of the row-offset copy, the scalar add, the transpose, the
+    HBM-to-HBM copy, the bitcast or a merge step is one counted launch and
+    exactly one kernel on the card, with its name, grid and block (no fill,
+    no wrapper-side copy, no host read of s or R), equal to the plain
+    version."""
+    probe = _probe(label)
     args = MP.inputs_on(probe, cuda)
     MP.launch(probe, *args)
     torch.cuda.synchronize()

@@ -331,6 +331,77 @@ def test_r4_merge_step_forms_differ(jax_r4):
     assert not torch.equal(MP.run(PR.BY_NAME["mb_step_rollpair"], *t), MP.run(PR.BY_NAME["mb_step_taa"], *t))
 
 
+# the merge step's inputs beyond the probe's: full-range random keys
+def _random_step_inputs():
+    rng = np.random.default_rng(180)
+    return [torch.full((1,), R4_STEPS, dtype=torch.int32)] + [
+        torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (PR.BUF // PR.LANES, PR.LANES), np.int32)) for _ in "ab"]
+
+
+@pytest.mark.parametrize("inputs", ["probe", "random"])
+@pytest.mark.parametrize("name", PR.MERGE_STEPS)
+def test_r4_merge_step_invariants(name, inputs):
+    """The two invariants the kernel's packed key relies on, after each
+    step's clean at R = 3: the tags are unique (so every (k, t) is, and both
+    forms' rules are a plain min/max), and v is k ^ 3 where t < 4096 (A's
+    value) and k ^ 5 elsewhere (B's)."""
+    args = MP.inputs_on(PR.BY_NAME[name], "cpu") if inputs == "probe" else _random_step_inputs()
+    steps = list(PR.merge_step_rows(*args, name == "mb_step_taa"))
+    assert len(steps) == R4_STEPS
+    for k, t, v in steps:
+        # each row index i once, as A's tag i or B's 8191 - i
+        assert torch.equal(torch.sort(torch.where(t < PR.T, t, 2 * PR.T - 1 - t)).values, torch.arange(PR.T))
+        assert len(torch.unique(t)) == PR.T and len(torch.unique(k.long() << 13 | t)) == PR.T
+        assert torch.equal(v, k ^ torch.where(t < PR.T, 3, 5).int())
+
+
+def _packed_step(r, a, b, xor):
+    """The merge step on one biased 64-bit key a row, ((k + 2^31) << 13) | t,
+    as the kernel cleans it: min/max a stage, the lesser key on the lower
+    row (bit d of the row index clear) except at the XOR form's distances
+    under 128, where it goes up; k and v rebuilt at the end."""
+    fa, fb = a.reshape(-1).long(), b.reshape(-1).long()
+    i = torch.arange(PR.T)
+    acc = torch.zeros(PR.T, dtype=torch.int64)
+    h = 0
+    for _ in range(int(r[0])):
+        wa, rb = fa[(i + h) % PR.BUF], fb[(PR.T - 1 - i + h + 7) % PR.BUF]
+        key = (torch.minimum(wa, rb) + 2 ** 31) << 13 | torch.where(wa <= rb, i, 2 * PR.T - 1 - i)
+        d = PR.T // 2
+        while d:
+            p, lower = key[i ^ d], (i & d) == 0
+            key = torch.where(lower != (xor and d < PR.LANES), torch.minimum(key, p), torch.maximum(key, p))
+            d //= 2
+        k = (key >> 13) - 2 ** 31
+        acc += k + (k ^ torch.where(key & PR.T != 0, 5, 3))
+        h = (h + 1789) % PR.BUF
+    return ((acc + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32).reshape(PR.TR, PR.LANES)
+
+
+@pytest.mark.parametrize("name", PR.MERGE_STEPS)
+def test_r4_packed_key_step_matches_plain(name):
+    """The packed-key formulation equals the plain version on every input
+    probe_designs holds the kernel's designs on: the probe's, keys in
+    [0, 100) with many ties, full-range keys and all INT_MIN against all
+    INT_MAX, at R = 0, 1 and 5."""
+    from arrow_tpu_torch.tools import probe_designs as PD
+
+    probe = PR.BY_NAME[name]
+    cases = list(PD.held_inputs(probe, "cpu"))
+    assert [int(c[0]) for c in cases] == [R4_STEPS] + list(PD.STEP_HELD_R) * 3
+    for args in cases:
+        assert torch.equal(_packed_step(*args, name == "mb_step_taa"), MP.plain(probe, *args))
+
+
+@pytest.mark.parametrize("index,name", [(0, "mb_step_rollpair"), (1, "mb_step_taa")])
+def test_r4_packed_key_step_matches_jax(jax_r4, index, name):
+    """The packed-key formulation gives the JAX kernel's output on its
+    inputs (R = 3)."""
+    jax_args, jax_out = jax_r4[0][index]
+    got = _packed_step(*[torch.from_numpy(np.array(a)) for a in jax_args], name == "mb_step_taa")
+    np.testing.assert_array_equal(got.numpy(), jax_out)
+
+
 def test_r4_jax_report(jax_r4):
     """The JAX main() ran to its end: every step recorded, the mask matmul
     ok, and only the CPU's missing ragged all-to-all failed."""
