@@ -25,8 +25,8 @@
 //   since their redesigns (below); their bulk-copy designs stay behind
 //   kOffsetBulk, kWriteBulk and kHbmBulk.
 //
-// Nine kernels here (and probe_r4.cu's merge step, the tenth) are laid out
-// for the card rather than for the TPU's tiles, so that every global load is
+// Ten kernels here (and probe_r4.cu's merge step and mask matmul) are laid
+// out for the card rather than for the TPU's tiles, so that every global load is
 // in flight at once and nothing waits on a round trip that an earlier one
 // could have covered:
 //
@@ -110,6 +110,19 @@
 //   store a thread.  The earlier design, 4 blocks of 4-byte loads and stores
 //   through plain pointers, took 1.044x as long on an H100, and 8 blocks of
 //   one warp 1.055x, in ten rounds of turns (tools/probe_designs.py).
+// - cumsum_sublanes_f32 (the probe through simple_call, :61: the running sum
+//   down the 64 rows of a (64, 128) float32 tile).  Bound by bytes: 64 KB
+//   read and written, 0.020 us.  Its contract is the plain version's order:
+//   each column adds row after row, bit for bit, so no tree scan, no carries
+//   between row segments and no wider sum.  4 blocks of 32 threads, a thread
+//   a column: its 64 loads (a warp's 128 contiguous bytes each) all issued
+//   before the first add, then the 63 adds, then the stores.  The earlier
+//   design (one block of 128 threads, plain pointers and a run-time row
+//   count) made 64 dependent load-add-store rounds: 4.8-4.9x as long on an
+//   H100, in turns.  The tile through shared memory (kCumsumStaged true:
+//   16-byte loads, one barrier, the adds in place, 16-byte stores) took
+//   1.13-1.20x as long, and one block of 128 threads (kCumsumThreads 128)
+//   1.08-1.14x (tools/probe_designs.py).
 //
 // One C entry a probe, arrow_probe_<label>(inputs..., out, stream), in the
 // order of the JAX probe's pallas_call arguments (the device scalar first
@@ -555,13 +568,60 @@ __global__ void cumsum_lanes(const int32_t* a, int32_t* out, int rows) {
   }
 }
 
-// cumsum down the rows: a thread a column, adding row after row in order
-__global__ void cumsum_rows(const float* a, float* out, int rows) {
-  const int c = threadIdx.x;
-  float acc = 0.0f;
-  for (int r = 0; r < rows; ++r) {
-    acc += a[r * kLanes + c];
-    out[r * kLanes + c] = acc;
+// cumsum_sublanes_f32's designs: a thread a column in registers, or the tile
+// through shared memory (kCumsumStaged); kCumsumThreads columns a block
+constexpr bool kCumsumStaged = false;
+constexpr int kCumsumThreads = 32;
+constexpr int kCumsumRows = 64;
+constexpr int kCumsumWords = kCumsumThreads / 4;  // 16-byte words of a block's columns in a row
+
+// cumsum down the rows, a thread a column: all 64 loads first (restrict
+// pointers, a compile-time row count, registers), then the adds in row
+// order, then the stores.  One block an SM in the launch bounds lets ptxas
+// keep the 64 values live (72 registers): under the default bound it held
+// 64 and issued the last 10 loads after the first add, a second round trip.
+__global__ void __launch_bounds__(kCumsumThreads, 1)
+    cumsum_rows(const float* __restrict__ a, float* __restrict__ out) {
+  const int c = blockIdx.x * kCumsumThreads + threadIdx.x;
+  float v[kCumsumRows];
+#pragma unroll
+  for (int r = 0; r < kCumsumRows; ++r) v[r] = __ldg(a + r * kLanes + c);
+#pragma unroll
+  for (int r = 1; r < kCumsumRows; ++r) v[r] += v[r - 1];
+#pragma unroll
+  for (int r = 0; r < kCumsumRows; ++r) out[r * kLanes + c] = v[r];
+}
+
+// The same through the block's (64, kCumsumThreads) tile in shared memory:
+// 16-byte loads in, one barrier, a thread a column adding in row order in
+// place, one barrier, 16-byte stores out.
+__global__ void __launch_bounds__(kCumsumThreads)
+    cumsum_rows_staged(const float4* __restrict__ a, float4* __restrict__ out) {
+  constexpr int kLoads = kCumsumRows * kCumsumWords / kCumsumThreads;
+  __shared__ float4 tile[kCumsumRows * kCumsumWords];
+  const int t = threadIdx.x;
+  const int col = blockIdx.x * kCumsumWords;  // the block's first 16-byte word of a row
+  float4 v[kLoads];
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int i = j * kCumsumThreads + t;
+    v[j] = __ldg(a + (i / kCumsumWords) * kRowWords + col + i % kCumsumWords);
+  }
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) tile[j * kCumsumThreads + t] = v[j];
+  __syncthreads();
+  float* column = reinterpret_cast<float*>(tile) + t;
+  float acc = column[0];
+#pragma unroll
+  for (int r = 1; r < kCumsumRows; ++r) {
+    acc += column[r * kCumsumThreads];
+    column[r * kCumsumThreads] = acc;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int i = j * kCumsumThreads + t;
+    out[(i / kCumsumWords) * kRowWords + col + i % kCumsumWords] = tile[i];
   }
 }
 
@@ -891,7 +951,11 @@ int arrow_probe_cumsum_lanes_i32(const void* a, void* out, void* stream) {
 }
 
 int arrow_probe_cumsum_sublanes_f32(const void* a, void* out, void* stream) {
-  cumsum_rows<<<1, kLanes, 0, STREAM>>>(in<float>(a), out_<float>(out), 64);
+  if (kCumsumStaged) {
+    cumsum_rows_staged<<<kLanes / kCumsumThreads, kCumsumThreads, 0, STREAM>>>(in<float4>(a), out_<float4>(out));
+  } else {
+    cumsum_rows<<<kLanes / kCumsumThreads, kCumsumThreads, 0, STREAM>>>(in<float>(a), out_<float>(out));
+  }
   return done();
 }
 

@@ -48,10 +48,18 @@
 //   JAX kernel's one core; the wrapper can launch one block an SM, each on
 //   the same data, for the card's rate.
 // - mask_matmul (probe_r4.py:209, conv_kern): (x > 0) on a (128, 128) int32
-//   tile as bf16 A fragments built in registers, times ones(128, 128) bf16,
-//   by mma.sync m16n8k16 with f32 accumulators, rounded to bf16.  The TPU's
-//   compiler refused a bf16 accumulator; f32 accumulators are the card's
-//   answer, and the counts (at most 128) are exact in both.
+//   tile as bf16, times ones(128, 128) bf16, by mma.sync m16n8k16 with f32
+//   accumulators, rounded to bf16.  The TPU's compiler refused a bf16
+//   accumulator; f32 accumulators are the card's answer, and the counts (at
+//   most 128) are exact in both.  Bound by bytes: 96 KB, 0.029 us (the
+//   operations take 0.004 us).  8 blocks of 8 warps, a block a 16-row band:
+//   each thread makes its two 16-byte loads of the band at once, compares
+//   them into bf16 pairs in shared memory, and after one barrier each warp
+//   takes A by ldmatrix and multiplies for its 16 output columns; the bf16
+//   outputs go through shared memory to 16-byte stores.  The earlier design
+//   (one block, A built from 4-byte loads inside the k loop, 2-byte stores)
+//   took 3.4-3.6x as long on an H100, in turns; the staging alone (the
+//   product cut out) 0.87-0.90x (tools/probe_designs.py).
 //
 // One C entry a kernel, in the order of the JAX kernel's arguments (the
 // device scalar R first); each returns cudaGetLastError().  The wrappers are
@@ -211,42 +219,92 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   }
 }
 
-// (x > 0) as bf16 @ ones(128, 128) bf16 -> bf16: warp w computes rows
-// [16w, 16w + 16) as 16 m16n8 tiles over 8 k16 steps.  A's fragments are
-// built from x in registers (bf16 1.0 is 0x3F80); B is all ones, so its
-// fragment is two registers of 1.0 pairs.
-__global__ void mask_matmul(const int32_t* x, uint16_t* out) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
-  const int m0 = (threadIdx.x >> 5) * 16;
-  auto pair = [&](int row, int col) {
-    const int32_t* p = x + row * kLanes + col;
-    return (p[0] > 0 ? 0x3F80u : 0u) | ((p[1] > 0 ? 0x3F80u : 0u) << 16);
-  };
-  constexpr uint32_t kOnes = 0x3F803F80u;
-  float c[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.0f;
+// The mask matmul: a block a 16-row band of x, each of its warps on
+// kMaskCols output columns.  A band row in shared memory is 128 bf16 and 16
+// bytes of pad, so that the 8 rows of an ldmatrix phase (and the 8 row
+// groups of the accumulators' stores) fall in 8 distinct 16-byte bank groups.
+constexpr int kMaskWarps = 8;
+constexpr int kMaskThreads = 32 * kMaskWarps;
+constexpr int kBandRows = 16;                           // rows a block: one m16 tile
+constexpr int kMaskCols = kLanes / kMaskWarps;          // output columns a warp
+constexpr int kBandPitch = kLanes * 2 + 16;             // bytes of a band row in shared memory
+constexpr int kXRowWords = kLanes / 4;                 // 16-byte words of an int32 row of x
+constexpr int kBandWords = kBandRows * kXRowWords;     // 16-byte words of x's band
+constexpr uint32_t kBf16One = 0x3F80u;
+
+// bf16 (a > 0, b > 0) as a pair, a in the low half
+__device__ __forceinline__ uint32_t mask_pair(int32_t a, int32_t b) {
+  return (a > 0 ? kBf16One : 0u) | (b > 0 ? kBf16One << 16 : 0u);
+}
+
+// c += the band (bf16 in shared memory at `band`) @ ones over the 8 k16
+// steps, for the warp's kMaskCols columns: A's fragments by ldmatrix (lane l
+// gives row l & 15 at column k0 + 8 (l >> 4), so that its four 8 x 8
+// matrices are a0-a3 of m16n8k16), B's the constant 1.0 pairs.  With B all
+// ones the warp's n8 tiles have equal inputs, and the compiler keeps one
+// chain of 8 HMMA for them (as it kept one of the earlier design's 16).
+__device__ __forceinline__ void mask_product(float (&c)[kMaskCols / 8][4], uint32_t band, int lane) {
+  constexpr uint32_t kOnes = kBf16One << 16 | kBf16One;
+  const uint32_t row = band + (lane & 15) * kBandPitch + (lane >> 4) * 16;
 #pragma unroll
   for (int k0 = 0; k0 < kLanes; k0 += 16) {
-    const uint32_t a0 = pair(m0 + g, k0 + tg * 2), a1 = pair(m0 + g + 8, k0 + tg * 2);
-    const uint32_t a2 = pair(m0 + g, k0 + 8 + tg * 2), a3 = pair(m0 + g + 8, k0 + 8 + tg * 2);
+    uint32_t a0, a1, a2, a3;
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
+                 : "r"(row + k0 * 2)
+                 : "memory");
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+    for (int n = 0; n < kMaskCols / 8; ++n) {
+      asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
           "{%0, %1, %2, %3};"
           : "+f"(c[n][0]), "+f"(c[n][1]), "+f"(c[n][2]), "+f"(c[n][3])
           : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(kOnes), "r"(kOnes));
     }
   }
-  auto bf16 = [](float f) { return static_cast<uint16_t>(__bfloat16_as_ushort(__float2bfloat16_rn(f))); };
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
+}
+
+// (x > 0) as bf16 @ ones(128, 128) bf16 -> bf16, f32 accumulators (counts
+// of at most 128, exact): each thread loads its 16-byte words of the band
+// at once, compares and stores them as bf16 pairs; after one barrier each
+// warp multiplies on the tensor cores (mask_product) and puts its bf16
+// outputs in a second band; after another, 16-byte stores.
+__global__ void __launch_bounds__(kMaskThreads) mask_matmul(const int4* __restrict__ x, int4* __restrict__ out) {
+  constexpr int kLoads = kBandWords / kMaskThreads;
+  __shared__ alignas(16) unsigned char band[kBandRows * kBandPitch];
+  __shared__ alignas(16) unsigned char result[kBandRows * kBandPitch];
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, tg = lane & 3;
+  const int4* xb = x + blockIdx.x * kBandWords;
+  int4 v[kLoads];
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
-    const int col = n * 8 + tg * 2;
-    out[(m0 + g) * kLanes + col] = bf16(c[n][0]);
-    out[(m0 + g) * kLanes + col + 1] = bf16(c[n][1]);
-    out[(m0 + g + 8) * kLanes + col] = bf16(c[n][2]);
-    out[(m0 + g + 8) * kLanes + col + 1] = bf16(c[n][3]);
+  for (int j = 0; j < kLoads; ++j) v[j] = __ldg(xb + j * kMaskThreads + tid);
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int i = j * kMaskThreads + tid;  // row i / 32, columns from 4 (i % 32)
+    *reinterpret_cast<uint2*>(band + (i / kXRowWords) * kBandPitch + (i % kXRowWords) * 8) =
+        make_uint2(mask_pair(v[j].x, v[j].y), mask_pair(v[j].z, v[j].w));
+  }
+  __syncthreads();
+  float c[kMaskCols / 8][4] = {};
+  const uint32_t sa = static_cast<uint32_t>(__cvta_generic_to_shared(band));
+  mask_product(c, sa, lane);
+  const int col0 = (tid >> 5) * kMaskCols + tg * 2;
+#pragma unroll
+  for (int n = 0; n < kMaskCols / 8; ++n) {
+    unsigned char* at = result + (col0 + n * 8) * 2;
+    *reinterpret_cast<uint32_t*>(at + g * kBandPitch) = bf16_pair(c[n][0], c[n][1]);
+    *reinterpret_cast<uint32_t*>(at + (g + 8) * kBandPitch) = bf16_pair(c[n][2], c[n][3]);
+  }
+  __syncthreads();
+  constexpr int kOutWords = kBandRows * kLanes * 2 / 16;  // 16-byte words of the band's output
+#pragma unroll
+  for (int j = 0; j < kOutWords / kMaskThreads; ++j) {
+    const int i = j * kMaskThreads + tid;
+    out[blockIdx.x * kOutWords + i] = *reinterpret_cast<const int4*>(result + (i / 16) * kBandPitch + (i % 16) * 16);
   }
 }
 
@@ -276,8 +334,8 @@ int arrow_probe_mb_step_taa(const void* r, const void* a, const void* b, void* o
 }
 
 int arrow_probe_i1_to_bf16_astype(const void* x, void* out, void* stream) {
-  mask_matmul<<<1, 8 * 32, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<const int32_t*>(x),
-                                                                   static_cast<uint16_t*>(out));
+  mask_matmul<<<kLanes / kBandRows, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(x), static_cast<int4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,10 +5,11 @@ turns on one card.
 
 ``grid_1d_blockspec``, ``matmul_int8_s32acc``, ``dynamic_slice_vmem_rows``,
 ``dma_unaligned_row_write``, ``dma_unaligned_row_offset``,
-``prefetch_scalar_grid``, ``transpose_32b_128x128``, ``hbm_to_hbm_dma`` and
-``bitcast_f32_u32`` (``csrc/mosaic_probe.cu``), and the merge step in its
-two forms, ``mb_step_rollpair`` and ``mb_step_taa`` (``csrc/probe_r4.cu``),
-are laid out for the card.  Each other design is a variant of the kernel's
+``prefetch_scalar_grid``, ``transpose_32b_128x128``, ``hbm_to_hbm_dma``,
+``bitcast_f32_u32`` and ``cumsum_sublanes_f32`` (``csrc/mosaic_probe.cu``),
+and the merge step in its two forms, ``mb_step_rollpair`` and
+``mb_step_taa``, and the mask matmul ``i1_to_bf16_astype``
+(``csrc/probe_r4.cu``), are laid out for the card.  Each other design is a variant of the kernel's
 source, built into a library of its own under
 ``build/arrow_tpu_torch/designs/`` (the port's nvcc flags, one process a
 design, all started together):
@@ -21,6 +22,11 @@ design, all started together):
   fill is part of its call and of its time;
 - ``staging``: the int8 product with its wgmma call cut out, whose output is
   then the zeroed accumulators: the staging and the stores alone;
+  ``mask_staging``: the mask matmul with its product (ldmatrix and mma.sync)
+  cut out the same way (an empty asm that takes the band's address stands
+  in, so that the band's stores are kept): the loads, the compares and the
+  stores alone, the floor of its function on the card (it has no library
+  call);
 - ``tile64``, ``tile128``: the int8 product in output tiles of 64 x 64 and
   64 x 128 (4 and 2 blocks) in place of 64 x 32 (8 blocks);
 - ``window``: the row slice reading s first and then only the window's 8
@@ -43,7 +49,11 @@ design, all started together):
   of one block of 256 threads;
 - ``exchange``: the merge step cleaning its stages of distance 8-1 in
   registers after a second exchange through shared memory, in place of
-  between lanes by ``__shfl_xor_sync``.
+  between lanes by ``__shfl_xor_sync``;
+- ``cumsum_staged``: the column cumsum through a tile in shared memory
+  (16-byte loads, a barrier, the adds in place, 16-byte stores), in place of
+  a thread's 64 rows in registers; ``cumsum_block``: the register design in
+  one block of 128 threads, in place of 4 blocks of 32.
 
 Every design but ``staging`` is first held to the plain version on the
 probe's inputs, a row window's at every legal s on random rows, the
@@ -51,12 +61,16 @@ scalar add's on full-range rows and scalars, where the sum wraps, the
 transpose's, the copy's and the bitcast's on a full-range random tile, and
 the merge step's (one block) on keys in [0, 100) with many ties, on
 full-range keys and on all INT_MIN against all INT_MAX, each at R = 0, 1
-and 5.  Then each kernel is timed in turns: plain, new, library, new, a
+and 5, the column cumsum's bit for bit on an order-sensitive tile
+(:func:`ordered_tile`) and on normals, and the mask matmul's on every row
+count from 0 to 128 (:func:`count_tiles`).  Then each kernel is timed in turns: plain, new, library, new, a
 design, new, the next design, new, ...; device ms a call, queued behind a
 spin kernel (:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`),
 beside an empty kernel's; the library call is
 :func:`mosaic_probe.library_call`'s (``x + 1``, ``torch._int_mm``, a slice's
-``clone``, ``F.pad``, ``x + s``, ``t().contiguous()``).  The merge step has
+``clone``, ``F.pad``, ``x + s``, ``t().contiguous()``, ``torch.cumsum``); a
+kernel without one (the mask matmul) is timed plain, new, a design, new,
+....  The merge step has
 no library call, and its plain version reads R on the host, so it is timed
 new, a design, new, ...: the probe's call at R = 3, and us a step on one
 block from the slope between two R (:func:`probe_r4.us_per_step`), beside
@@ -94,7 +108,8 @@ BEFORE = {"grid_1d_blockspec": "9d785cc", "matmul_int8_s32acc": "9d785cc",
           "dynamic_slice_vmem_rows": "70dca0e", "dma_unaligned_row_write": "70dca0e",
           "dma_unaligned_row_offset": "829306e", "prefetch_scalar_grid": "829306e",
           "transpose_32b_128x128": "9f34100", "hbm_to_hbm_dma": "9f34100",
-          "bitcast_f32_u32": "aeb9ac2", "mb_step_rollpair": "aeb9ac2", "mb_step_taa": "aeb9ac2"}
+          "bitcast_f32_u32": "aeb9ac2", "mb_step_rollpair": "aeb9ac2", "mb_step_taa": "aeb9ac2",
+          "cumsum_sublanes_f32": "9e5ff2a", "i1_to_bf16_astype": "9e5ff2a"}
 REDESIGNED = tuple(BEFORE)
 FILLED_BEFORE = ("dma_unaligned_row_write",)  # earlier designs that wrote into an output zeroed by the wrapper
 # a window at device row s in [0, 56]
@@ -116,8 +131,16 @@ TRANSPOSE_THREADS = "constexpr int kTransposeThreads = 128;"
 HBM_BULK = "constexpr bool kHbmBulk = false;"
 HBM_THREADS = "constexpr int kHbmThreads = 256;"
 STEP_SHUFFLE = "constexpr bool kStepShuffle = true;"
-SASS_KERNELS = ("merge_step", "copy_rows_direct", "bitcast_f32")  # the kernels whose SASS --sass counts
-SASS_OPS = ("BAR.SYNC", "LDS", "STS", "SHFL", "LDG", "STG", "ISETP", "SEL")
+CUMSUM_STAGED = "constexpr bool kCumsumStaged = false;"
+CUMSUM_THREADS = "constexpr int kCumsumThreads = 32;"
+MASK_PRODUCT_CALL = "  mask_product(c, sa, lane);\n"
+# in its place in mask_staging: the band's address escapes, so its stores (and the loads and compares) stay
+MASK_STAGING_STANDIN = '  asm volatile("" : : "r"(sa) : "memory");\n'
+STAGING = ("staging", "mask_staging")  # designs with a part cut out: timed, not held to the plain version
+# the kernels whose SASS --sass counts; "late LDG" counts a kernel's LDGs after its first FADD or HMMA
+SASS_KERNELS = ("merge_step", "copy_rows_direct", "bitcast_f32", "cumsum_rows", "mask_matmul")
+SASS_OPS = ("BAR.SYNC", "LDS", "STS", "SHFL", "LDG", "STG", "ISETP", "SEL", "FADD", "HMMA")
+LATE_AFTER = ("FADD", "HMMA")
 SASS_LINE = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")  # an instruction's opcode
 # the designs that each kernel is timed against, in their turn's order
 TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "staging", "tile64", "tile128"),
@@ -125,7 +148,9 @@ TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "s
          "dma_unaligned_row_offset": ("earlier", "bulk_in"), "prefetch_scalar_grid": ("earlier", "one_block"),
          "transpose_32b_128x128": ("earlier", "quads", "quads256"),
          "hbm_to_hbm_dma": ("earlier", "staged", "warp_rows"), "bitcast_f32_u32": ("earlier", "warp_rows"),
-         "mb_step_rollpair": ("earlier", "exchange"), "mb_step_taa": ("earlier", "exchange")}
+         "mb_step_rollpair": ("earlier", "exchange"), "mb_step_taa": ("earlier", "exchange"),
+         "cumsum_sublanes_f32": ("earlier", "cumsum_staged", "cumsum_block"),
+         "i1_to_bf16_astype": ("earlier", "mask_staging")}
 
 
 def wgmma_wrapper(n: int) -> str:
@@ -182,7 +207,7 @@ def library_name(label: str, design: str) -> str:
 def design_sources() -> Dict[str, str]:
     """Each design's source, by library name (the earlier ones where the
     checkout holds them)."""
-    text = SOURCE.read_text()
+    text, r4 = SOURCE.read_text(), R4_SOURCE.read_text()
     quads = _once(text, TRANSPOSE_SHARED, TRANSPOSE_SHARED.replace("true", "false"))
     designs = {"staging": _once(text, PRODUCT_CALL, ""), "tile64": _tile(text, 64), "tile128": _tile(text, 128),
                "window": _once(text, SLICE_EVERY_ROW, SLICE_EVERY_ROW.replace("true", "false")),
@@ -193,7 +218,10 @@ def design_sources() -> Dict[str, str]:
                "quads256": _once(quads, TRANSPOSE_THREADS, TRANSPOSE_THREADS.replace("128", "256")),
                "staged": _once(text, HBM_BULK, HBM_BULK.replace("false", "true")),
                "warp_rows": _once(text, HBM_THREADS, HBM_THREADS.replace("256", "32")),
-               "exchange": _once(R4_SOURCE.read_text(), STEP_SHUFFLE, STEP_SHUFFLE.replace("true", "false"))}
+               "exchange": _once(r4, STEP_SHUFFLE, STEP_SHUFFLE.replace("true", "false")),
+               "cumsum_staged": _once(text, CUMSUM_STAGED, CUMSUM_STAGED.replace("false", "true")),
+               "cumsum_block": _once(text, CUMSUM_THREADS, CUMSUM_THREADS.replace("32", "128")),
+               "mask_staging": _once(r4, MASK_PRODUCT_CALL, MASK_STAGING_STANDIN)}
     for label in REDESIGNED:
         if earlier_source(label).is_file():
             designs[library_name(label, "earlier")] = earlier_source(label).read_text()
@@ -202,7 +230,8 @@ def design_sources() -> Dict[str, str]:
 
 def build() -> Tuple[Dict[str, ctypes.CDLL], float]:
     """Build every design (one nvcc process each, all started together) and
-    load it; returns (libraries by name, wall seconds)."""
+    load it, nvcc's report (registers, stack, spills) beside it as
+    ``<name>.log``; returns (libraries by name, wall seconds)."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, text in design_sources().items():
@@ -211,8 +240,9 @@ def build() -> Tuple[Dict[str, ctypes.CDLL], float]:
         jobs[name] = (OUT_DIR / f"lib_{name}.so", src)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        for done in [pool.submit(_build.build_library, lib, [src]) for lib, src in jobs.values()]:
-            done.result()
+        builds = {name: pool.submit(_build.build_library, lib, [src]) for name, (lib, src) in jobs.items()}
+        for name, done in builds.items():
+            (OUT_DIR / f"{name}.log").write_text(done.result()[1])
     return {name: ctypes.CDLL(str(lib)) for name, (lib, _) in jobs.items()}, time.perf_counter() - t0
 
 
@@ -272,13 +302,53 @@ def step_pairs(device) -> Dict[str, torch.Tensor]:
             "full range": _full_range(shape, device), "ends": ends.contiguous().to(device)}
 
 
+def ordered_tile() -> np.ndarray:
+    """A (64, 128) float32 tile on which the order of a column's adds shows:
+    each column mixes +-1e8 with values near 1 (1e8 + 1 rounds back to 1e8
+    in float32) in rows 0-47, and holds +inf, -inf and NaN at rows of its
+    own among 48-63."""
+    rng = np.random.default_rng(19)
+    tile = (1 + 1e-3 * rng.standard_normal((64, MP.LANES))).astype(np.float32)
+    big = rng.random(tile.shape) < 0.25
+    tile[big] = rng.choice(np.float32([1e8, -1e8]), int(big.sum()))
+    for c in range(MP.LANES):
+        tile[48 + rng.permutation(16)[:3], c] = [np.inf, -np.inf, np.nan]
+    return tile
+
+
+def count_tiles() -> List[np.ndarray]:
+    """Two (128, 128) int32 tiles whose rows have every count of positive
+    entries from 0 to 128 (0-127 in the first, 1-128 in the second, the rows
+    shuffled): the positives 1, INT_MAX or drawn from [1, 2^31), the rest 0,
+    -1, INT_MIN or drawn from [-2^31, 0), so that > 0 is held at its edge."""
+    rng = np.random.default_rng(19)
+    shape = (MP.LANES, MP.LANES)
+    pos = np.where(rng.random(shape) < 0.5, rng.choice([1, 2 ** 31 - 1], shape), rng.integers(1, 2 ** 31, shape))
+    neg = np.where(rng.random(shape) < 0.6, rng.choice([0, -1, -2 ** 31], shape), rng.integers(-2 ** 31, 0, shape))
+    tiles = []
+    for first in (0, 1):
+        counts = rng.permutation(np.arange(first, first + MP.LANES))
+        positive = np.argsort(rng.random(shape), 1) < counts[:, None]  # `count` random columns a row
+        tiles.append(np.where(positive, pos, neg).astype(np.int32))
+    return tiles
+
+
 def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
     """The inputs each design is held to the plain version on: the probe's;
     for a row window every legal s on full-range random rows; for the scalar
     add full-range rows with a scalar at either end of the int32 range; for
     the transpose, the copy and the bitcast a full-range random tile; for
-    the merge steps each of ``step_pairs`` at each R of STEP_HELD_R."""
+    the merge steps each of ``step_pairs`` at each R of STEP_HELD_R; for the
+    column cumsum ``ordered_tile`` and normals; for the mask matmul each of
+    ``count_tiles``."""
     yield MP.inputs_on(probe, device)
+    if probe.label == "cumsum_sublanes_f32":
+        normals = np.random.default_rng(19).standard_normal((64, MP.LANES)).astype(np.float32)
+        for tile in (ordered_tile(), normals):
+            yield [torch.from_numpy(tile).to(device)]
+    if probe.label == "i1_to_bf16_astype":
+        for tile in count_tiles():
+            yield [torch.from_numpy(tile).to(device)]
     if probe.label in PR.MERGE_STEPS:
         for a, b in step_pairs(device).values():
             for r in STEP_HELD_R:
@@ -290,6 +360,16 @@ def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
         rows = _full_range(probe.inputs()[1].shape, device)
         for s in range(64 - 8 + 1) if probe.label in WINDOWED else (2 ** 31 - 3, -2 ** 31 + 3):
             yield [torch.full((1,), s, dtype=torch.int32, device=device), rows]
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal in dtype, shape and every bit (NaNs and signed zeros too)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[got.element_size()]
+        got, want = got.view(bits), want.view(bits)
+    return torch.equal(got, want)
 
 
 def _in_turns(times: List[Tuple[str, float]], digits: int) -> str:
@@ -318,14 +398,15 @@ def run(device, log: Callable[[str], None] = print, labels=REDESIGNED, rounds: i
         for args in held_inputs(probe, device):
             want = MP.plain(probe, *args)
             for name, fn in {"new": lambda: MP.launch(probe, *args), **design_calls(libs, label, args)}.items():
-                if name != "staging" and not torch.equal(fn(), want):
+                if name not in STAGING and not same_bits(fn(), want):
                     raise RuntimeError(f"{label}: the {name} design disagrees with the plain version "
                                        f"on inputs {[a.flatten()[:4].tolist() for a in args]}")
         args = MP.inputs_on(probe, device)
         fns = {"plain": lambda: MP.plain(probe, *args), "new": lambda: MP.launch(probe, *args),
                "library": MP.library_call(label, args), **design_calls(libs, label, args)}
         # a merge step's plain version reads R on the host, and it has no library call
-        turns = ["new"] if label in PR.MERGE_STEPS else ["plain", "new", "library", "new"]
+        turns = ["new"] if label in PR.MERGE_STEPS else ["plain", "new"] + (
+            ["library", "new"] if fns["library"] is not None else [])
         for name in TURNS[label]:
             turns += [name, "new"] if name in fns else []
         turns *= rounds
@@ -345,25 +426,31 @@ def run(device, log: Callable[[str], None] = print, labels=REDESIGNED, rounds: i
 
 
 def sass_counts(library: pathlib.Path) -> Dict[str, Dict[str, int]]:
-    """Instructions by opcode (SASS_OPS, any suffix) and in all ("all") of
-    each kernel in `library` whose name holds one of SASS_KERNELS, from
-    ``cuobjdump -sass`` (the CUDA toolkit's), by mangled name."""
+    """Instructions by opcode (SASS_OPS, any suffix), in all ("all") and the
+    LDGs after the first of LATE_AFTER ("late LDG") of each kernel in
+    `library` whose name holds one of SASS_KERNELS, from ``cuobjdump -sass``
+    (the CUDA toolkit's), by mangled name."""
     tool = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True, check=True).stdout
     counts: Dict[str, Dict[str, int]] = {}
-    current = None
+    current, late = None, False
+    is_op = lambda op, k: op == k or op.startswith(k + ".")  # noqa: E731
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            current = counts.setdefault(name, dict.fromkeys((*SASS_OPS, "all"), 0)) if any(
+            current = counts.setdefault(name, dict.fromkeys((*SASS_OPS, "all", "late LDG"), 0)) if any(
                 k in name for k in SASS_KERNELS) else None
+            late = False
             continue
         # "        /*0090*/                   @!P0 LDS.64 R4, [R2+0x10] ;"
         op = SASS_LINE.match(line) if current is not None else None
         if op:
+            op = op.group(1)
             current["all"] += 1
             for k in SASS_OPS:
-                current[k] += op.group(1) == k or op.group(1).startswith(k + ".")
+                current[k] += is_op(op, k)
+            current["late LDG"] += late and is_op(op, "LDG")
+            late = late or any(is_op(op, k) for k in LATE_AFTER)
     return counts
 
 
@@ -374,7 +461,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sass", action="store_true",
-                    help="also print the SASS counts of the merge step's and the copy's kernels in each library")
+                    help="also print the SASS counts of the merge step's, the copy's, the cumsum's and the mask matmul's "
+                         "kernels in each library")
     ap.add_argument("--labels", nargs="+", choices=REDESIGNED, default=REDESIGNED, help="the kernels (default: all)")
     ap.add_argument("--rounds", type=int, default=1, help="time each kernel's turns this many times over")
     args = ap.parse_args(argv)

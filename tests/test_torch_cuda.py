@@ -33,6 +33,7 @@ from arrow_tpu_torch.compute.kernels import segscan as S
 from arrow_tpu_torch.compute.kernels.groupby_region import KERNEL as REGION_KERNEL
 from arrow_tpu_torch.compute.kernels.groupby_region import groupby_region, groupby_region_plain
 from arrow_tpu_torch.tools import mosaic_probe as MP
+from arrow_tpu_torch.tools import probe_designs as PD
 from arrow_tpu_torch.tools import probe_r4 as PR
 from arrow_tpu_torch.utils import bits as TB
 from arrow_tpu_torch.utils import scans as TS
@@ -1072,6 +1073,44 @@ def test_probe_kernel_matches_plain_on_random_inputs(cuda, label):
         np.testing.assert_array_equal(got.cpu().numpy(), tile)
 
 
+CUMSUM_TILES = {"ones": lambda: MP.BY_LABEL["cumsum_sublanes_f32"].inputs()[0],
+                "normals": lambda: np.random.default_rng(13).standard_normal((64, 128)).astype(np.float32),
+                "ordered": PD.ordered_tile}
+
+
+@pytest.mark.parametrize("tile", CUMSUM_TILES)
+def test_cumsum_sublanes_f32_keeps_the_row_order_bit_for_bit(cuda, tile):
+    """The column cumsum against the plain version's row order (_scan) on
+    the card, bit for bit (NaNs and signed zeros too), on the probe's ones,
+    on normals and on the order-sensitive tile (+-1e8 beside values near 1,
+    then +-inf and NaN in every column), and against the host's _scan
+    wherever that is not NaN (the host's NaN bits are its own)."""
+    host = CUMSUM_TILES[tile]()
+    x = torch.from_numpy(host).to(cuda)
+    probe = MP.BY_LABEL["cumsum_sublanes_f32"]
+    got = MP.launch(probe, x)
+    assert PD.same_bits(got, MP.plain(probe, x))
+    want = MP._scan(torch.from_numpy(host), 0)
+    nan = want.isnan()
+    assert torch.equal(got.cpu().isnan(), nan)
+    assert torch.equal(got.cpu()[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("tile", [0, 1])
+def test_i1_to_bf16_astype_at_every_row_count(cuda, tile):
+    """The mask matmul on tiles whose rows have every count of positive
+    entries from 0 to 128 (0, -1, INT_MIN, 1 and INT_MAX among them): equal
+    to mask_matmul_plain on the card and to each row's count in every
+    column."""
+    host = PD.count_tiles()[tile]
+    x = torch.from_numpy(host).to(cuda)
+    probe = PR.BY_NAME["i1_to_bf16_astype"]
+    got = MP.launch(probe, x)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, MP.plain(probe, x))
+    counts = torch.from_numpy((host > 0).sum(1)).float()
+    assert torch.equal(got.cpu().float(), counts[:, None].expand(128, 128))
+
+
 @pytest.mark.parametrize("keys", ["full range", "ends"])
 @pytest.mark.parametrize("name", PR.MERGE_STEPS)
 def test_merge_step_matches_plain_on_full_range_keys(cuda, name, keys):
@@ -1193,16 +1232,18 @@ ONE_KERNEL = {"dma_unaligned_row_offset": ("slice_every_row", [8, 1, 1], [256, 1
               "hbm_to_hbm_dma": ("copy_rows_direct", [1, 1, 1], [256, 1, 1]),
               "bitcast_f32_u32": ("copy_rows_direct", [1, 1, 1], [256, 1, 1]),
               "mb_step_rollpair": ("merge_step", [1, 1, 1], [256, 1, 1]),
-              "mb_step_taa": ("merge_step", [1, 1, 1], [256, 1, 1])}
+              "mb_step_taa": ("merge_step", [1, 1, 1], [256, 1, 1]),
+              "cumsum_sublanes_f32": ("cumsum_rows", [4, 1, 1], [32, 1, 1]),
+              "i1_to_bf16_astype": ("mask_matmul", [8, 1, 1], [256, 1, 1])}
 
 
 @pytest.mark.parametrize("label", ONE_KERNEL)
 def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
     """One call of the row-offset copy, the scalar add, the transpose, the
-    HBM-to-HBM copy, the bitcast or a merge step is one counted launch and
-    exactly one kernel on the card, with its name, grid and block (no fill,
-    no wrapper-side copy, no host read of s or R), equal to the plain
-    version."""
+    HBM-to-HBM copy, the bitcast, a merge step, the column cumsum or the
+    mask matmul is one counted launch and exactly one kernel on the card,
+    with its name, grid and block (no fill, no wrapper-side copy, no host
+    read of s or R), equal to the plain version."""
     probe = _probe(label)
     args = MP.inputs_on(probe, cuda)
     MP.launch(probe, *args)

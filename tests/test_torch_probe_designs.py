@@ -4,9 +4,12 @@ and probe_r4.cu) by text substitution, so each substitution must find its
 text exactly once; the wgmma wrapper that the tool writes for a tile width
 must be the source's own at the source's width; each redesigned kernel has
 its earlier source's path, its turns and, where PyTorch has one, a library
-call.  The builds and times need the card (``chip_smoke.py``'s ``probes``
+call (the mask matmul has none: its staging turn stands in); the column
+cumsum's and the mask matmul's held tiles show what they must catch.  The
+builds and times need the card (``chip_smoke.py``'s ``probes``
 phase)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,18 +28,24 @@ SWITCHES = {"quads": [TRANSPOSE_REGISTERS],
             "quads256": [TRANSPOSE_REGISTERS, (PD.TRANSPOSE_THREADS, "constexpr int kTransposeThreads = 256;")],
             "staged": [(PD.HBM_BULK, "constexpr bool kHbmBulk = true;")],
             "warp_rows": [(PD.HBM_THREADS, "constexpr int kHbmThreads = 32;")],
-            "exchange": [(PD.STEP_SHUFFLE, "constexpr bool kStepShuffle = false;")]}
-R4_DESIGNS = ("exchange",)  # the designs made from probe_r4.cu
+            "exchange": [(PD.STEP_SHUFFLE, "constexpr bool kStepShuffle = false;")],
+            "cumsum_staged": [(PD.CUMSUM_STAGED, "constexpr bool kCumsumStaged = true;")],
+            "cumsum_block": [(PD.CUMSUM_THREADS, "constexpr int kCumsumThreads = 128;")]}
+R4_DESIGNS = ("exchange", "mask_staging")  # the designs made from probe_r4.cu
 
 
 @pytest.mark.parametrize("design", ["staging", "tile64", "tile128", "window", "bulk", "bulk_in", "one_block",
-                                    *SWITCHES])
+                                    *SWITCHES, "mask_staging"])
 def test_design_sources(design):
     source = (PD.R4_SOURCE if design in R4_DESIGNS else PD.SOURCE).read_text()
     text = PD.design_sources()[design]
     assert text != source
     if design == "staging":
         assert PD.PRODUCT_CALL not in text and "wgmma_m64nNk32(d, " in text
+    elif design == "mask_staging":  # only the product's call goes: the loads, compares and stores stay
+        assert source.count(PD.MASK_PRODUCT_CALL) == 1
+        assert text == source.replace(PD.MASK_PRODUCT_CALL, PD.MASK_STAGING_STANDIN)
+        assert "void mask_product(" in text and "ldmatrix" in text and "__ldg(xb" in text
     elif design == "window":
         assert source.count(PD.SLICE_EVERY_ROW) == 1
         assert PD.SLICE_EVERY_ROW not in text and text.count("constexpr bool kSliceEveryRow = false;") == 1
@@ -64,11 +73,12 @@ def test_design_sources(design):
 @pytest.mark.parametrize("label", PD.REDESIGNED)
 def test_redesigned_kernel_has_its_earlier_source_turns_and_library_call(label):
     """Each kernel's earlier design is its source (mosaic_probe.cu, or
-    probe_r4.cu for the merge steps) at the commit before its redesign,
-    under build/parent/<commit>/, a library of its own; every design it is
-    timed against is one that the tool builds; and its library call gives
-    its function on the probe's inputs (the merge steps have none)."""
-    source = "probe_r4.cu" if label in PR.MERGE_STEPS else "mosaic_probe.cu"
+    probe_r4.cu for the merge steps and the mask matmul) at the commit
+    before its redesign, under build/parent/<commit>/, a library of its own;
+    every design it is timed against is one that the tool builds; and its
+    library call gives its function on the probe's inputs (the merge steps
+    and the mask matmul have none; the mask matmul's staging stands in)."""
+    source = "probe_r4.cu" if label in PR.BY_NAME else "mosaic_probe.cu"
     assert PD.source_of(label).name == source and PD.source_of(label).is_file()
     path = PD.earlier_source(label)
     assert path.relative_to(PD.PARENT).parts == (PD.BEFORE[label], "arrow_tpu_torch", "csrc", source)
@@ -80,17 +90,22 @@ def test_redesigned_kernel_has_its_earlier_source_turns_and_library_call(label):
     if label in PR.MERGE_STEPS:
         assert MP.library_call(label, args) is None and probe.blocked
         return
+    if label == "i1_to_bf16_astype":
+        assert MP.library_call(label, args) is None and "mask_staging" in PD.TURNS[label]
+        return
     got = MP.library_call(label, args)()
     assert torch.equal(got, MP.plain(probe, *args))
 
 
 def test_every_kernel_of_the_tools_is_redesigned_once():
-    """The table names ten redesigned kernels (the merge step's two forms
+    """The table names twelve redesigned kernels (the merge step's two forms
     are one kernel), each with an earlier design, and no kernel is left
-    timed against its library call alone."""
-    assert len(PD.REDESIGNED) == 11 and len(set(PD.REDESIGNED)) == 11
+    timed against its library call alone; the column cumsum and the mask
+    matmul were redesigned together."""
+    assert len(PD.REDESIGNED) == 13 and len(set(PD.REDESIGNED)) == 13
     assert set(PD.TURNS) == set(PD.REDESIGNED) and not hasattr(PD, "UNCHANGED")
     assert {PD.BEFORE[name] for name in PR.MERGE_STEPS} == {PD.BEFORE["bitcast_f32_u32"]}
+    assert PD.BEFORE["cumsum_sublanes_f32"] == PD.BEFORE["i1_to_bf16_astype"] == "9e5ff2a"
 
 
 def test_held_inputs_cover_every_window_row():
@@ -164,3 +179,71 @@ def test_held_inputs_hold_the_merge_steps_on_ties_full_range_and_ends():
                 assert a.is_contiguous() and b.is_contiguous()
         zero = MP.plain(probe, *cases[1])
         assert int(cases[1][0]) == 0 and not zero.any()
+
+
+def _pairwise_scan(x):
+    """Inclusive running sum down the rows in log2(rows) rounds (each row
+    adds the one d above it): the adds of a tree scan, in another order."""
+    d = 1
+    while d < x.shape[0]:
+        x = torch.cat([x[:d], x[d:] + x[:-d]])
+        d *= 2
+    return x
+
+
+def test_ordered_tile_catches_a_reordered_scan():
+    """The column cumsum's card tests hold it bit for bit to the plain
+    version's row order on ``ordered_tile``: there a tree order and a
+    float64 accumulator both give other float32 bits in most columns' finite
+    rows, so a kernel that reordered its adds or widened its sum would
+    fail.  Each column mixes +-1e8 with values near 1 and holds +inf, -inf
+    and NaN."""
+    tile = PD.ordered_tile()
+    finite = tile[:48]
+    assert np.isfinite(finite).all() and (np.abs(finite) == 1e8).any(0).all()
+    assert (np.abs(finite - 1) < 0.01).any(0).all()
+    for c in range(tile.shape[1]):
+        assert {np.inf, -np.inf} <= set(tile[48:, c].tolist()) and np.isnan(tile[48:, c]).sum() == 1
+    x = torch.from_numpy(tile)
+    want = MP._scan(x, 0)
+    assert PD.same_bits(MP.plain(MP.BY_LABEL["cumsum_sublanes_f32"], x), want)
+    assert want[-1].isnan().all() and PD.same_bits(want, MP._scan(x.clone(), 0))
+    for other in (_pairwise_scan(x), torch.cumsum(x.double(), 0).float()):
+        assert not PD.same_bits(other, want)
+        moved = (other[:48].view(torch.int32) != want[:48].view(torch.int32)).any(0)
+        assert moved.sum() > 100, int(moved.sum())
+
+
+def test_count_tiles_cover_every_row_count():
+    """The mask matmul is held on two tiles whose rows have every count of
+    positive entries from 0 to 128, with 0, -1, INT_MIN, 1 and INT_MAX among
+    the entries; its plain version gives each row's count in every column."""
+    tiles = PD.count_tiles()
+    counts = [(t > 0).sum(1) for t in tiles]
+    assert sorted(counts[0].tolist()) == list(range(128)) and sorted(counts[1].tolist()) == list(range(1, 129))
+    for t in tiles:
+        assert t.dtype == np.int32 and t.shape == (128, 128)
+        assert {0, -1, -2 ** 31, 1, 2 ** 31 - 1} <= set(np.unique(t).tolist())
+        got = MP.plain(PR.BY_NAME["i1_to_bf16_astype"], torch.from_numpy(t))
+        want = torch.from_numpy((t > 0).sum(1)).float()[:, None].expand(128, 128).to(torch.bfloat16)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("label", ["cumsum_sublanes_f32", "i1_to_bf16_astype"])
+def test_held_inputs_hold_the_cumsum_and_the_mask_matmul(label):
+    """The column cumsum's designs are held at the probe's ones, on
+    ``ordered_tile`` and on normals; the mask matmul's at the probe's ones
+    and on both of ``count_tiles``; every design bit for bit
+    (``same_bits``: NaNs and signed zeros count)."""
+    probe = PD.probe_of(label)
+    cases = [a for (a,) in PD.held_inputs(probe, "cpu")]
+    extra = [PD.ordered_tile()] if label == "cumsum_sublanes_f32" else PD.count_tiles()
+    assert len(cases) == 1 + len(extra) + (label == "cumsum_sublanes_f32")
+    assert torch.equal(cases[0], MP.inputs_on(probe, "cpu")[0])
+    for got, want in zip(cases[1:], extra):
+        assert np.array_equal(got.numpy(), want, equal_nan=True)
+    assert all(c.shape == cases[0].shape and c.dtype == cases[0].dtype for c in cases)
+    if label == "cumsum_sublanes_f32":
+        assert cases[-1].abs().max() < 10 and cases[-1].std() > 0.5  # the normals
+    nan = torch.tensor([float("nan"), -0.0])
+    assert PD.same_bits(nan, nan.clone()) and not PD.same_bits(nan, torch.tensor([float("nan"), 0.0]))
