@@ -17,15 +17,13 @@
 //   and a select on the source register;
 // - row movement (the sublane gather, the row store, the transpose) goes
 //   through a tile in shared memory;
-// - one DMA probe is a bulk copy (cp.async.bulk, the TMA's one-dimensional
-//   form): dma_dynamic_size_rows, global to shared, completing on an
-//   mbarrier.  The rows are 512 bytes, so every row offset meets the bulk
-//   copy's 16-byte alignment.  The other three DMA probes, the row-offset
-//   copy, the row write and the HBM-to-HBM copy, move 16 bytes a thread
-//   since their redesigns (below); their bulk-copy designs stay behind
+// - the DMA probes (the row-offset copy, the row write, the sized copy and
+//   the HBM-to-HBM copy) move 16 bytes a thread since their redesigns
+//   (below); three of the bulk-copy designs (cp.async.bulk, the TMA's
+//   one-dimensional form, on an mbarrier or a bulk group) stay behind
 //   kOffsetBulk, kWriteBulk and kHbmBulk.
 //
-// Ten kernels here (and probe_r4.cu's merge step and mask matmul) are laid
+// Twelve kernels here (and probe_r4.cu's merge step and mask matmul) are laid
 // out for the card rather than for the TPU's tiles, so that every global load is
 // in flight at once and nothing waits on a round trip that an earlier one
 // could have covered:
@@ -123,6 +121,27 @@
 //   16-byte loads, one barrier, the adds in place, 16-byte stores) took
 //   1.13-1.20x as long, and one block of 128 threads (kCumsumThreads 128)
 //   1.08-1.14x (tools/probe_designs.py).
+// - gather_sublanes_taa_axis0 (the probe through simple_call, :61: out[r, c]
+//   = x[idx[r, c], c] over (64, 128) int32, idx in [0, 64)).  Bound by
+//   bytes: 96 KB read and written, 0.029 us.  8 blocks of a 16-column
+//   stripe: each thread loads its 16 bytes of x and of idx together, x's
+//   into the stripe in shared memory, and after the one barrier reads its 4
+//   gathered words and makes one 16-byte store; an index outside [0, 64)
+//   traps.  The earlier design (one block of 1024 threads staging all of x
+//   by 4-byte loads, idx loaded only after the barrier) took 2.20x as long
+//   on an H100, in turns; x read at the gathered rows without shared memory
+//   (kGatherDirect true: a second round trip, and a 32-byte sector a lane
+//   for each of a warp's 4 gathered loads) 1.14-1.17x; reading the stripe
+//   rotated over 32 banks was no faster (tools/probe_designs.py).
+// - dma_dynamic_size_rows (:281: the first s rows of a (64, 128) int32 src,
+//   s a device scalar clamped to [0, 64], zeros below them).  Bound by
+//   bytes: 36 KB at s = 8, 0.011 us.  8 blocks of 8 warps: each thread
+//   loads s and its 16 bytes of src at once and stores its word or zeros as
+//   16 bytes: no shared memory, no barrier, no zero fill.  The earlier
+//   design (a shared tile zeroed by 4-byte stores, then one bulk copy of s
+//   rows issued after s's load, on an mbarrier) took 1.47x as long on an
+//   H100, in turns; reading s first and then only its rows
+//   (kSizedCountFirst true) 1.03-1.05x.
 //
 // One C entry a probe, arrow_probe_<label>(inputs..., out, stream), in the
 // order of the JAX probe's pallas_call arguments (the device scalar first
@@ -258,20 +277,58 @@ __global__ void roll_lanes(const int32_t* a, const int32_t* shift_dev, int shift
   }
 }
 
-// out[r, c] = x[idx[r, c], c] over a (64, 128) tile staged in shared memory
-__global__ void gather_sublanes(const int32_t* x, const int32_t* idx, int32_t* out) {
-  __shared__ int32_t tile[64 * kLanes];
-  for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) tile[i] = x[i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) out[i] = tile[idx[i] * kLanes + (i & (kLanes - 1))];
-}
-
 // The first row of an 8-row window at row `first` (read from the device) of
 // a 64-row tile; a window past the tile traps (a launch error) rather than
 // reading or writing outside its buffers.
 __device__ __forceinline__ int window_row(int first) {
   if (first < 0 || first > 64 - kTileRows) __trap();
   return first;
+}
+
+// A row index of the sublane gather's 64-row tile; one outside [0, 64) traps
+// rather than reading outside the tile.
+__device__ __forceinline__ int gather_row(int row) {
+  if (static_cast<unsigned>(row) >= 64u) __trap();
+  return row;
+}
+
+// gather_sublanes_taa_axis0's two designs: a block a stripe of kStripe
+// columns through shared memory, or no shared memory, x read at the gathered
+// rows after idx (kGatherDirect: a second, dependent round trip)
+constexpr bool kGatherDirect = false;
+constexpr int kStripe = 16;
+constexpr int kStripeWords = kStripe / 4;  // 16-byte words of a stripe's row
+
+// out[r, c] = x[idx[r, c], c] over (64, 128) int32, 8 blocks of a 16-column
+// stripe (4 KB each of x, idx and out), thread t at row t / 4, word t % 4 of
+// the stripe: its 16 bytes of x and of idx loaded together, x's into the
+// stripe in shared memory, one barrier, then its 4 gathered words read from
+// the stripe and stored as 16 bytes.  The stripe's rows are 16 words, not
+// padded, so its 16-byte stores stay aligned; a warp's read of word j of 8
+// gathered rows then falls on 8 banks (up to 4 ways on random rows).
+__global__ void __launch_bounds__(kTileThreads)
+    gather_stripe(const int4* __restrict__ x, const int4* __restrict__ idx, int4* __restrict__ out) {
+  __shared__ alignas(16) int32_t stripe[64 * kStripe];
+  const int r = threadIdx.x / kStripeWords, q = threadIdx.x % kStripeWords;
+  const int i = r * kRowWords + kStripeWords * blockIdx.x + q;  // 16-byte word i of the tile
+  const int4 v = __ldg(x + i);
+  const int4 k = __ldg(idx + i);
+  *reinterpret_cast<int4*>(stripe + r * kStripe + 4 * q) = v;
+  __syncthreads();
+  const int32_t* col = stripe + 4 * q;
+  out[i] = make_int4(col[gather_row(k.x) * kStripe], col[gather_row(k.y) * kStripe + 1],
+                     col[gather_row(k.z) * kStripe + 2], col[gather_row(k.w) * kStripe + 3]);
+}
+
+// The same without shared memory: 8 blocks of 8 warps, a warp a row, each
+// thread its 16 bytes of idx, then 4 loads of x at the gathered rows.
+__global__ void __launch_bounds__(kTileThreads)
+    gather_direct(const int32_t* __restrict__ x, const int4* __restrict__ idx, int4* __restrict__ out) {
+  const int i = blockIdx.x * kTileThreads + threadIdx.x;  // 16-byte word i of the tile
+  const int4 k = __ldg(idx + i);
+  const int32_t* col = x + 4 * (i % kRowWords);
+  out[i] = make_int4(__ldg(col + gather_row(k.x) * kLanes), __ldg(col + gather_row(k.y) * kLanes + 1),
+                     __ldg(col + gather_row(k.z) * kLanes + 2), __ldg(col + gather_row(k.w) * kLanes + 3));
 }
 
 // dynamic_slice_vmem_rows' two designs: every row at once (one round trip),
@@ -391,13 +448,6 @@ __device__ __forceinline__ void init_barrier_async(unsigned long long* bar) {
   asm volatile("fence.mbarrier_init.release.cluster;" : : : "memory");
 }
 
-// One thread initialises the barrier; the block barrier makes it visible to
-// the other threads.
-__device__ __forceinline__ void init_barrier(unsigned long long* bar) {
-  if (threadIdx.x == 0) init_barrier_async(bar);
-  __syncthreads();
-}
-
 // Wait for the phase of `bar` with this parity to complete.  A wait that
 // never ends traps (a launch error) rather than hanging the card.
 __device__ __forceinline__ void wait_barrier(unsigned long long* bar, unsigned parity) {
@@ -410,14 +460,12 @@ __device__ __forceinline__ void wait_barrier(unsigned long long* bar, unsigned p
 }
 
 // Thread 0: arrive on `bar` expecting `bytes`, and copy them (a multiple of
-// 16, both addresses 16-byte aligned; none when 0) from global to shared.
+// 16, both addresses 16-byte aligned) from global to shared.
 __device__ __forceinline__ void bulk_load(void* smem, const void* gmem, unsigned bytes, unsigned long long* bar) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" : : "r"(smem_addr(bar)), "r"(bytes)
                : "memory");
-  if (bytes != 0) {
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-                 : : "r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-  }
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+               : : "r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }
 
 // One thread: copy `bytes` from shared to global and wait until the copy has
@@ -496,21 +544,25 @@ __global__ void __launch_bounds__(kTileThreads)
   }
 }
 
-// dma_dynamic_size_rows: the first s[0] rows (read on the device, clamped to
-// 64) of src into a zeroed (64, 128) tile in shared memory by one bulk copy
-// of s[0] x 512 bytes; the tile written out whole
-__global__ void copy_rows_sized(const int32_t* s, const int32_t* src, int32_t* out) {
-  __shared__ alignas(128) int32_t buf[64 * kLanes];
-  __shared__ alignas(8) unsigned long long bar;
-  for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) buf[i] = 0;
-  fence_async_shared();
-  init_barrier(&bar);
-  if (threadIdx.x == 0) {
-    const int rows = min(max(s[0], 0), 64);
-    bulk_load(buf, src, static_cast<unsigned>(rows) * kRowBytes, &bar);
+// dma_dynamic_size_rows' designs: every row loaded with s (one round trip),
+// or s and then only the rows below it (kSizedCountFirst: two)
+constexpr bool kSizedCountFirst = false;
+
+// The first s[0] rows (read on the device, clamped to [0, 64]) of the (64,
+// 128) src, zeros below them: 8 blocks of 8 warps, a warp a row, each thread
+// loading s and its 16 bytes of src together and making one 16-byte store,
+// its word or zeros.  No shared memory, no barrier, no separate zero fill.
+__global__ void __launch_bounds__(kTileThreads)
+    copy_rows_sized(const int32_t* __restrict__ s, const int4* __restrict__ src, int4* __restrict__ out) {
+  const int rows = min(max(__ldg(s), 0), 64);
+  const int i = blockIdx.x * kTileThreads + threadIdx.x;  // 16-byte word i of the tile, in row i / kRowWords
+  const bool keep = i / kRowWords < rows;
+  if constexpr (kSizedCountFirst) {
+    out[i] = keep ? __ldg(src + i) : make_int4(0, 0, 0, 0);
+  } else {
+    const int4 v = __ldg(src + i);
+    out[i] = keep ? v : make_int4(0, 0, 0, 0);
   }
-  wait_barrier(&bar, 0);
-  for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) out[i] = buf[i];
 }
 
 // hbm_to_hbm_dma's designs: 16-byte loads and stores in blocks of
@@ -887,7 +939,11 @@ int arrow_probe_pltpu_roll_dynamic(const void* s, const void* a, void* out, void
 }
 
 int arrow_probe_gather_sublanes_taa_axis0(const void* x, const void* idx, void* out, void* stream) {
-  gather_sublanes<<<1, 1024, 0, STREAM>>>(in<int32_t>(x), in<int32_t>(idx), out_<int32_t>(out));
+  if (kGatherDirect) {
+    gather_direct<<<64 / kTileRows, kTileThreads, 0, STREAM>>>(in<int32_t>(x), in<int4>(idx), out_<int4>(out));
+  } else {
+    gather_stripe<<<kLanes / kStripe, kTileThreads, 0, STREAM>>>(in<int4>(x), in<int4>(idx), out_<int4>(out));
+  }
   return done();
 }
 
@@ -931,7 +987,7 @@ int arrow_probe_dma_unaligned_row_write(const void* s, const void* src, void* ou
 }
 
 int arrow_probe_dma_dynamic_size_rows(const void* s, const void* src, void* out, void* stream) {
-  copy_rows_sized<<<1, 1024, 0, STREAM>>>(in<int32_t>(s), in<int32_t>(src), out_<int32_t>(out));
+  copy_rows_sized<<<64 / kTileRows, kTileThreads, 0, STREAM>>>(in<int32_t>(s), in<int4>(src), out_<int4>(out));
   return done();
 }
 

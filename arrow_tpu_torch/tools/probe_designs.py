@@ -6,7 +6,9 @@ turns on one card.
 ``grid_1d_blockspec``, ``matmul_int8_s32acc``, ``dynamic_slice_vmem_rows``,
 ``dma_unaligned_row_write``, ``dma_unaligned_row_offset``,
 ``prefetch_scalar_grid``, ``transpose_32b_128x128``, ``hbm_to_hbm_dma``,
-``bitcast_f32_u32`` and ``cumsum_sublanes_f32`` (``csrc/mosaic_probe.cu``),
+``bitcast_f32_u32``, ``cumsum_sublanes_f32``, the sublane gather
+``gather_sublanes_taa_axis0`` and the sized copy ``dma_dynamic_size_rows``
+(``csrc/mosaic_probe.cu``),
 and the merge step in its two forms, ``mb_step_rollpair`` and
 ``mb_step_taa``, and the mask matmul ``i1_to_bf16_astype``
 (``csrc/probe_r4.cu``), are laid out for the card.  Each other design is a variant of the kernel's
@@ -53,22 +55,31 @@ design, all started together):
 - ``cumsum_staged``: the column cumsum through a tile in shared memory
   (16-byte loads, a barrier, the adds in place, 16-byte stores), in place of
   a thread's 64 rows in registers; ``cumsum_block``: the register design in
-  one block of 128 threads, in place of 4 blocks of 32.
+  one block of 128 threads, in place of 4 blocks of 32;
+- ``direct``: the sublane gather without shared memory, each thread loading
+  its 16 bytes of idx and then x at the 4 gathered rows (a second,
+  dependent round trip), in place of a 16-column stripe a block through
+  shared memory with x and idx loaded together;
+- ``count_first``: the sized copy loading s and then only the rows below
+  it (two round trips), in place of every row loaded with s (one).
 
 Every design but ``staging`` is first held to the plain version on the
 probe's inputs, a row window's at every legal s on random rows, the
 scalar add's on full-range rows and scalars, where the sum wraps, the
-transpose's, the copy's and the bitcast's on a full-range random tile, and
-the merge step's (one block) on keys in [0, 100) with many ties, on
-full-range keys and on all INT_MIN against all INT_MAX, each at R = 0, 1
-and 5, the column cumsum's bit for bit on an order-sensitive tile
+transpose's, the copy's and the bitcast's on a full-range random tile, the
+sublane gather's on a full-range random tile with each of
+:func:`gather_indices`, the sized copy's at every s from -1 to 65 (the
+clamp's both sides) on full-range random rows, and the merge step's (one
+block) on keys in [0, 100) with many ties, on full-range keys and on all
+INT_MIN against all INT_MAX, each at R = 0, 1 and 5, the column cumsum's bit for bit on an order-sensitive tile
 (:func:`ordered_tile`) and on normals, and the mask matmul's on every row
 count from 0 to 128 (:func:`count_tiles`).  Then each kernel is timed in turns: plain, new, library, new, a
 design, new, the next design, new, ...; device ms a call, queued behind a
 spin kernel (:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`),
 beside an empty kernel's; the library call is
 :func:`mosaic_probe.library_call`'s (``x + 1``, ``torch._int_mm``, a slice's
-``clone``, ``F.pad``, ``x + s``, ``t().contiguous()``, ``torch.cumsum``); a
+``clone``, ``F.pad``, ``x + s``, ``t().contiguous()``, ``torch.cumsum``,
+``torch.take_along_dim``); a
 kernel without one (the mask matmul) is timed plain, new, a design, new,
 ....  The merge step has
 no library call, and its plain version reads R on the host, so it is timed
@@ -109,13 +120,15 @@ BEFORE = {"grid_1d_blockspec": "9d785cc", "matmul_int8_s32acc": "9d785cc",
           "dma_unaligned_row_offset": "829306e", "prefetch_scalar_grid": "829306e",
           "transpose_32b_128x128": "9f34100", "hbm_to_hbm_dma": "9f34100",
           "bitcast_f32_u32": "aeb9ac2", "mb_step_rollpair": "aeb9ac2", "mb_step_taa": "aeb9ac2",
-          "cumsum_sublanes_f32": "9e5ff2a", "i1_to_bf16_astype": "9e5ff2a"}
+          "cumsum_sublanes_f32": "9e5ff2a", "i1_to_bf16_astype": "9e5ff2a",
+          "gather_sublanes_taa_axis0": "81001b6", "dma_dynamic_size_rows": "81001b6"}
 REDESIGNED = tuple(BEFORE)
 FILLED_BEFORE = ("dma_unaligned_row_write",)  # earlier designs that wrote into an output zeroed by the wrapper
 # a window at device row s in [0, 56]
 WINDOWED = ("dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset")
 WRAPPED = ("prefetch_scalar_grid",)  # an int32 sum that wraps
 FULL_RANGE = ("transpose_32b_128x128", "hbm_to_hbm_dma", "bitcast_f32_u32")  # held on a full-range random tile too
+SIZED_HELD = range(-1, 64 + 2)  # the sized copy's s on the held inputs: every row count and the clamp's both sides
 STEP_HELD_R = (0, 1, 5)  # the merge steps' R on the held inputs beyond the probe's
 OUT_DIR = _build.BUILD_DIR / "designs"
 BUF_ROWS = PR.BUF // MP.LANES  # rows of 128 of each merge-step input
@@ -133,14 +146,19 @@ HBM_THREADS = "constexpr int kHbmThreads = 256;"
 STEP_SHUFFLE = "constexpr bool kStepShuffle = true;"
 CUMSUM_STAGED = "constexpr bool kCumsumStaged = false;"
 CUMSUM_THREADS = "constexpr int kCumsumThreads = 32;"
+GATHER_DIRECT = "constexpr bool kGatherDirect = false;"
+SIZED_COUNT_FIRST = "constexpr bool kSizedCountFirst = false;"
 MASK_PRODUCT_CALL = "  mask_product(c, sa, lane);\n"
 # in its place in mask_staging: the band's address escapes, so its stores (and the loads and compares) stay
 MASK_STAGING_STANDIN = '  asm volatile("" : : "r"(sa) : "memory");\n'
 STAGING = ("staging", "mask_staging")  # designs with a part cut out: timed, not held to the plain version
-# the kernels whose SASS --sass counts; "late LDG" counts a kernel's LDGs after its first FADD or HMMA
-SASS_KERNELS = ("merge_step", "copy_rows_direct", "bitcast_f32", "cumsum_rows", "mask_matmul")
+# the kernels whose SASS --sass counts
+SASS_KERNELS = ("merge_step", "copy_rows_direct", "bitcast_f32", "cumsum_rows", "mask_matmul", "gather_stripe",
+                "gather_direct", "gather_sublanes", "copy_rows_sized")
 SASS_OPS = ("BAR.SYNC", "LDS", "STS", "SHFL", "LDG", "STG", "ISETP", "SEL", "FADD", "HMMA")
-LATE_AFTER = ("FADD", "HMMA")
+# LDGs counted after the first of these in a kernel: "late LDG" after its first FADD or HMMA (loads behind
+# its arithmetic), "LDG after BAR.SYNC" after its first barrier (loads behind it)
+LATE = {"late LDG": ("FADD", "HMMA"), "LDG after BAR.SYNC": ("BAR.SYNC",)}
 SASS_LINE = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")  # an instruction's opcode
 # the designs that each kernel is timed against, in their turn's order
 TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "staging", "tile64", "tile128"),
@@ -150,7 +168,9 @@ TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "s
          "hbm_to_hbm_dma": ("earlier", "staged", "warp_rows"), "bitcast_f32_u32": ("earlier", "warp_rows"),
          "mb_step_rollpair": ("earlier", "exchange"), "mb_step_taa": ("earlier", "exchange"),
          "cumsum_sublanes_f32": ("earlier", "cumsum_staged", "cumsum_block"),
-         "i1_to_bf16_astype": ("earlier", "mask_staging")}
+         "i1_to_bf16_astype": ("earlier", "mask_staging"),
+         "gather_sublanes_taa_axis0": ("earlier", "direct"),
+         "dma_dynamic_size_rows": ("earlier", "count_first")}
 
 
 def wgmma_wrapper(n: int) -> str:
@@ -221,20 +241,24 @@ def design_sources() -> Dict[str, str]:
                "exchange": _once(r4, STEP_SHUFFLE, STEP_SHUFFLE.replace("true", "false")),
                "cumsum_staged": _once(text, CUMSUM_STAGED, CUMSUM_STAGED.replace("false", "true")),
                "cumsum_block": _once(text, CUMSUM_THREADS, CUMSUM_THREADS.replace("32", "128")),
-               "mask_staging": _once(r4, MASK_PRODUCT_CALL, MASK_STAGING_STANDIN)}
+               "mask_staging": _once(r4, MASK_PRODUCT_CALL, MASK_STAGING_STANDIN),
+               "direct": _once(text, GATHER_DIRECT, GATHER_DIRECT.replace("false", "true")),
+               "count_first": _once(text, SIZED_COUNT_FIRST, SIZED_COUNT_FIRST.replace("false", "true"))}
     for label in REDESIGNED:
         if earlier_source(label).is_file():
             designs[library_name(label, "earlier")] = earlier_source(label).read_text()
     return designs
 
 
-def build() -> Tuple[Dict[str, ctypes.CDLL], float]:
-    """Build every design (one nvcc process each, all started together) and
-    load it, nvcc's report (registers, stack, spills) beside it as
-    ``<name>.log``; returns (libraries by name, wall seconds)."""
+def build(names=None) -> Tuple[Dict[str, ctypes.CDLL], float]:
+    """Build every design, or those in `names` (one nvcc process each, all
+    started together) and load it, nvcc's report (registers, stack, spills)
+    beside it as ``<name>.log``; returns (libraries by name, wall seconds)."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, text in design_sources().items():
+        if names is not None and name not in names:
+            continue
         src = OUT_DIR / f"{name}.cu"
         src.write_text(text)
         jobs[name] = (OUT_DIR / f"lib_{name}.so", src)
@@ -333,6 +357,17 @@ def count_tiles() -> List[np.ndarray]:
     return tiles
 
 
+def gather_indices() -> Dict[str, np.ndarray]:
+    """The sublane gather's (64, 128) int32 row indices beyond the probe's:
+    all 0, all 63, the identity (idx[r, c] = r) and random, so that a
+    slipped row or column shows."""
+    shape = (64, MP.LANES)
+    rows = np.arange(64, dtype=np.int32)[:, None]
+    return {"zeros": np.zeros(shape, np.int32), "last": np.full(shape, 63, np.int32),
+            "identity": np.broadcast_to(rows, shape).copy(),
+            "random": np.random.default_rng(20).integers(0, 64, shape, np.int32)}
+
+
 def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
     """The inputs each design is held to the plain version on: the probe's;
     for a row window every legal s on full-range random rows; for the scalar
@@ -340,8 +375,18 @@ def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
     the transpose, the copy and the bitcast a full-range random tile; for
     the merge steps each of ``step_pairs`` at each R of STEP_HELD_R; for the
     column cumsum ``ordered_tile`` and normals; for the mask matmul each of
-    ``count_tiles``."""
+    ``count_tiles``; for the sublane gather a full-range random tile with
+    each of ``gather_indices``; for the sized copy each s of SIZED_HELD on
+    full-range random rows."""
     yield MP.inputs_on(probe, device)
+    if probe.label == "gather_sublanes_taa_axis0":
+        x = _full_range((64, MP.LANES), device)
+        for idx in gather_indices().values():
+            yield [x, torch.from_numpy(idx).to(device)]
+    if probe.label == "dma_dynamic_size_rows":
+        rows = _full_range((64, MP.LANES), device)
+        for s in SIZED_HELD:
+            yield [torch.full((1,), s, dtype=torch.int32, device=device), rows]
     if probe.label == "cumsum_sublanes_f32":
         normals = np.random.default_rng(19).standard_normal((64, MP.LANES)).astype(np.float32)
         for tile in (ordered_tile(), normals):
@@ -426,21 +471,27 @@ def run(device, log: Callable[[str], None] = print, labels=REDESIGNED, rounds: i
 
 
 def sass_counts(library: pathlib.Path) -> Dict[str, Dict[str, int]]:
-    """Instructions by opcode (SASS_OPS, any suffix), in all ("all") and the
-    LDGs after the first of LATE_AFTER ("late LDG") of each kernel in
-    `library` whose name holds one of SASS_KERNELS, from ``cuobjdump -sass``
-    (the CUDA toolkit's), by mangled name."""
+    """:func:`count_sass` of ``cuobjdump -sass`` (the CUDA toolkit's) of
+    `library`."""
     tool = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True, check=True).stdout
+    return count_sass(subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                                     check=True).stdout)
+
+
+def count_sass(text: str) -> Dict[str, Dict[str, int]]:
+    """Instructions by opcode (SASS_OPS, any suffix), in all ("all") and the
+    LDGs after the first of each of LATE's opcodes (by LATE's key) of each
+    kernel in cuobjdump's SASS `text` whose name holds one of SASS_KERNELS,
+    by mangled name."""
     counts: Dict[str, Dict[str, int]] = {}
-    current, late = None, False
+    current, passed = None, set()  # passed: the keys of LATE whose first opcode has come
     is_op = lambda op, k: op == k or op.startswith(k + ".")  # noqa: E731
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            current = counts.setdefault(name, dict.fromkeys((*SASS_OPS, "all", "late LDG"), 0)) if any(
+            current = counts.setdefault(name, dict.fromkeys((*SASS_OPS, "all", *LATE), 0)) if any(
                 k in name for k in SASS_KERNELS) else None
-            late = False
+            passed = set()
             continue
         # "        /*0090*/                   @!P0 LDS.64 R4, [R2+0x10] ;"
         op = SASS_LINE.match(line) if current is not None else None
@@ -449,8 +500,10 @@ def sass_counts(library: pathlib.Path) -> Dict[str, Dict[str, int]]:
             current["all"] += 1
             for k in SASS_OPS:
                 current[k] += is_op(op, k)
-            current["late LDG"] += late and is_op(op, "LDG")
-            late = late or any(is_op(op, k) for k in LATE_AFTER)
+            for key, after in LATE.items():
+                current[key] += key in passed and is_op(op, "LDG")
+                if any(is_op(op, k) for k in after):
+                    passed.add(key)
     return counts
 
 
@@ -461,8 +514,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sass", action="store_true",
-                    help="also print the SASS counts of the merge step's, the copy's, the cumsum's and the mask matmul's "
-                         "kernels in each library")
+                    help="also print the SASS counts of the merge step's, the copy's, the cumsum's, the mask matmul's, "
+                         "the sublane gather's and the sized copy's kernels in each library")
     ap.add_argument("--labels", nargs="+", choices=REDESIGNED, default=REDESIGNED, help="the kernels (default: all)")
     ap.add_argument("--rounds", type=int, default=1, help="time each kernel's turns this many times over")
     args = ap.parse_args(argv)

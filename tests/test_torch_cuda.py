@@ -8,6 +8,7 @@ so that it runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q -p no:cacheprovider
 """
 
+import functools
 import importlib
 import json
 
@@ -1111,6 +1112,34 @@ def test_i1_to_bf16_astype_at_every_row_count(cuda, tile):
     assert torch.equal(got.cpu().float(), counts[:, None].expand(128, 128))
 
 
+@functools.lru_cache(maxsize=None)
+def _design_libs():
+    """The sublane gather's and the sized copy's other designs, built once."""
+    return PD.build(("direct", "count_first"))[0]
+
+
+@pytest.mark.parametrize("label,design", [*[("gather_sublanes_taa_axis0", d) for d in ("new", "direct")],
+                                          *[("dma_dynamic_size_rows", d) for d in ("new", "count_first")]])
+def test_gather_and_sized_copy_on_their_held_inputs(cuda, label, design):
+    """The sublane gather on a full-range random tile with idx all 0, all
+    63, the identity and random, and the sized copy at every s from -1 to
+    65 on full-range random rows: the shipped kernel (one counted launch a
+    call) and each other design, each equal bit for bit to the plain version
+    on the card and to the JAX probe's oracle.  No index outside [0, 64) is
+    launched: its trap would poison the context for the tests after it."""
+    probe = MP.BY_LABEL[label]
+    call = (lambda *a: MP.launch(probe, *a)) if design == "new" else PD.design_entries(_design_libs(), label)[design]
+    cases = list(PD.held_inputs(probe, cuda))
+    assert len(cases) == 1 + (4 if label == "gather_sublanes_taa_axis0" else len(PD.SIZED_HELD))
+    before = probe.kernel.launches
+    for args in cases:
+        got = call(*args)
+        assert torch.equal(got, MP.plain(probe, *args)), [a.flatten()[:4].tolist() for a in args]
+        host = [a.cpu().numpy() for a in args]
+        np.testing.assert_array_equal(got.cpu().numpy(), probe.oracle(*host))
+    assert probe.kernel.launches == before + (len(cases) if design == "new" else 0)
+
+
 @pytest.mark.parametrize("keys", ["full range", "ends"])
 @pytest.mark.parametrize("name", PR.MERGE_STEPS)
 def test_merge_step_matches_plain_on_full_range_keys(cuda, name, keys):
@@ -1234,16 +1263,19 @@ ONE_KERNEL = {"dma_unaligned_row_offset": ("slice_every_row", [8, 1, 1], [256, 1
               "mb_step_rollpair": ("merge_step", [1, 1, 1], [256, 1, 1]),
               "mb_step_taa": ("merge_step", [1, 1, 1], [256, 1, 1]),
               "cumsum_sublanes_f32": ("cumsum_rows", [4, 1, 1], [32, 1, 1]),
-              "i1_to_bf16_astype": ("mask_matmul", [8, 1, 1], [256, 1, 1])}
+              "i1_to_bf16_astype": ("mask_matmul", [8, 1, 1], [256, 1, 1]),
+              "gather_sublanes_taa_axis0": ("gather_stripe", [8, 1, 1], [256, 1, 1]),
+              "dma_dynamic_size_rows": ("copy_rows_sized", [8, 1, 1], [256, 1, 1])}
 
 
 @pytest.mark.parametrize("label", ONE_KERNEL)
 def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
     """One call of the row-offset copy, the scalar add, the transpose, the
-    HBM-to-HBM copy, the bitcast, a merge step, the column cumsum or the
-    mask matmul is one counted launch and exactly one kernel on the card,
-    with its name, grid and block (no fill, no wrapper-side copy, no host
-    read of s or R), equal to the plain version."""
+    HBM-to-HBM copy, the bitcast, a merge step, the column cumsum, the mask
+    matmul, the sublane gather or the sized copy is one counted launch and
+    exactly one kernel on the card, with its name, grid and block (no fill,
+    no wrapper-side copy, no host read of s or R), equal to the plain
+    version."""
     probe = _probe(label)
     args = MP.inputs_on(probe, cuda)
     MP.launch(probe, *args)
@@ -1263,6 +1295,30 @@ def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
     copies = [e["name"] for e in events if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
     assert not copies, copies
     assert (kernels[0]["args"]["grid"], kernels[0]["args"]["block"]) == (grid, block), kernels[0]["args"]
+
+
+def test_one_kernel_traces_with_the_design_libraries_loaded(cuda, tmp_path):
+    """With the other designs' libraries loaded in the process and each
+    launched, ten traced calls of each probe above still hold exactly its
+    one kernel: loading more kernel libraries adds nothing to a trace."""
+    libs = _design_libs()
+    for label in ("gather_sublanes_taa_axis0", "dma_dynamic_size_rows"):
+        args = MP.inputs_on(MP.BY_LABEL[label], cuda)
+        for call in PD.design_entries(libs, label).values():
+            call(*args)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for label, (name, _, _) in ONE_KERNEL.items():
+        probe = _probe(label)
+        args = MP.inputs_on(probe, cuda)
+        for round_ in range(10):
+            with torch.profiler.profile(activities=activities) as prof:
+                MP.launch(probe, *args)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(tmp_path / "trace.json"))
+            events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+            kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+            assert len(kernels) == 1 and name in kernels[0], (label, round_, kernels)
 
 
 @pytest.mark.parametrize("name", PR.MERGE_STEPS)

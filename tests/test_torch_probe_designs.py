@@ -5,9 +5,10 @@ text exactly once; the wgmma wrapper that the tool writes for a tile width
 must be the source's own at the source's width; each redesigned kernel has
 its earlier source's path, its turns and, where PyTorch has one, a library
 call (the mask matmul has none: its staging turn stands in); the column
-cumsum's and the mask matmul's held tiles show what they must catch.  The
-builds and times need the card (``chip_smoke.py``'s ``probes``
-phase)."""
+cumsum's, the mask matmul's, the sublane gather's and the sized copy's
+held inputs show what they must catch; ``--sass``'s counts are read right
+from cuobjdump's text.  The builds and times need the card
+(``chip_smoke.py``'s ``probes`` phase)."""
 
 import numpy as np
 import pytest
@@ -30,7 +31,9 @@ SWITCHES = {"quads": [TRANSPOSE_REGISTERS],
             "warp_rows": [(PD.HBM_THREADS, "constexpr int kHbmThreads = 32;")],
             "exchange": [(PD.STEP_SHUFFLE, "constexpr bool kStepShuffle = false;")],
             "cumsum_staged": [(PD.CUMSUM_STAGED, "constexpr bool kCumsumStaged = true;")],
-            "cumsum_block": [(PD.CUMSUM_THREADS, "constexpr int kCumsumThreads = 128;")]}
+            "cumsum_block": [(PD.CUMSUM_THREADS, "constexpr int kCumsumThreads = 128;")],
+            "direct": [(PD.GATHER_DIRECT, "constexpr bool kGatherDirect = true;")],
+            "count_first": [(PD.SIZED_COUNT_FIRST, "constexpr bool kSizedCountFirst = true;")]}
 R4_DESIGNS = ("exchange", "mask_staging")  # the designs made from probe_r4.cu
 
 
@@ -98,14 +101,18 @@ def test_redesigned_kernel_has_its_earlier_source_turns_and_library_call(label):
 
 
 def test_every_kernel_of_the_tools_is_redesigned_once():
-    """The table names twelve redesigned kernels (the merge step's two forms
-    are one kernel), each with an earlier design, and no kernel is left
-    timed against its library call alone; the column cumsum and the mask
-    matmul were redesigned together."""
-    assert len(PD.REDESIGNED) == 13 and len(set(PD.REDESIGNED)) == 13
+    """The table names fourteen redesigned kernels (the merge step's two
+    forms are one kernel), each with an earlier design, and no kernel is
+    left timed against its library call alone; the column cumsum and the
+    mask matmul were redesigned together, and so were the sublane gather
+    and the sized copy."""
+    assert len(PD.REDESIGNED) == 15 and len(set(PD.REDESIGNED)) == 15
     assert set(PD.TURNS) == set(PD.REDESIGNED) and not hasattr(PD, "UNCHANGED")
     assert {PD.BEFORE[name] for name in PR.MERGE_STEPS} == {PD.BEFORE["bitcast_f32_u32"]}
     assert PD.BEFORE["cumsum_sublanes_f32"] == PD.BEFORE["i1_to_bf16_astype"] == "9e5ff2a"
+    assert PD.BEFORE["gather_sublanes_taa_axis0"] == PD.BEFORE["dma_dynamic_size_rows"] == "81001b6"
+    assert PD.TURNS["gather_sublanes_taa_axis0"] == ("earlier", "direct")
+    assert PD.TURNS["dma_dynamic_size_rows"] == ("earlier", "count_first")
 
 
 def test_held_inputs_cover_every_window_row():
@@ -247,3 +254,91 @@ def test_held_inputs_hold_the_cumsum_and_the_mask_matmul(label):
         assert cases[-1].abs().max() < 10 and cases[-1].std() > 0.5  # the normals
     nan = torch.tensor([float("nan"), -0.0])
     assert PD.same_bits(nan, nan.clone()) and not PD.same_bits(nan, torch.tensor([float("nan"), 0.0]))
+
+
+def _slips(x, idx):
+    """The sublane gather with its row slipped by one, or its column by one
+    or by a 16-byte word: what a wrong stripe or word would give."""
+    cols = torch.arange(x.shape[1])[None]
+    return {"row + 1": x[(idx.long() + 1) % 64, cols], "column + 1": x[idx.long(), (cols + 1) % x.shape[1]],
+            "column - 4": x[idx.long(), (cols - 4) % x.shape[1]]}
+
+
+def test_held_inputs_hold_the_sublane_gather_on_four_index_tiles():
+    """The sublane gather's designs are held at the probe's inputs and on
+    one full-range random tile with idx all 0, all 63, the identity and
+    random; its plain version is x[idx[r, c], c] (the JAX probe's
+    take_along_axis), the identity gives x, and on each of the four a
+    slipped row or column gives another output."""
+    probe = MP.BY_LABEL["gather_sublanes_taa_axis0"]
+    cases = list(PD.held_inputs(probe, "cpu"))
+    tiles = PD.gather_indices()
+    assert list(tiles) == ["zeros", "last", "identity", "random"] and len(cases) == 5
+    assert [tuple(a.shape) for a in cases[0]] == [tuple(a.shape) for a in cases[1]]
+    x = cases[1][0]
+    assert all(c[0] is x for c in cases[1:]) and x.min() < -2 ** 30 and x.max() > 2 ** 30
+    assert len(torch.unique(x)) > x.numel() * 0.99
+    for (got_x, idx), (name, want_idx) in zip(cases[1:], tiles.items()):
+        assert idx.dtype == torch.int32 and np.array_equal(idx.numpy(), want_idx)
+        assert idx.min() >= 0 and idx.max() < 64
+        got = MP.plain(probe, got_x, idx)
+        assert torch.equal(got, torch.from_numpy(np.take_along_axis(x.numpy(), want_idx, 0)))
+        assert torch.equal(got, x) == (name == "identity")
+        for slip, other in _slips(x, idx).items():
+            assert not torch.equal(other, got), (name, slip)
+    assert len(np.unique(tiles["random"])) == 64
+    assert (tiles["identity"] == np.arange(64)[:, None]).all()
+
+
+def test_held_inputs_hold_the_sized_copy_at_every_count():
+    """The sized copy's designs are held at the probe's s = 8 and at every s
+    from -1 to 65 on one set of full-range random rows: its plain version
+    keeps the first s rows, clamped to [0, 64], and zeros the rest, as the
+    JAX probe's oracle does."""
+    probe = MP.BY_LABEL["dma_dynamic_size_rows"]
+    cases = list(PD.held_inputs(probe, "cpu"))
+    assert [int(s) for s, _ in cases[1:]] == list(range(-1, 66)) == list(PD.SIZED_HELD)
+    rows = cases[1][1]
+    assert all(r is rows for _, r in cases[1:]) and rows.min() < -2 ** 30 and rows.max() > 2 ** 30
+    assert not (rows == 0).any()  # a zero row of the output is the kernel's
+    for s, src in cases:
+        got = MP.plain(probe, s, src)
+        kept = min(max(int(s), 0), 64)
+        assert torch.equal(got[:kept], src[:kept]) and not got[kept:].any()
+        np.testing.assert_array_equal(got.numpy(), probe.oracle(s.numpy(), src.numpy()))
+
+
+# cuobjdump -sass's layout, cut down: a kernel to count, then one that is not
+SASS_TEXT = """
+        Function : _ZN12_GLOBAL__N_113gather_stripeEPK4int4S2_PS0_
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                       /* 0x00000a00ff017b82 */
+        /*0010*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;   /* 0x000000040204798b */
+        /*0020*/                   LDG.E.128.CONSTANT R8, desc[UR4][R6.64] ;   /* 0x000000040608798b */
+        /*0030*/                   STS.128 [R0], R4 ;                           /* 0x0000000400007388 */
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;                /* 0x0000000000007b1d */
+        /*0050*/              @!P0 LDS R12, [R13] ;                             /* 0x000000000d0c8984 */
+        /*0060*/                   LDG.E R14, desc[UR4][R2.64] ;               /* 0x000000040203e981 */
+        /*0070*/                   FADD R15, R14, R12 ;                         /* 0x0000000c0e0f7221 */
+        /*0080*/                   LDG.E R16, desc[UR4][R2.64+0x4] ;           /* 0x000000040210e981 */
+        /*0090*/                   STG.E.128 desc[UR4][R2.64], R4 ;            /* 0x000000040200e986 */
+        /*00a0*/                   EXIT ;                                       /* 0x000000000000794d */
+        Function : _ZN12_GLOBAL__N_112sort_rowsEPKiPii
+        /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;                /* 0x000000040204e981 */
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;                /* 0x0000000000007b1d */
+"""
+
+
+def test_count_sass_counts_ops_and_the_loads_behind_a_barrier_or_an_add():
+    """--sass's counts from cuobjdump's text: opcodes with any suffix (a
+    predicated one too), every instruction, the LDGs after the first FADD or
+    HMMA ("late LDG") and after the first BAR.SYNC, only for kernels named
+    in SASS_KERNELS (the sublane gather's and the sized copy's among
+    them)."""
+    assert {"gather_stripe", "gather_direct", "gather_sublanes", "copy_rows_sized"} <= set(PD.SASS_KERNELS)
+    counts = PD.count_sass(SASS_TEXT)
+    assert list(counts) == ["_ZN12_GLOBAL__N_113gather_stripeEPK4int4S2_PS0_"]
+    (got,) = counts.values()
+    assert {k: got[k] for k in ("LDG", "STS", "BAR.SYNC", "LDS", "FADD", "STG", "HMMA")} == {
+        "LDG": 4, "STS": 1, "BAR.SYNC": 1, "LDS": 1, "FADD": 1, "STG": 1, "HMMA": 0}
+    assert got["all"] == 11 and got["late LDG"] == 1 and got["LDG after BAR.SYNC"] == 2
