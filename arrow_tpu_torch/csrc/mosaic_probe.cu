@@ -11,22 +11,22 @@
 // puts one after another.  What each shows is that the card does the probe's
 // operation in the way the TPU kernel did:
 //
-// - lane movement (gathers, rolls, scans, the in-row sort) is done by a warp
-//   that holds a 128-wide row as 4 registers a lane, element c in register
-//   c >> 5 of lane c & 31, with __shfl_sync / __shfl_up_sync / __shfl_xor_sync
-//   and a select on the source register;
-// - row movement (the sublane gather, the row store, the transpose) goes
-//   through a tile in shared memory;
+// - lane movement (gathers, rolls, scans) is done by a warp that holds a
+//   128-wide row as 4 registers a lane, element c in register c >> 5 of lane
+//   c & 31, with __shfl_sync / __shfl_up_sync and a select on the source
+//   register; the in-row sort holds 4 consecutive elements a lane (below);
+// - row movement (the sublane gather, the row write and store, the
+//   transpose) goes through a tile in shared memory;
 // - the DMA probes (the row-offset copy, the row write, the sized copy and
 //   the HBM-to-HBM copy) move 16 bytes a thread since their redesigns
 //   (below); three of the bulk-copy designs (cp.async.bulk, the TMA's
 //   one-dimensional form, on an mbarrier or a bulk group) stay behind
 //   kOffsetBulk, kWriteBulk and kHbmBulk.
 //
-// Twelve kernels here (and probe_r4.cu's merge step and mask matmul) are laid
-// out for the card rather than for the TPU's tiles, so that every global load is
-// in flight at once and nothing waits on a round trip that an earlier one
-// could have covered:
+// Fourteen kernels here (and probe_r4.cu's merge step and mask matmul) are
+// laid out for the card rather than for the TPU's tiles, so that every global
+// load is in flight at once and nothing waits on a round trip that an earlier
+// one could have covered:
 //
 // - dynamic_slice_vmem_rows (the probe through simple_call, :61: rows
 //   [s, s + 8) of a (64, 128) int32 tile, s a device scalar).  Bound by
@@ -142,6 +142,27 @@
 //   rows issued after s's load, on an mbarrier) took 1.47x as long on an
 //   H100, in turns; reading s first and then only its rows
 //   (kSizedCountFirst true) 1.03-1.05x.
+// - dynamic_store_vmem_rows (the probe through simple_call, :61: a's 8 rows
+//   at row s of a zeroed (64, 128) int32 output) is the row write's
+//   function, so its C entry launches write_rows: 8 blocks loading s and the
+//   rows together, zeros before the barrier, the window after it.  Bound by
+//   bytes: 36 KB, 0.011 us.  The earlier design (one block of 1024 threads:
+//   a 32 KB shared tile zeroed by 4-byte stores, a barrier, then s, then a's
+//   rows, a second barrier, 4-byte stores out) took 1.47x as long on an
+//   H100 80GB HBM3 at 700 W, in turns, twice (tools/probe_designs.py).
+// - lax_sort_in_kernel (the probe through simple_call, :61: each row of an
+//   (8, 128) int32 tile sorted ascending).  Bound by bytes: 8 KB, 0.0024 us.
+//   A warp a row, each in a block of its own so that the 8 rows run on 8
+//   SMs; lane L holds elements 4L..4L+3 (one 16-byte load, one 16-byte
+//   store).  Of the bitonic network's 28 stages, the 13 of distance 1 and 2
+//   are compare-exchanges between a lane's registers and the 15 of distance
+//   4-64 shuffles: 60 SHFL a warp in a chain of 15 stages.  The earlier
+//   design (one block of 8 warps, element c in register c >> 5 of lane
+//   c & 31, 4-byte accesses: 100 SHFL a warp in a chain of 25) took
+//   1.18-1.20x as long on an H100 80GB HBM3 at 700 W, in turns; 8
+//   consecutive elements a lane, 16 lanes a row in 4 blocks (kSortEightALane
+//   true: 10 shuffle stages of 8 SHFL, twice the register work a stage)
+//   1.05-1.06x.
 //
 // One C entry a probe, arrow_probe_<label>(inputs..., out, stream), in the
 // order of the JAX probe's pallas_call arguments (the device scalar first
@@ -350,18 +371,6 @@ __global__ void __launch_bounds__(kTileThreads)
 __global__ void __launch_bounds__(kTileThreads)
     slice_window(const int32_t* __restrict__ s, const int4* __restrict__ a, int4* __restrict__ out) {
   out[threadIdx.x] = __ldg(a + window_row(__ldg(s)) * kRowWords + threadIdx.x);
-}
-
-// dynamic_store_vmem_rows: a zeroed (64, 128) tile in shared memory with a's
-// 8 rows stored at row s, written out whole
-__global__ void store_rows(const int32_t* s, const int32_t* a, int32_t* out) {
-  __shared__ int32_t tile[64 * kLanes];
-  for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) tile[i] = 0;
-  __syncthreads();
-  const int first = window_row(s[0]);
-  for (int i = threadIdx.x; i < 8 * kLanes; i += blockDim.x) tile[first * kLanes + i] = a[i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < 64 * kLanes; i += blockDim.x) out[i] = tile[i];
 }
 
 // transpose_32b_128x128's designs: a 32 x 32 tile a block in shared memory
@@ -677,33 +686,64 @@ __global__ void __launch_bounds__(kCumsumThreads)
   }
 }
 
-// Each 128-wide row sorted ascending by a bitonic network: a warp a row, the
-// stages of distance 32 and 64 between a lane's registers, the shorter ones
-// by __shfl_xor_sync.
-__global__ void sort_rows(const int32_t* a, int32_t* out, int rows) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (r >= rows) return;
-  int32_t v[4];
+// lax_sort_in_kernel's designs: kSortPer consecutive elements of a row a
+// lane, 4 (a warp a row, a block a row) or 8 (kSortEightALane: 16 lanes a
+// row, two rows a warp, a block a warp)
+constexpr bool kSortEightALane = false;
+constexpr int kSortPer = kSortEightALane ? 8 : 4;
+constexpr int kSortRowLanes = kLanes / kSortPer;   // lanes a row
+constexpr int kSortWords = kSortPer / 4;           // 16-byte words a lane
+constexpr int kSortRows = 32 / kSortRowLanes;      // rows a block of one warp
+
+// Each 128-wide row of the (8, 128) tile sorted ascending by a bitonic
+// network, with bitonic_rows' keep_min rule: lane h of a row holds elements
+// kSortPer h.. of it in v[0..kSortPer), loaded and stored 16 bytes at a time.
+// A stage of distance d < kSortPer compare-exchanges the lane's own v[j] and
+// v[j | d] (compile-time indices, so nothing goes to local memory); a longer
+// one trades each register with lane h ^ (d / kSortPer) by __shfl_xor_sync.
+// No shared memory, no barrier.
+__global__ void __launch_bounds__(32) sort_rows(const int4* __restrict__ a, int4* __restrict__ out) {
+  const int h = threadIdx.x % kSortRowLanes;
+  const int i = (blockIdx.x * 32 + threadIdx.x) * kSortWords;  // the lane's first 16-byte word of the tile
+  int32_t v[kSortPer];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = a[r * kLanes + j * 32 + lane];
+  for (int w = 0; w < kSortWords; ++w) {
+    const int4 x = __ldg(a + i + w);
+    v[4 * w] = x.x;
+    v[4 * w + 1] = x.y;
+    v[4 * w + 2] = x.z;
+    v[4 * w + 3] = x.w;
+  }
+  const int c0 = kSortPer * h;  // the row's element in v[0]
 #pragma unroll
-  for (int k = 2; k <= kLanes; k <<= 1) {
+  for (int lk = 1; (1 << lk) <= kLanes; ++lk) {  // stages k = 2, 4, ..., 128
+    const int k = 1 << lk;
 #pragma unroll
-    for (int d = k >> 1; d > 0; d >>= 1) {
-      int32_t p[4];
+    for (int ld = lk - 1; ld >= 0; --ld) {  // distances d = k / 2, ..., 1
+      const int d = 1 << ld;
+      if (d < kSortPer) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p[j] = d >= 32 ? v[j ^ (d >> 5)] : __shfl_xor_sync(kFull, v[j], d);
+        for (int j = 0; j < kSortPer; ++j) {
+          if (j & d) continue;  // each pair (j, j | d) once: element c0 + j keeps the min when ascending
+          const bool up = ((c0 + j) & k) == 0;
+          const int32_t lo = min(v[j], v[j | d]), hi = max(v[j], v[j | d]);
+          v[j] = up ? lo : hi;
+          v[j | d] = up ? hi : lo;
+        }
+      } else {
+        const bool keep_min = ((c0 & d) == 0) == ((c0 & k) == 0);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = j * 32 + lane;
-        const bool keep_min = ((c & d) == 0) == ((c & k) == 0);
-        v[j] = keep_min ? min(v[j], p[j]) : max(v[j], p[j]);
+        for (int j = 0; j < kSortPer; ++j) {
+          const int32_t p = __shfl_xor_sync(kFull, v[j], d / kSortPer, kSortRowLanes);
+          v[j] = keep_min ? min(v[j], p) : max(v[j], p);
+        }
       }
     }
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) out[r * kLanes + j * 32 + lane] = v[j];
+  for (int w = 0; w < kSortWords; ++w) {
+    out[i + w] = make_int4(v[4 * w], v[4 * w + 1], v[4 * w + 2], v[4 * w + 3]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -957,7 +997,7 @@ int arrow_probe_dynamic_slice_vmem_rows(const void* s, const void* a, void* out,
 }
 
 int arrow_probe_dynamic_store_vmem_rows(const void* s, const void* a, void* out, void* stream) {
-  store_rows<<<1, 1024, 0, STREAM>>>(in<int32_t>(s), in<int32_t>(a), out_<int32_t>(out));
+  write_rows<kWriteBulk><<<64 / kTileRows, kTileThreads, 0, STREAM>>>(in<int32_t>(s), in<int4>(a), out_<int4>(out));
   return done();
 }
 
@@ -1016,7 +1056,7 @@ int arrow_probe_cumsum_sublanes_f32(const void* a, void* out, void* stream) {
 }
 
 int arrow_probe_lax_sort_in_kernel(const void* a, void* out, void* stream) {
-  sort_rows<<<1, 8 * 32, 0, STREAM>>>(in<int32_t>(a), out_<int32_t>(out), 8);
+  sort_rows<<<kTileRows / kSortRows, 32, 0, STREAM>>>(in<int4>(a), out_<int4>(out));
   return done();
 }
 

@@ -7,7 +7,9 @@ turns on one card.
 ``dma_unaligned_row_write``, ``dma_unaligned_row_offset``,
 ``prefetch_scalar_grid``, ``transpose_32b_128x128``, ``hbm_to_hbm_dma``,
 ``bitcast_f32_u32``, ``cumsum_sublanes_f32``, the sublane gather
-``gather_sublanes_taa_axis0`` and the sized copy ``dma_dynamic_size_rows``
+``gather_sublanes_taa_axis0``, the sized copy ``dma_dynamic_size_rows``,
+the row store ``dynamic_store_vmem_rows`` (whose C entry launches the row
+write's ``write_rows``) and the in-row sort ``lax_sort_in_kernel``
 (``csrc/mosaic_probe.cu``),
 and the merge step in its two forms, ``mb_step_rollpair`` and
 ``mb_step_taa``, and the mask matmul ``i1_to_bf16_astype``
@@ -61,31 +63,37 @@ design, all started together):
   dependent round trip), in place of a 16-column stripe a block through
   shared memory with x and idx loaded together;
 - ``count_first``: the sized copy loading s and then only the rows below
-  it (two round trips), in place of every row loaded with s (one).
+  it (two round trips), in place of every row loaded with s (one);
+- ``eight_a_lane``: the in-row sort with 16 lanes a row, 8 consecutive
+  elements a lane (two 16-byte loads), two rows a warp in 4 blocks of one
+  warp (18 stages between a lane's registers, 10 by shuffles of width 16),
+  in place of a warp a row, 4 elements a lane, in 8 blocks (13 stages in
+  registers, 15 by shuffles).
 
 Every design but ``staging`` is first held to the plain version on the
-probe's inputs, a row window's at every legal s on random rows, the
-scalar add's on full-range rows and scalars, where the sum wraps, the
-transpose's, the copy's and the bitcast's on a full-range random tile, the
-sublane gather's on a full-range random tile with each of
-:func:`gather_indices`, the sized copy's at every s from -1 to 65 (the
-clamp's both sides) on full-range random rows, and the merge step's (one
-block) on keys in [0, 100) with many ties, on full-range keys and on all
-INT_MIN against all INT_MAX, each at R = 0, 1 and 5, the column cumsum's bit for bit on an order-sensitive tile
-(:func:`ordered_tile`) and on normals, and the mask matmul's on every row
-count from 0 to 128 (:func:`count_tiles`).  Then each kernel is timed in turns: plain, new, library, new, a
-design, new, the next design, new, ...; device ms a call, queued behind a
-spin kernel (:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`),
-beside an empty kernel's; the library call is
-:func:`mosaic_probe.library_call`'s (``x + 1``, ``torch._int_mm``, a slice's
-``clone``, ``F.pad``, ``x + s``, ``t().contiguous()``, ``torch.cumsum``,
-``torch.take_along_dim``); a
-kernel without one (the mask matmul) is timed plain, new, a design, new,
-....  The merge step has
-no library call, and its plain version reads R on the host, so it is timed
-new, a design, new, ...: the probe's call at R = 3, and us a step on one
-block from the slope between two R (:func:`probe_r4.us_per_step`), beside
-one SM's floor for a step (its operations over one SM's integer rate).
+probe's inputs, a row window's (the row store's too) at every legal s on
+full-range random rows, the scalar add's on full-range rows and scalars,
+where the sum wraps, the transpose's, the copy's and the bitcast's on a
+full-range random tile, the sublane gather's on a full-range random tile
+with each of :func:`gather_indices`, the sized copy's at every s from -1 to
+65 (the clamp's both sides) on full-range random rows, and the merge step's
+(one block) on keys in [0, 100) with many ties, on full-range keys and on
+all INT_MIN against all INT_MAX, each at R = 0, 1 and 5, the column cumsum's
+bit for bit on an order-sensitive tile (:func:`ordered_tile`) and on
+normals, the mask matmul's on every row count from 0 to 128
+(:func:`count_tiles`), and the in-row sort's on each of :func:`sort_tiles`.
+Then each kernel is timed in turns: plain, new, library, new, a design, new,
+the next design, new, ...; device ms a call, queued behind a spin kernel
+(:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`), beside an
+empty kernel's; the library call is :func:`mosaic_probe.library_call`'s
+(``x + 1``, ``torch._int_mm``, a slice's ``clone``, ``F.pad``, ``x + s``,
+``t().contiguous()``, ``torch.cumsum``, ``torch.take_along_dim``,
+``torch.sort``); a kernel without one (the mask matmul) is timed plain, new,
+a design, new, .... The merge step has no library call, and its plain
+version reads R on the host, so it is timed new, a design, new, ...: the
+probe's call at R = 3, and us a step on one block from the slope between two
+R (:func:`probe_r4.us_per_step`), beside one SM's floor for a step (its
+operations over one SM's integer rate).
 ``chip_smoke.py``'s ``probes`` phase runs the same.
 """
 
@@ -121,11 +129,13 @@ BEFORE = {"grid_1d_blockspec": "9d785cc", "matmul_int8_s32acc": "9d785cc",
           "transpose_32b_128x128": "9f34100", "hbm_to_hbm_dma": "9f34100",
           "bitcast_f32_u32": "aeb9ac2", "mb_step_rollpair": "aeb9ac2", "mb_step_taa": "aeb9ac2",
           "cumsum_sublanes_f32": "9e5ff2a", "i1_to_bf16_astype": "9e5ff2a",
-          "gather_sublanes_taa_axis0": "81001b6", "dma_dynamic_size_rows": "81001b6"}
+          "gather_sublanes_taa_axis0": "81001b6", "dma_dynamic_size_rows": "81001b6",
+          "dynamic_store_vmem_rows": "dfc6a14", "lax_sort_in_kernel": "dfc6a14"}
 REDESIGNED = tuple(BEFORE)
 FILLED_BEFORE = ("dma_unaligned_row_write",)  # earlier designs that wrote into an output zeroed by the wrapper
 # a window at device row s in [0, 56]
-WINDOWED = ("dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset")
+WINDOWED = ("dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset",
+            "dynamic_store_vmem_rows")
 WRAPPED = ("prefetch_scalar_grid",)  # an int32 sum that wraps
 FULL_RANGE = ("transpose_32b_128x128", "hbm_to_hbm_dma", "bitcast_f32_u32")  # held on a full-range random tile too
 SIZED_HELD = range(-1, 64 + 2)  # the sized copy's s on the held inputs: every row count and the clamp's both sides
@@ -148,13 +158,14 @@ CUMSUM_STAGED = "constexpr bool kCumsumStaged = false;"
 CUMSUM_THREADS = "constexpr int kCumsumThreads = 32;"
 GATHER_DIRECT = "constexpr bool kGatherDirect = false;"
 SIZED_COUNT_FIRST = "constexpr bool kSizedCountFirst = false;"
+SORT_EIGHT_A_LANE = "constexpr bool kSortEightALane = false;"
 MASK_PRODUCT_CALL = "  mask_product(c, sa, lane);\n"
 # in its place in mask_staging: the band's address escapes, so its stores (and the loads and compares) stay
 MASK_STAGING_STANDIN = '  asm volatile("" : : "r"(sa) : "memory");\n'
 STAGING = ("staging", "mask_staging")  # designs with a part cut out: timed, not held to the plain version
 # the kernels whose SASS --sass counts
 SASS_KERNELS = ("merge_step", "copy_rows_direct", "bitcast_f32", "cumsum_rows", "mask_matmul", "gather_stripe",
-                "gather_direct", "gather_sublanes", "copy_rows_sized")
+                "gather_direct", "gather_sublanes", "copy_rows_sized", "sort_rows", "write_rows", "store_rows")
 SASS_OPS = ("BAR.SYNC", "LDS", "STS", "SHFL", "LDG", "STG", "ISETP", "SEL", "FADD", "HMMA")
 # LDGs counted after the first of these in a kernel: "late LDG" after its first FADD or HMMA (loads behind
 # its arithmetic), "LDG after BAR.SYNC" after its first barrier (loads behind it)
@@ -170,7 +181,8 @@ TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "s
          "cumsum_sublanes_f32": ("earlier", "cumsum_staged", "cumsum_block"),
          "i1_to_bf16_astype": ("earlier", "mask_staging"),
          "gather_sublanes_taa_axis0": ("earlier", "direct"),
-         "dma_dynamic_size_rows": ("earlier", "count_first")}
+         "dma_dynamic_size_rows": ("earlier", "count_first"),
+         "dynamic_store_vmem_rows": ("earlier",), "lax_sort_in_kernel": ("earlier", "eight_a_lane")}
 
 
 def wgmma_wrapper(n: int) -> str:
@@ -243,7 +255,8 @@ def design_sources() -> Dict[str, str]:
                "cumsum_block": _once(text, CUMSUM_THREADS, CUMSUM_THREADS.replace("32", "128")),
                "mask_staging": _once(r4, MASK_PRODUCT_CALL, MASK_STAGING_STANDIN),
                "direct": _once(text, GATHER_DIRECT, GATHER_DIRECT.replace("false", "true")),
-               "count_first": _once(text, SIZED_COUNT_FIRST, SIZED_COUNT_FIRST.replace("false", "true"))}
+               "count_first": _once(text, SIZED_COUNT_FIRST, SIZED_COUNT_FIRST.replace("false", "true")),
+               "eight_a_lane": _once(text, SORT_EIGHT_A_LANE, SORT_EIGHT_A_LANE.replace("false", "true"))}
     for label in REDESIGNED:
         if earlier_source(label).is_file():
             designs[library_name(label, "earlier")] = earlier_source(label).read_text()
@@ -368,21 +381,48 @@ def gather_indices() -> Dict[str, np.ndarray]:
             "random": np.random.default_rng(20).integers(0, 64, shape, np.int32)}
 
 
+def sort_tiles() -> Dict[str, np.ndarray]:
+    """The in-row sort's (8, 128) int32 tiles beyond the probe's: full-range
+    random values with INT_MIN and INT_MAX in every row, all values equal,
+    rows already ascending, rows descending, rows of only 4 distinct values,
+    and rows that are bitonic sequences (ascending, then descending, turning
+    at a random column), so that a stage that compares the wrong way
+    shows."""
+    rng = np.random.default_rng(21)
+    shape = (8, MP.LANES)
+    full = rng.integers(-2 ** 31, 2 ** 31, shape, np.int32)
+    for row in full:
+        row[rng.permutation(MP.LANES)[:2]] = [-2 ** 31, 2 ** 31 - 1]
+    ascending = np.sort(rng.integers(-2 ** 31, 2 ** 31, shape, np.int32), 1)
+    bitonic = np.sort(rng.integers(-2 ** 31, 2 ** 31, shape, np.int32), 1)
+    for row in bitonic:
+        turn = rng.integers(1, MP.LANES)
+        row[turn:] = row[turn:][::-1].copy()
+    four = np.int32([-2 ** 31, -1, 0, 2 ** 31 - 1])
+    return {"full range": full, "equal": np.full(shape, -7, np.int32), "ascending": ascending,
+            "descending": ascending[:, ::-1].copy(), "four values": rng.choice(four, shape),
+            "bitonic": bitonic}
+
+
 def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
     """The inputs each design is held to the plain version on: the probe's;
-    for a row window every legal s on full-range random rows; for the scalar
-    add full-range rows with a scalar at either end of the int32 range; for
-    the transpose, the copy and the bitcast a full-range random tile; for
-    the merge steps each of ``step_pairs`` at each R of STEP_HELD_R; for the
-    column cumsum ``ordered_tile`` and normals; for the mask matmul each of
-    ``count_tiles``; for the sublane gather a full-range random tile with
-    each of ``gather_indices``; for the sized copy each s of SIZED_HELD on
-    full-range random rows."""
+    for a row window (the row store too) every legal s on full-range random
+    rows; for the scalar add full-range rows with a scalar at either end of
+    the int32 range; for the transpose, the copy and the bitcast a
+    full-range random tile; for the merge steps each of ``step_pairs`` at
+    each R of STEP_HELD_R; for the column cumsum ``ordered_tile`` and
+    normals; for the mask matmul each of ``count_tiles``; for the sublane
+    gather a full-range random tile with each of ``gather_indices``; for the
+    sized copy each s of SIZED_HELD on full-range random rows; for the
+    in-row sort each of ``sort_tiles``."""
     yield MP.inputs_on(probe, device)
     if probe.label == "gather_sublanes_taa_axis0":
         x = _full_range((64, MP.LANES), device)
         for idx in gather_indices().values():
             yield [x, torch.from_numpy(idx).to(device)]
+    if probe.label == "lax_sort_in_kernel":
+        for tile in sort_tiles().values():
+            yield [torch.from_numpy(tile).to(device)]
     if probe.label == "dma_dynamic_size_rows":
         rows = _full_range((64, MP.LANES), device)
         for s in SIZED_HELD:
@@ -515,7 +555,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sass", action="store_true",
                     help="also print the SASS counts of the merge step's, the copy's, the cumsum's, the mask matmul's, "
-                         "the sublane gather's and the sized copy's kernels in each library")
+                         "the sublane gather's, the sized copy's, the row write's and store's and the in-row sort's "
+                         "kernels in each library")
     ap.add_argument("--labels", nargs="+", choices=REDESIGNED, default=REDESIGNED, help="the kernels (default: all)")
     ap.add_argument("--rounds", type=int, default=1, help="time each kernel's turns this many times over")
     args = ap.parse_args(argv)

@@ -126,22 +126,18 @@ Phases, each printing lines that start with its name:
    clone, pad, x + 1, ...; none for the mask product, whose bf16 matmul of a
    mask made beforehand is printed apart), and back to back (the wrapper's
    rate); the merge steps' us a step beside one SM's floor for a step (its
-   operations over one SM's integer rate); the ten redesigned kernels,
-   grid_1d_blockspec, matmul_int8_s32acc, dynamic_slice_vmem_rows,
-   dma_unaligned_row_write, dma_unaligned_row_offset, prefetch_scalar_grid,
-   transpose_32b_128x128, hbm_to_hbm_dma, bitcast_f32_u32 and the merge step
-   (mb_step_rollpair, mb_step_taa), timed in turns with their other designs
+   operations over one SM's integer rate); the sixteen redesigned kernels
+   (probe_designs.REDESIGNED: P2, the int8 product, the row slice, P4, P3,
+   P7, the transpose, P6, the bitcast, the merge step in both forms, the
+   column cumsum, P9, the sublane gather, P5, the row store and the in-row
+   sort) timed in turns with their other designs
    (arrow_tpu_torch.tools.probe_designs: the earlier mosaic_probe.cu or
-   probe_r4.cu where build/parent/<commit> holds it, the int8 product's
-   staging alone and its wider tiles, the slice's window-only read, the
-   write's bulk copies, the row-offset copy's bulk copy in, the scalar add
-   in one block, the transpose's 4 x 4 register blocks in blocks of 128 and
-   256 threads, the copy's bulk copies and its warp a row, the merge
-   step's short stages after a second exchange), each held to its plain
-   version first (the row windows at every s, the scalar add where its sum
-   wraps, the transpose, the copy and the bitcast on a full-range tile, the
-   merge steps on tied, full-range and extreme keys at R = 0, 1 and 5); the
-   merge steps also in us a step on one block, in turns;
+   probe_r4.cu where build/parent/<commit> holds it, and each kernel's
+   alternatives, listed in that module), each held to its plain version
+   first on the inputs that its held_inputs gives (the row windows at every
+   s, the scalar add where its sum wraps, full-range tiles, the merge steps
+   on tied, full-range and extreme keys at R = 0, 1 and 5, the sort on six
+   tiles, ...); the merge steps also in us a step on one block, in turns;
 10. profile: each query at each size under torch.profiler: device busy time,
    the device time in fills and in copies, the device's idle share of the
    query's wall time (also without the idle time spent in the profiler's

@@ -1114,8 +1114,9 @@ def test_i1_to_bf16_astype_at_every_row_count(cuda, tile):
 
 @functools.lru_cache(maxsize=None)
 def _design_libs():
-    """The sublane gather's and the sized copy's other designs, built once."""
-    return PD.build(("direct", "count_first"))[0]
+    """The sublane gather's, the sized copy's and the in-row sort's other
+    designs, built once."""
+    return PD.build(("direct", "count_first", "eight_a_lane"))[0]
 
 
 @pytest.mark.parametrize("label,design", [*[("gather_sublanes_taa_axis0", d) for d in ("new", "direct")],
@@ -1127,10 +1128,17 @@ def test_gather_and_sized_copy_on_their_held_inputs(cuda, label, design):
     call) and each other design, each equal bit for bit to the plain version
     on the card and to the JAX probe's oracle.  No index outside [0, 64) is
     launched: its trap would poison the context for the tests after it."""
+    _hold_on_held_inputs(cuda, label, design, 4 if label == "gather_sublanes_taa_axis0" else len(PD.SIZED_HELD))
+
+
+def _hold_on_held_inputs(cuda, label, design, extra):
+    """The probe's kernel ("new", one counted launch a call) or its other
+    design on the probe's inputs and the `extra` cases of held_inputs, each
+    equal to the plain version on the card and to the JAX probe's oracle."""
     probe = MP.BY_LABEL[label]
     call = (lambda *a: MP.launch(probe, *a)) if design == "new" else PD.design_entries(_design_libs(), label)[design]
     cases = list(PD.held_inputs(probe, cuda))
-    assert len(cases) == 1 + (4 if label == "gather_sublanes_taa_axis0" else len(PD.SIZED_HELD))
+    assert len(cases) == 1 + extra
     before = probe.kernel.launches
     for args in cases:
         got = call(*args)
@@ -1138,6 +1146,20 @@ def test_gather_and_sized_copy_on_their_held_inputs(cuda, label, design):
         host = [a.cpu().numpy() for a in args]
         np.testing.assert_array_equal(got.cpu().numpy(), probe.oracle(*host))
     assert probe.kernel.launches == before + (len(cases) if design == "new" else 0)
+
+
+@pytest.mark.parametrize("label,design", [("dynamic_store_vmem_rows", "new"), ("lax_sort_in_kernel", "new"),
+                                          ("lax_sort_in_kernel", "eight_a_lane")])
+def test_store_and_sort_on_their_held_inputs(cuda, label, design):
+    """The row store at every s in [0, 56] on full-range random rows, and
+    the in-row sort on each of ``sort_tiles`` (full range with INT_MIN and
+    INT_MAX in every row, all equal, ascending, descending, 4 values,
+    bitonic rows): the shipped kernel (one counted launch a call) and the
+    sort's eight_a_lane design, each equal bit for bit to the plain version
+    on the card and to the JAX probe's oracle (np.sort for the sort).  No s
+    outside [0, 56] is launched: its trap would poison the context for the
+    tests after it."""
+    _hold_on_held_inputs(cuda, label, design, 57 if label == "dynamic_store_vmem_rows" else len(PD.sort_tiles()))
 
 
 @pytest.mark.parametrize("keys", ["full range", "ends"])
@@ -1212,12 +1234,13 @@ def test_grid_1d_blockspec_is_one_launch_of_its_grid(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("s", range(64 - 8 + 1))
-@pytest.mark.parametrize("label", ["dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset"])
+@pytest.mark.parametrize("label", ["dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset",
+                                   "dynamic_store_vmem_rows"])
 def test_row_window_kernel_at_every_row(cuda, label, s):
-    """The row slice, the row write and the row-offset copy at every legal
-    device row s, on full-range random rows: equal to the plain version on
-    the card and to the JAX probe's oracle (zeros outside the written
-    window)."""
+    """The row slice, the row write, the row-offset copy and the row store
+    at every legal device row s, on full-range random rows: equal to the
+    plain version on the card and to the JAX probe's oracle (zeros outside
+    the written window)."""
     probe = MP.BY_LABEL[label]
     rows = np.random.default_rng(s).integers(-2 ** 31, 2 ** 31, probe.inputs()[1].shape, np.int32)
     at = np.full((1,), s, np.int32)
@@ -1265,14 +1288,17 @@ ONE_KERNEL = {"dma_unaligned_row_offset": ("slice_every_row", [8, 1, 1], [256, 1
               "cumsum_sublanes_f32": ("cumsum_rows", [4, 1, 1], [32, 1, 1]),
               "i1_to_bf16_astype": ("mask_matmul", [8, 1, 1], [256, 1, 1]),
               "gather_sublanes_taa_axis0": ("gather_stripe", [8, 1, 1], [256, 1, 1]),
-              "dma_dynamic_size_rows": ("copy_rows_sized", [8, 1, 1], [256, 1, 1])}
+              "dma_dynamic_size_rows": ("copy_rows_sized", [8, 1, 1], [256, 1, 1]),
+              "dynamic_store_vmem_rows": ("write_rows", [8, 1, 1], [256, 1, 1]),
+              "lax_sort_in_kernel": ("sort_rows", [8, 1, 1], [32, 1, 1])}
 
 
 @pytest.mark.parametrize("label", ONE_KERNEL)
 def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
     """One call of the row-offset copy, the scalar add, the transpose, the
     HBM-to-HBM copy, the bitcast, a merge step, the column cumsum, the mask
-    matmul, the sublane gather or the sized copy is one counted launch and
+    matmul, the sublane gather, the sized copy, the row store (P4's
+    write_rows) or the in-row sort is one counted launch and
     exactly one kernel on the card, with its name, grid and block (no fill,
     no wrapper-side copy, no host read of s or R), equal to the plain
     version."""
@@ -1302,7 +1328,7 @@ def test_one_kernel_traces_with_the_design_libraries_loaded(cuda, tmp_path):
     launched, ten traced calls of each probe above still hold exactly its
     one kernel: loading more kernel libraries adds nothing to a trace."""
     libs = _design_libs()
-    for label in ("gather_sublanes_taa_axis0", "dma_dynamic_size_rows"):
+    for label in ("gather_sublanes_taa_axis0", "dma_dynamic_size_rows", "lax_sort_in_kernel"):
         args = MP.inputs_on(MP.BY_LABEL[label], cuda)
         for call in PD.design_entries(libs, label).values():
             call(*args)

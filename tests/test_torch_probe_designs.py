@@ -5,8 +5,8 @@ text exactly once; the wgmma wrapper that the tool writes for a tile width
 must be the source's own at the source's width; each redesigned kernel has
 its earlier source's path, its turns and, where PyTorch has one, a library
 call (the mask matmul has none: its staging turn stands in); the column
-cumsum's, the mask matmul's, the sublane gather's and the sized copy's
-held inputs show what they must catch; ``--sass``'s counts are read right
+cumsum's, the mask matmul's, the sublane gather's, the sized copy's and
+the in-row sort's held inputs show what they must catch; ``--sass``'s counts are read right
 from cuobjdump's text.  The builds and times need the card
 (``chip_smoke.py``'s ``probes`` phase)."""
 
@@ -33,7 +33,8 @@ SWITCHES = {"quads": [TRANSPOSE_REGISTERS],
             "cumsum_staged": [(PD.CUMSUM_STAGED, "constexpr bool kCumsumStaged = true;")],
             "cumsum_block": [(PD.CUMSUM_THREADS, "constexpr int kCumsumThreads = 128;")],
             "direct": [(PD.GATHER_DIRECT, "constexpr bool kGatherDirect = true;")],
-            "count_first": [(PD.SIZED_COUNT_FIRST, "constexpr bool kSizedCountFirst = true;")]}
+            "count_first": [(PD.SIZED_COUNT_FIRST, "constexpr bool kSizedCountFirst = true;")],
+            "eight_a_lane": [(PD.SORT_EIGHT_A_LANE, "constexpr bool kSortEightALane = true;")]}
 R4_DESIGNS = ("exchange", "mask_staging")  # the designs made from probe_r4.cu
 
 
@@ -101,23 +102,29 @@ def test_redesigned_kernel_has_its_earlier_source_turns_and_library_call(label):
 
 
 def test_every_kernel_of_the_tools_is_redesigned_once():
-    """The table names fourteen redesigned kernels (the merge step's two
+    """The table names sixteen redesigned kernels (the merge step's two
     forms are one kernel), each with an earlier design, and no kernel is
     left timed against its library call alone; the column cumsum and the
     mask matmul were redesigned together, and so were the sublane gather
-    and the sized copy."""
-    assert len(PD.REDESIGNED) == 15 and len(set(PD.REDESIGNED)) == 15
+    and the sized copy, and the row store and the in-row sort."""
+    assert len(PD.REDESIGNED) == 17 and len(set(PD.REDESIGNED)) == 17
     assert set(PD.TURNS) == set(PD.REDESIGNED) and not hasattr(PD, "UNCHANGED")
     assert {PD.BEFORE[name] for name in PR.MERGE_STEPS} == {PD.BEFORE["bitcast_f32_u32"]}
     assert PD.BEFORE["cumsum_sublanes_f32"] == PD.BEFORE["i1_to_bf16_astype"] == "9e5ff2a"
     assert PD.BEFORE["gather_sublanes_taa_axis0"] == PD.BEFORE["dma_dynamic_size_rows"] == "81001b6"
     assert PD.TURNS["gather_sublanes_taa_axis0"] == ("earlier", "direct")
     assert PD.TURNS["dma_dynamic_size_rows"] == ("earlier", "count_first")
+    assert PD.BEFORE["dynamic_store_vmem_rows"] == PD.BEFORE["lax_sort_in_kernel"] == "dfc6a14"
+    assert PD.TURNS["dynamic_store_vmem_rows"] == ("earlier",)
+    assert PD.TURNS["lax_sort_in_kernel"] == ("earlier", "eight_a_lane")
 
 
 def test_held_inputs_cover_every_window_row():
-    """A row window's designs are held at the probe's own s and at every
-    legal s in [0, 56] on one set of full-range random rows."""
+    """A row window's designs (the row store's too) are held at the probe's
+    own s and at every legal s in [0, 56] on one set of full-range random
+    rows."""
+    assert set(PD.WINDOWED) == {"dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset",
+                                "dynamic_store_vmem_rows"}
     for label in PD.WINDOWED:
         cases = list(PD.held_inputs(MP.BY_LABEL[label], "cpu"))
         assert [int(s) for s, _ in cases[1:]] == list(range(57))
@@ -308,6 +315,69 @@ def test_held_inputs_hold_the_sized_copy_at_every_count():
         np.testing.assert_array_equal(got.numpy(), probe.oracle(s.numpy(), src.numpy()))
 
 
+def _bitonic(a, flip=None, lane=5, per=4):
+    """bitonic_rows' network, with the compare direction (keep_min) of the
+    pairs that elements per lane..per lane + per - 1 take part in flipped
+    at the stage flip = (k, d): a lane of the kernel that compares the
+    wrong way at one stage."""
+    c = torch.arange(a.shape[1])
+    for k in (2 ** i for i in range(1, 8)):
+        for d in (k >> i for i in range(1, k.bit_length())):
+            keep_min = ((c & d) == 0) == ((c & k) == 0)
+            if (k, d) == flip:
+                keep_min ^= (c // per == lane) | ((c ^ d) // per == lane)
+            p = a[:, c ^ d]
+            a = torch.where(keep_min, torch.minimum(a, p), torch.maximum(a, p))
+    return a
+
+
+STAGES = [(2 ** i, 2 ** j) for i in range(1, 8) for j in range(i - 1, -1, -1)]  # the network's 28 stages, in order
+
+
+def test_sort_tiles_are_the_six_tiles():
+    """The in-row sort is held at the probe's tile and on six (8, 128) int32
+    tiles: full-range random values with INT_MIN and INT_MAX in every row,
+    all equal, rows ascending, rows descending, rows of 4 distinct values,
+    rows that rise then fall; its plain version (bitonic_rows, 28 stages)
+    sorts each as np.sort does."""
+    tiles = PD.sort_tiles()
+    assert list(tiles) == ["full range", "equal", "ascending", "descending", "four values", "bitonic"]
+    probe = MP.BY_LABEL["lax_sort_in_kernel"]
+    cases = [a for (a,) in PD.held_inputs(probe, "cpu")]
+    assert len(cases) == 7 and torch.equal(cases[0], MP.inputs_on(probe, "cpu")[0])
+    for (name, tile), got in zip(tiles.items(), cases[1:]):
+        assert tile.dtype == np.int32 and tile.shape == (8, 128) and np.array_equal(got.numpy(), tile)
+        assert torch.equal(MP.plain(probe, got), torch.from_numpy(np.sort(tile, 1))), name
+    full, four = tiles["full range"], tiles["four values"]
+    assert ((full == -2 ** 31).any(1) & (full == 2 ** 31 - 1).any(1)).all()
+    assert len(np.unique(full)) > full.size * 0.98 and len(np.unique(tiles["equal"])) == 1
+    assert (np.diff(tiles["ascending"].astype(np.int64), axis=1) >= 0).all()
+    assert np.array_equal(tiles["descending"], tiles["ascending"][:, ::-1])
+    assert set(np.unique(four).tolist()) == {-2 ** 31, -1, 0, 2 ** 31 - 1}
+    for row in tiles["bitonic"].astype(np.int64):
+        turn = int(np.argmax(row))
+        assert 0 < turn < 127 and (np.diff(row[:turn + 1]) >= 0).all() and (np.diff(row[turn:]) <= 0).all()
+    assert len(STAGES) == 28 and torch.equal(_bitonic(torch.from_numpy(full)), MP.bitonic_rows(torch.from_numpy(full)))
+
+
+@pytest.mark.parametrize("stage", STAGES[1:], ids=[f"k{k}d{d}" for k, d in STAGES[1:]])
+def test_sort_tiles_catch_a_lane_that_compares_the_wrong_way(stage):
+    """At every stage after the first, a network whose lane of 4 elements
+    compares the wrong way gives a wrong row on at least one of the sort
+    tiles.  (At the first stage, k = d = 1's pairs facing the other way
+    leave every 4 elements bitonic, so the network still sorts: no input can
+    show it.)  At the last merge's stages, a whole stage that compares the
+    wrong way misses on every tile but the equal one."""
+    tiles = {name: torch.from_numpy(t) for name, t in PD.sort_tiles().items()}
+    want = {name: torch.sort(t, 1).values for name, t in tiles.items()}
+    assert all(torch.equal(_bitonic(t, STAGES[0]), want[name]) for name, t in tiles.items())
+    assert any(not torch.equal(_bitonic(t, stage), want[name]) for name, t in tiles.items())
+    k, d = stage
+    if k == 128:
+        whole = [name for name, t in tiles.items() if not torch.equal(_bitonic(t, stage, lane=0, per=128), want[name])]
+        assert whole == ["full range", "ascending", "descending", "four values", "bitonic"]
+
+
 # cuobjdump -sass's layout, cut down: a kernel to count, then one that is not
 SASS_TEXT = """
         Function : _ZN12_GLOBAL__N_113gather_stripeEPK4int4S2_PS0_
@@ -323,7 +393,7 @@ SASS_TEXT = """
         /*0080*/                   LDG.E R16, desc[UR4][R2.64+0x4] ;           /* 0x000000040210e981 */
         /*0090*/                   STG.E.128 desc[UR4][R2.64], R4 ;            /* 0x000000040200e986 */
         /*00a0*/                   EXIT ;                                       /* 0x000000000000794d */
-        Function : _ZN12_GLOBAL__N_112sort_rowsEPKiPii
+        Function : _ZN12_GLOBAL__N_112cumsum_lanesEPKiPii
         /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;                /* 0x000000040204e981 */
         /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;                /* 0x0000000000007b1d */
 """
@@ -333,9 +403,10 @@ def test_count_sass_counts_ops_and_the_loads_behind_a_barrier_or_an_add():
     """--sass's counts from cuobjdump's text: opcodes with any suffix (a
     predicated one too), every instruction, the LDGs after the first FADD or
     HMMA ("late LDG") and after the first BAR.SYNC, only for kernels named
-    in SASS_KERNELS (the sublane gather's and the sized copy's among
-    them)."""
-    assert {"gather_stripe", "gather_direct", "gather_sublanes", "copy_rows_sized"} <= set(PD.SASS_KERNELS)
+    in SASS_KERNELS (the sublane gather's, the sized copy's, the in-row
+    sort's and the row store's, earlier and new, among them)."""
+    assert {"gather_stripe", "gather_direct", "gather_sublanes", "copy_rows_sized", "sort_rows", "write_rows",
+            "store_rows"} <= set(PD.SASS_KERNELS)
     counts = PD.count_sass(SASS_TEXT)
     assert list(counts) == ["_ZN12_GLOBAL__N_113gather_stripeEPK4int4S2_PS0_"]
     (got,) = counts.values()
