@@ -11,10 +11,11 @@
 // puts one after another.  What each shows is that the card does the probe's
 // operation in the way the TPU kernel did:
 //
-// - lane movement (gathers, rolls, scans) is done by a warp that holds a
-//   128-wide row as 4 registers a lane, element c in register c >> 5 of lane
-//   c & 31, with __shfl_sync / __shfl_up_sync and a select on the source
-//   register; the in-row sort holds 4 consecutive elements a lane (below);
+// - lane movement (the rolls) is done by a warp that holds a 128-wide row as
+//   4 registers a lane, element c in register c >> 5 of lane c & 31, with
+//   __shfl_sync and a select on the source register; the lane gathers, the
+//   lane cumsum and the in-row sort hold 4 consecutive elements a lane
+//   (below);
 // - row movement (the sublane gather, the row write and store, the
 //   transpose) goes through a tile in shared memory;
 // - the DMA probes (the row-offset copy, the row write, the sized copy and
@@ -23,7 +24,7 @@
 //   one-dimensional form, on an mbarrier or a bulk group) stay behind
 //   kOffsetBulk, kWriteBulk and kHbmBulk.
 //
-// Fourteen kernels here (and probe_r4.cu's merge step and mask matmul) are
+// Sixteen kernels here (and probe_r4.cu's merge step and mask matmul) are
 // laid out for the card rather than for the TPU's tiles, so that every global
 // load is in flight at once and nothing waits on a round trip that an earlier
 // one could have covered:
@@ -163,6 +164,30 @@
 //   consecutive elements a lane, 16 lanes a row in 4 blocks (kSortEightALane
 //   true: 10 shuffle stages of 8 SHFL, twice the register work a stage)
 //   1.05-1.06x.
+// - cumsum_lanes_i32 (the probe through simple_call, :61: the running sum
+//   along each row of an (8, 128) int32 tile, wrapping).  Bound by bytes:
+//   8 KB, 0.0024 us.  One block of 8 warps, a warp a row: lane h loads
+//   elements 4h..4h+3 with one 16-byte load, adds them in registers, takes
+//   the sum of the lanes before it from one 5-stage shuffle scan of the lane
+//   totals and makes one 16-byte store: 5 dependent SHFL, no shared memory.
+//   The earlier design (4-byte accesses through plain pointers: 4 chained
+//   load-scan-store rounds, 23 dependent SHFL) took 1.34-1.37x as long on
+//   an H100 80GB HBM3 at 700 W, in turns; 8 blocks of one warp
+//   (kCumsumLanesGrid true) 1.02-1.05x (tools/probe_designs.py).
+// - gather_lanes_taa_8x128_i32, gather_lanes_f32, gather_lanes_taa_256x128_i32
+//   and gather_lanes_256wide_2gathers (the probes through simple_call, :61:
+//   out[r, c] = x[r, idx[r, c]] over 128 outputs a row, from rows of 128
+//   int32, 128 float32 or 256 int32 values).  Bound by bytes: 12 KB,
+//   0.0037 us (384 KB, 0.117 us for the 256 rows; 16 KB, 0.0049 us for the
+//   256-wide row).  A warp a row: x's row and lane h's 4 indices loaded
+//   together as 16-byte words, each output shuffled from the lane that
+//   holds it (W / 32 SHFL and selects), one 16-byte store: no shared memory.
+//   8 blocks of one warp, 32 blocks of 8 warps for the 256 rows.  An index
+//   outside [0, W) traps.  The earlier design (one block of 8 warps, 4-byte
+//   accesses through plain pointers, each idx load after the store before
+//   it) took 1.19-1.25x as long on an H100 80GB HBM3 at 700 W, in turns;
+//   the warp's row through shared memory (kGatherShuffle false) 0.98-1.05x
+//   at W = 128 and 0.99-1.01x at W = 256 (tools/probe_designs.py).
 //
 // One C entry a probe, arrow_probe_<label>(inputs..., out, stream), in the
 // order of the JAX probe's pallas_call arguments (the device scalar first
@@ -264,20 +289,68 @@ __device__ __forceinline__ int32_t row_value(const int32_t (&row)[W / 32], int s
   return v;
 }
 
-// out[r, c] = x[r, idx[r, c]] for rows of W lanes (32-bit values of any type)
-template <int W>
-__global__ void gather_lanes(const int32_t* x, const int32_t* idx, int32_t* out, int rows) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (r >= rows) return;  // a whole warp
-  int32_t row[W / 32];
+// An index into N lanes or rows (the lane gathers' row, the sublane
+// gather's tile); one outside [0, N) traps rather than reading outside them.
+template <int N>
+__device__ __forceinline__ int checked_index(int i) {
+  if (static_cast<unsigned>(i) >= static_cast<unsigned>(N)) __trap();
+  return i;
+}
+
+// the lane gathers' designs: each output shuffled from the lane that holds
+// it, or the warp's row through shared memory (kGatherShuffle false)
+constexpr bool kGatherShuffle = true;
+
+// out[r, c] = x[r, idx[r, c]] over 128 outputs a row from rows of W = 128
+// or 256 32-bit values of any type, a warp a row, Warps rows a block.  Lane
+// h loads elements W / 32 h.. of x's row (one or two 16-byte words) and
+// idx[r, 4h..4h+3] (one) through restrict pointers, all in flight together.
+// Each of its 4 outputs is then shuffled from the lane that holds it, W / 32
+// __shfl_sync and selects an output; the other design stores the lane's
+// words into the warp's row in shared memory with 16-byte stores and after
+// a __syncwarp reads its 4 gathered words there.  One 16-byte store of the 4
+// outputs; no block barrier.
+template <int W, int Warps>
+__global__ void __launch_bounds__(Warps * 32)
+    gather_lanes(const int4* __restrict__ x, const int4* __restrict__ idx, int4* __restrict__ out) {
+  constexpr int kPer = W / 32;      // elements of x a lane
+  constexpr int kWords = kPer / 4;  // 16-byte words of x a lane
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int r = blockIdx.x * Warps + warp;
+  int4 v[kWords];
 #pragma unroll
-  for (int j = 0; j < W / 32; ++j) row[j] = x[r * W + j * 32 + lane];
+  for (int w = 0; w < kWords; ++w) v[w] = __ldg(x + r * (W / 4) + lane * kWords + w);
+  const int4 k = __ldg(idx + r * kRowWords + lane);
+  const int c[4] = {checked_index<W>(k.x), checked_index<W>(k.y), checked_index<W>(k.z), checked_index<W>(k.w)};
+  int32_t got[4];
+  if constexpr (kGatherShuffle) {  // element e of lane h is element kPer h + e of the row
+    int32_t own[kPer];
 #pragma unroll
-  for (int j = 0; j < kLanes / 32; ++j) {
-    const int c = r * kLanes + j * 32 + lane;
-    out[c] = row_value<W>(row, idx[c]);
+    for (int w = 0; w < kWords; ++w) {
+      own[4 * w] = v[w].x;
+      own[4 * w + 1] = v[w].y;
+      own[4 * w + 2] = v[w].z;
+      own[4 * w + 3] = v[w].w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      got[j] = 0;
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        const int32_t t = __shfl_sync(kFull, own[e], c[j] / kPer);
+        if (c[j] % kPer == e) got[j] = t;
+      }
+    }
+  } else {
+    __shared__ alignas(16) int32_t rows[Warps][W];
+    int4* row = reinterpret_cast<int4*>(rows[warp]);
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) row[lane * kWords + w] = v[w];
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) got[j] = rows[warp][c[j]];
   }
+  out[r * kRowWords + lane] = make_int4(got[0], got[1], got[2], got[3]);
 }
 
 // np.roll along the lanes: out[r, c] = a[r, (c - shift) mod 128], the shift
@@ -306,13 +379,6 @@ __device__ __forceinline__ int window_row(int first) {
   return first;
 }
 
-// A row index of the sublane gather's 64-row tile; one outside [0, 64) traps
-// rather than reading outside the tile.
-__device__ __forceinline__ int gather_row(int row) {
-  if (static_cast<unsigned>(row) >= 64u) __trap();
-  return row;
-}
-
 // gather_sublanes_taa_axis0's two designs: a block a stripe of kStripe
 // columns through shared memory, or no shared memory, x read at the gathered
 // rows after idx (kGatherDirect: a second, dependent round trip)
@@ -337,8 +403,8 @@ __global__ void __launch_bounds__(kTileThreads)
   *reinterpret_cast<int4*>(stripe + r * kStripe + 4 * q) = v;
   __syncthreads();
   const int32_t* col = stripe + 4 * q;
-  out[i] = make_int4(col[gather_row(k.x) * kStripe], col[gather_row(k.y) * kStripe + 1],
-                     col[gather_row(k.z) * kStripe + 2], col[gather_row(k.w) * kStripe + 3]);
+  out[i] = make_int4(col[checked_index<64>(k.x) * kStripe], col[checked_index<64>(k.y) * kStripe + 1],
+                     col[checked_index<64>(k.z) * kStripe + 2], col[checked_index<64>(k.w) * kStripe + 3]);
 }
 
 // The same without shared memory: 8 blocks of 8 warps, a warp a row, each
@@ -348,8 +414,9 @@ __global__ void __launch_bounds__(kTileThreads)
   const int i = blockIdx.x * kTileThreads + threadIdx.x;  // 16-byte word i of the tile
   const int4 k = __ldg(idx + i);
   const int32_t* col = x + 4 * (i % kRowWords);
-  out[i] = make_int4(__ldg(col + gather_row(k.x) * kLanes), __ldg(col + gather_row(k.y) * kLanes + 1),
-                     __ldg(col + gather_row(k.z) * kLanes + 2), __ldg(col + gather_row(k.w) * kLanes + 3));
+  out[i] = make_int4(__ldg(col + checked_index<64>(k.x) * kLanes), __ldg(col + checked_index<64>(k.y) * kLanes + 1),
+                     __ldg(col + checked_index<64>(k.z) * kLanes + 2),
+                     __ldg(col + checked_index<64>(k.w) * kLanes + 3));
 }
 
 // dynamic_slice_vmem_rows' two designs: every row at once (one round trip),
@@ -608,25 +675,31 @@ __global__ void copy_rows_staged(const int4* src, int4* out) {
 // ---------------------------------------------------------------------------
 // scans, sort and matmul
 
-// cumsum along the lanes: a warp a row, a shuffle scan of each register and
-// the carry of the registers before it
-__global__ void cumsum_lanes(const int32_t* a, int32_t* out, int rows) {
+// cumsum_lanes_i32's designs: the 8 rows' warps in one block, or a block
+// each (kCumsumLanesGrid)
+constexpr bool kCumsumLanesGrid = false;
+constexpr int kCumsumLanesWarps = kCumsumLanesGrid ? 1 : kTileRows;
+
+// cumsum along the lanes of an (8, 128) int32 tile, a warp a row: lane h
+// loads elements 4h..4h+3 with one 16-byte load, sums them in registers,
+// takes the sum of the lanes before it from one 5-stage __shfl_up_sync scan
+// of the lane totals and makes one 16-byte store.  The adds are in uint32_t,
+// so that the sum wraps as the int32 cumsum does.
+__global__ void __launch_bounds__(kCumsumLanesWarps * 32)
+    cumsum_lanes(const int4* __restrict__ a, int4* __restrict__ out) {
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (r >= rows) return;
-  int32_t carry = 0;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // the lane's 16-byte word of the tile
+  const int4 v = __ldg(a + i);
+  const uint32_t s0 = v.x, s1 = s0 + v.y, s2 = s1 + v.z, s3 = s2 + v.w;
+  uint32_t through = s3;  // the sum of lanes 0..lane
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    int32_t v = a[r * kLanes + j * 32 + lane];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int32_t t = __shfl_up_sync(kFull, v, d);
-      if (lane >= d) v += t;
-    }
-    v += carry;
-    out[r * kLanes + j * 32 + lane] = v;
-    carry = __shfl_sync(kFull, v, 31);
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t t = __shfl_up_sync(kFull, through, d);
+    if (lane >= d) through += t;
   }
+  const uint32_t before = through - s3;
+  out[i] = make_int4(static_cast<int>(s0 + before), static_cast<int>(s1 + before), static_cast<int>(s2 + before),
+                     static_cast<int>(s3 + before));
 }
 
 // cumsum_sublanes_f32's designs: a thread a column in registers, or the tile
@@ -949,22 +1022,23 @@ int arrow_probe_smem_scratch_scalar_loop(const void* a, void* out, void* stream)
 }
 
 int arrow_probe_gather_lanes_taa_8x128_i32(const void* x, const void* idx, void* out, void* stream) {
-  gather_lanes<kLanes><<<1, 8 * 32, 0, STREAM>>>(in<int32_t>(x), in<int32_t>(idx), out_<int32_t>(out), 8);
+  gather_lanes<kLanes, 1><<<kTileRows, 32, 0, STREAM>>>(in<int4>(x), in<int4>(idx), out_<int4>(out));
   return done();
 }
 
 int arrow_probe_gather_lanes_taa_256x128_i32(const void* x, const void* idx, void* out, void* stream) {
-  gather_lanes<kLanes><<<32, 8 * 32, 0, STREAM>>>(in<int32_t>(x), in<int32_t>(idx), out_<int32_t>(out), 256);
+  gather_lanes<kLanes, kTileRows>
+      <<<256 / kTileRows, kTileRows * 32, 0, STREAM>>>(in<int4>(x), in<int4>(idx), out_<int4>(out));
   return done();
 }
 
 int arrow_probe_gather_lanes_f32(const void* x, const void* idx, void* out, void* stream) {
-  gather_lanes<kLanes><<<1, 8 * 32, 0, STREAM>>>(in<int32_t>(x), in<int32_t>(idx), out_<int32_t>(out), 8);
+  gather_lanes<kLanes, 1><<<kTileRows, 32, 0, STREAM>>>(in<int4>(x), in<int4>(idx), out_<int4>(out));
   return done();
 }
 
 int arrow_probe_gather_lanes_256wide_2gathers(const void* t, const void* idx, void* out, void* stream) {
-  gather_lanes<2 * kLanes><<<1, 8 * 32, 0, STREAM>>>(in<int32_t>(t), in<int32_t>(idx), out_<int32_t>(out), 8);
+  gather_lanes<2 * kLanes, 1><<<kTileRows, 32, 0, STREAM>>>(in<int4>(t), in<int4>(idx), out_<int4>(out));
   return done();
 }
 
@@ -1042,7 +1116,7 @@ int arrow_probe_hbm_to_hbm_dma(const void* src, void* out, void* stream) {
 }
 
 int arrow_probe_cumsum_lanes_i32(const void* a, void* out, void* stream) {
-  cumsum_lanes<<<1, 8 * 32, 0, STREAM>>>(in<int32_t>(a), out_<int32_t>(out), 8);
+  cumsum_lanes<<<kTileRows / kCumsumLanesWarps, kCumsumLanesWarps * 32, 0, STREAM>>>(in<int4>(a), out_<int4>(out));
   return done();
 }
 

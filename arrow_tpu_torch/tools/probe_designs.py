@@ -9,8 +9,9 @@ turns on one card.
 ``bitcast_f32_u32``, ``cumsum_sublanes_f32``, the sublane gather
 ``gather_sublanes_taa_axis0``, the sized copy ``dma_dynamic_size_rows``,
 the row store ``dynamic_store_vmem_rows`` (whose C entry launches the row
-write's ``write_rows``) and the in-row sort ``lax_sort_in_kernel``
-(``csrc/mosaic_probe.cu``),
+write's ``write_rows``), the in-row sort ``lax_sort_in_kernel``, the lane
+cumsum ``cumsum_lanes_i32`` and the lane gather ``gather_lanes`` behind
+its four probes (:data:`GATHER_LANES`) (``csrc/mosaic_probe.cu``),
 and the merge step in its two forms, ``mb_step_rollpair`` and
 ``mb_step_taa``, and the mask matmul ``i1_to_bf16_astype``
 (``csrc/probe_r4.cu``), are laid out for the card.  Each other design is a variant of the kernel's
@@ -68,7 +69,13 @@ design, all started together):
   elements a lane (two 16-byte loads), two rows a warp in 4 blocks of one
   warp (18 stages between a lane's registers, 10 by shuffles of width 16),
   in place of a warp a row, 4 elements a lane, in 8 blocks (13 stages in
-  registers, 15 by shuffles).
+  registers, 15 by shuffles);
+- ``warp_blocks``: the lane cumsum in 8 blocks of one warp, in place of
+  one block of 8 warps;
+- ``row_staged``: the lane gather through the warp's row in shared memory
+  (16-byte stores, a ``__syncwarp``, 4 reads), in place of each output
+  shuffled from the lane that holds it (W / 32 ``__shfl_sync`` and selects
+  an output).
 
 Every design but ``staging`` is first held to the plain version on the
 probe's inputs, a row window's (the row store's too) at every legal s on
@@ -81,7 +88,11 @@ with each of :func:`gather_indices`, the sized copy's at every s from -1 to
 all INT_MIN against all INT_MAX, each at R = 0, 1 and 5, the column cumsum's
 bit for bit on an order-sensitive tile (:func:`ordered_tile`) and on
 normals, the mask matmul's on every row count from 0 to 128
-(:func:`count_tiles`), and the in-row sort's on each of :func:`sort_tiles`.
+(:func:`count_tiles`), the in-row sort's on each of :func:`sort_tiles`, the
+lane cumsum's on a full-range random tile, where the sum wraps, and on each
+of :func:`one_hot_tiles`, and the lane gathers' on a full-range random x
+(float32 of full-range bits for ``gather_lanes_f32``) with each of
+:func:`lane_indices`.
 Then each kernel is timed in turns: plain, new, library, new, a design, new,
 the next design, new, ...; device ms a call, queued behind a spin kernel
 (:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`), beside an
@@ -130,8 +141,14 @@ BEFORE = {"grid_1d_blockspec": "9d785cc", "matmul_int8_s32acc": "9d785cc",
           "bitcast_f32_u32": "aeb9ac2", "mb_step_rollpair": "aeb9ac2", "mb_step_taa": "aeb9ac2",
           "cumsum_sublanes_f32": "9e5ff2a", "i1_to_bf16_astype": "9e5ff2a",
           "gather_sublanes_taa_axis0": "81001b6", "dma_dynamic_size_rows": "81001b6",
-          "dynamic_store_vmem_rows": "dfc6a14", "lax_sort_in_kernel": "dfc6a14"}
+          "dynamic_store_vmem_rows": "dfc6a14", "lax_sort_in_kernel": "dfc6a14",
+          "cumsum_lanes_i32": "a5e35e7", "gather_lanes_taa_8x128_i32": "a5e35e7",
+          "gather_lanes_taa_256x128_i32": "a5e35e7", "gather_lanes_f32": "a5e35e7",
+          "gather_lanes_256wide_2gathers": "a5e35e7"}
 REDESIGNED = tuple(BEFORE)
+# the probes that launch the lane gather gather_lanes<W, Warps>
+GATHER_LANES = ("gather_lanes_taa_8x128_i32", "gather_lanes_taa_256x128_i32", "gather_lanes_f32",
+                "gather_lanes_256wide_2gathers")
 FILLED_BEFORE = ("dma_unaligned_row_write",)  # earlier designs that wrote into an output zeroed by the wrapper
 # a window at device row s in [0, 56]
 WINDOWED = ("dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset",
@@ -159,17 +176,22 @@ CUMSUM_THREADS = "constexpr int kCumsumThreads = 32;"
 GATHER_DIRECT = "constexpr bool kGatherDirect = false;"
 SIZED_COUNT_FIRST = "constexpr bool kSizedCountFirst = false;"
 SORT_EIGHT_A_LANE = "constexpr bool kSortEightALane = false;"
+CUMSUM_LANES_GRID = "constexpr bool kCumsumLanesGrid = false;"
+GATHER_SHUFFLE = "constexpr bool kGatherShuffle = true;"
 MASK_PRODUCT_CALL = "  mask_product(c, sa, lane);\n"
 # in its place in mask_staging: the band's address escapes, so its stores (and the loads and compares) stay
 MASK_STAGING_STANDIN = '  asm volatile("" : : "r"(sa) : "memory");\n'
 STAGING = ("staging", "mask_staging")  # designs with a part cut out: timed, not held to the plain version
 # the kernels whose SASS --sass counts
 SASS_KERNELS = ("merge_step", "copy_rows_direct", "bitcast_f32", "cumsum_rows", "mask_matmul", "gather_stripe",
-                "gather_direct", "gather_sublanes", "copy_rows_sized", "sort_rows", "write_rows", "store_rows")
+                "gather_direct", "gather_sublanes", "copy_rows_sized", "sort_rows", "write_rows", "store_rows",
+                "cumsum_lanes", "gather_lanes")
 SASS_OPS = ("BAR.SYNC", "LDS", "STS", "SHFL", "LDG", "STG", "ISETP", "SEL", "FADD", "HMMA")
 # LDGs counted after the first of these in a kernel: "late LDG" after its first FADD or HMMA (loads behind
-# its arithmetic), "LDG after BAR.SYNC" after its first barrier (loads behind it)
-LATE = {"late LDG": ("FADD", "HMMA"), "LDG after BAR.SYNC": ("BAR.SYNC",)}
+# its arithmetic), "LDG after BAR.SYNC" after its first barrier (loads behind it), "LDG after SHFL, STS or
+# STG" after its first shuffle or store (loads behind a value the warp passes on)
+LATE = {"late LDG": ("FADD", "HMMA"), "LDG after BAR.SYNC": ("BAR.SYNC",),
+        "LDG after SHFL, STS or STG": ("SHFL", "STS", "STG")}
 SASS_LINE = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")  # an instruction's opcode
 # the designs that each kernel is timed against, in their turn's order
 TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "staging", "tile64", "tile128"),
@@ -182,7 +204,9 @@ TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "s
          "i1_to_bf16_astype": ("earlier", "mask_staging"),
          "gather_sublanes_taa_axis0": ("earlier", "direct"),
          "dma_dynamic_size_rows": ("earlier", "count_first"),
-         "dynamic_store_vmem_rows": ("earlier",), "lax_sort_in_kernel": ("earlier", "eight_a_lane")}
+         "dynamic_store_vmem_rows": ("earlier",), "lax_sort_in_kernel": ("earlier", "eight_a_lane"),
+         "cumsum_lanes_i32": ("earlier", "warp_blocks"),
+         **{label: ("earlier", "row_staged") for label in GATHER_LANES}}
 
 
 def wgmma_wrapper(n: int) -> str:
@@ -256,7 +280,9 @@ def design_sources() -> Dict[str, str]:
                "mask_staging": _once(r4, MASK_PRODUCT_CALL, MASK_STAGING_STANDIN),
                "direct": _once(text, GATHER_DIRECT, GATHER_DIRECT.replace("false", "true")),
                "count_first": _once(text, SIZED_COUNT_FIRST, SIZED_COUNT_FIRST.replace("false", "true")),
-               "eight_a_lane": _once(text, SORT_EIGHT_A_LANE, SORT_EIGHT_A_LANE.replace("false", "true"))}
+               "eight_a_lane": _once(text, SORT_EIGHT_A_LANE, SORT_EIGHT_A_LANE.replace("false", "true")),
+               "warp_blocks": _once(text, CUMSUM_LANES_GRID, CUMSUM_LANES_GRID.replace("false", "true")),
+               "row_staged": _once(text, GATHER_SHUFFLE, GATHER_SHUFFLE.replace("true", "false"))}
     for label in REDESIGNED:
         if earlier_source(label).is_file():
             designs[library_name(label, "earlier")] = earlier_source(label).read_text()
@@ -404,6 +430,32 @@ def sort_tiles() -> Dict[str, np.ndarray]:
             "bitonic": bitonic}
 
 
+def one_hot_tiles() -> List[np.ndarray]:
+    """The lane cumsum's 16 (8, 128) int32 tiles of a single 1 a row: tile t
+    row r at column 8t + r, so that together they put a 1 at each of the 128
+    columns, and a carry lost or misplaced at any lane's boundary shows."""
+    tiles = np.zeros((16, 8, MP.LANES), np.int32)
+    t, r = np.meshgrid(np.arange(16), np.arange(8), indexing="ij")
+    tiles[t, r, 8 * t + r] = 1
+    return list(tiles)
+
+
+def lane_indices(rows: int, width: int) -> Dict[str, np.ndarray]:
+    """A lane gather's (rows, 128) int32 indices into rows `width` wide,
+    beyond the probe's: all 0, all width - 1, the identity (idx[r, c] = c),
+    the reversal (width - 1 - c), at width 256 the upper half alone, and
+    random, so that a slipped lane or row, or a lost upper half, shows."""
+    shape = (rows, MP.LANES)
+    cols = np.broadcast_to(np.arange(MP.LANES, dtype=np.int32), shape)
+    rng = np.random.default_rng(22)
+    idx = {"zeros": np.zeros(shape, np.int32), "last": np.full(shape, width - 1, np.int32),
+           "identity": cols.copy(), "reversal": width - 1 - cols}
+    if width > MP.LANES:
+        idx["upper half"] = rng.integers(width // 2, width, shape, np.int32)
+    idx["random"] = rng.integers(0, width, shape, np.int32)
+    return idx
+
+
 def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
     """The inputs each design is held to the plain version on: the probe's;
     for a row window (the row store too) every legal s on full-range random
@@ -414,8 +466,25 @@ def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
     normals; for the mask matmul each of ``count_tiles``; for the sublane
     gather a full-range random tile with each of ``gather_indices``; for the
     sized copy each s of SIZED_HELD on full-range random rows; for the
-    in-row sort each of ``sort_tiles``."""
+    in-row sort each of ``sort_tiles``; for the lane cumsum a full-range
+    random tile and each of ``one_hot_tiles``; for the lane gathers a
+    full-range random x (its bits as float32 for ``gather_lanes_f32``, with
+    -0 and a signalling NaN in every row) with each of ``lane_indices``."""
     yield MP.inputs_on(probe, device)
+    if probe.label == "cumsum_lanes_i32":
+        yield [_full_range((8, MP.LANES), device)]
+        for tile in one_hot_tiles():
+            yield [torch.from_numpy(tile).to(device)]
+    if probe.label in GATHER_LANES:
+        x, idx = probe.inputs()
+        full = _full_range(x.shape, device)
+        if x.dtype == np.float32:  # row r: -0 at column r, a signalling NaN at column width - 1 - r
+            rows = torch.arange(len(x), device=device)
+            full[rows, rows] = -2 ** 31
+            full[rows, x.shape[1] - 1 - rows] = 0x7F800001
+        full = full.view(torch.from_numpy(x).dtype)
+        for cols in lane_indices(len(idx), x.shape[1]).values():
+            yield [full, torch.from_numpy(cols).to(device)]
     if probe.label == "gather_sublanes_taa_axis0":
         x = _full_range((64, MP.LANES), device)
         for idx in gather_indices().values():
@@ -555,8 +624,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sass", action="store_true",
                     help="also print the SASS counts of the merge step's, the copy's, the cumsum's, the mask matmul's, "
-                         "the sublane gather's, the sized copy's, the row write's and store's and the in-row sort's "
-                         "kernels in each library")
+                         "the sublane gather's, the sized copy's, the row write's and store's, the in-row sort's, "
+                         "the lane cumsum's and the lane gather's kernels in each library")
     ap.add_argument("--labels", nargs="+", choices=REDESIGNED, default=REDESIGNED, help="the kernels (default: all)")
     ap.add_argument("--rounds", type=int, default=1, help="time each kernel's turns this many times over")
     args = ap.parse_args(argv)

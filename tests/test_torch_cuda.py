@@ -11,6 +11,9 @@ so that it runs where JAX is not installed:
 import functools
 import importlib
 import json
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1114,9 +1117,9 @@ def test_i1_to_bf16_astype_at_every_row_count(cuda, tile):
 
 @functools.lru_cache(maxsize=None)
 def _design_libs():
-    """The sublane gather's, the sized copy's and the in-row sort's other
-    designs, built once."""
-    return PD.build(("direct", "count_first", "eight_a_lane"))[0]
+    """The sublane gather's, the sized copy's, the in-row sort's, the lane
+    cumsum's and the lane gather's other designs, built once."""
+    return PD.build(("direct", "count_first", "eight_a_lane", "warp_blocks", "row_staged"))[0]
 
 
 @pytest.mark.parametrize("label,design", [*[("gather_sublanes_taa_axis0", d) for d in ("new", "direct")],
@@ -1134,7 +1137,8 @@ def test_gather_and_sized_copy_on_their_held_inputs(cuda, label, design):
 def _hold_on_held_inputs(cuda, label, design, extra):
     """The probe's kernel ("new", one counted launch a call) or its other
     design on the probe's inputs and the `extra` cases of held_inputs, each
-    equal to the plain version on the card and to the JAX probe's oracle."""
+    equal bit for bit to the plain version on the card (NaN payloads and
+    signed zeros too) and to the JAX probe's oracle."""
     probe = MP.BY_LABEL[label]
     call = (lambda *a: MP.launch(probe, *a)) if design == "new" else PD.design_entries(_design_libs(), label)[design]
     cases = list(PD.held_inputs(probe, cuda))
@@ -1142,7 +1146,7 @@ def _hold_on_held_inputs(cuda, label, design, extra):
     before = probe.kernel.launches
     for args in cases:
         got = call(*args)
-        assert torch.equal(got, MP.plain(probe, *args)), [a.flatten()[:4].tolist() for a in args]
+        assert PD.same_bits(got, MP.plain(probe, *args)), [a.flatten()[:4].tolist() for a in args]
         host = [a.cpu().numpy() for a in args]
         np.testing.assert_array_equal(got.cpu().numpy(), probe.oracle(*host))
     assert probe.kernel.launches == before + (len(cases) if design == "new" else 0)
@@ -1160,6 +1164,58 @@ def test_store_and_sort_on_their_held_inputs(cuda, label, design):
     outside [0, 56] is launched: its trap would poison the context for the
     tests after it."""
     _hold_on_held_inputs(cuda, label, design, 57 if label == "dynamic_store_vmem_rows" else len(PD.sort_tiles()))
+
+
+@pytest.mark.parametrize("label,design", [(label, design) for label in ("cumsum_lanes_i32", *PD.GATHER_LANES)
+                                          for design in ("new", *PD.TURNS[label][1:])])
+def test_lane_cumsum_and_gathers_on_their_held_inputs(cuda, label, design):
+    """The lane cumsum on a full-range random tile, where the int32 sum
+    wraps, and on the 16 one-hot tiles, and each lane gather on a full-range
+    x (-0 and a signalling NaN in every row of the float32 one) with idx all
+    0, all W - 1, the identity, the reversal, the upper half at W = 256 and
+    random: the shipped kernel (one counted launch a call) and its other
+    design (warp_blocks, row_staged), each equal bit for bit to the plain
+    version on the card and to the JAX probe's oracle.  No
+    index outside [0, W) is launched here: its trap would poison the
+    context for the tests after it (a child process launches one below)."""
+    probe = MP.BY_LABEL[label]
+    extra = 1 + len(PD.one_hot_tiles()) if label == "cumsum_lanes_i32" else len(
+        PD.lane_indices(len(probe.inputs()[1]), probe.inputs()[0].shape[1]))
+    _hold_on_held_inputs(cuda, label, design, extra)
+
+
+# a child process: a lane gather in range, then one with an index of W, whose trap it reads at the synchronize
+TRAP_CHILD = """
+import os, sys, torch
+from arrow_tpu_torch.tools import mosaic_probe as MP
+probe = MP.BY_LABEL[sys.argv[1]]
+x, idx = MP.inputs_on(probe, "cuda")
+assert torch.equal(MP.launch(probe, x, idx), MP.plain(probe, x, idx))
+torch.cuda.synchronize()
+idx[3, 5] = x.shape[1]
+MP.launch(probe, x, idx)
+try:
+    torch.cuda.synchronize()
+except Exception as e:  # the trap's launch error
+    print("launch error:", type(e).__name__, str(e).splitlines()[0], flush=True)
+    os._exit(3)
+print("no error", flush=True)
+os._exit(0)
+"""
+
+
+@pytest.mark.parametrize("label", ["gather_lanes_taa_8x128_i32", "gather_lanes_256wide_2gathers"])
+def test_lane_gather_traps_on_an_index_past_its_row(cuda, label):
+    """An index of W (128, or 256 for the 256-wide row) makes the lane
+    gather trap rather than read outside the row: launched in a child
+    process, where the trap cannot poison this process's context, after a
+    launch in range that matches the plain version; the child finds the
+    launch error at its synchronize."""
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", TRAP_CHILD, label], cwd=repo, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 3 and "launch error:" in proc.stdout, (proc.returncode, proc.stdout[-2000:],
+                                                                     proc.stderr[-2000:])
 
 
 @pytest.mark.parametrize("keys", ["full range", "ends"])
@@ -1290,7 +1346,12 @@ ONE_KERNEL = {"dma_unaligned_row_offset": ("slice_every_row", [8, 1, 1], [256, 1
               "gather_sublanes_taa_axis0": ("gather_stripe", [8, 1, 1], [256, 1, 1]),
               "dma_dynamic_size_rows": ("copy_rows_sized", [8, 1, 1], [256, 1, 1]),
               "dynamic_store_vmem_rows": ("write_rows", [8, 1, 1], [256, 1, 1]),
-              "lax_sort_in_kernel": ("sort_rows", [8, 1, 1], [32, 1, 1])}
+              "lax_sort_in_kernel": ("sort_rows", [8, 1, 1], [32, 1, 1]),
+              "cumsum_lanes_i32": ("cumsum_lanes", [1, 1, 1], [256, 1, 1]),
+              "gather_lanes_taa_8x128_i32": ("gather_lanes", [8, 1, 1], [32, 1, 1]),
+              "gather_lanes_f32": ("gather_lanes", [8, 1, 1], [32, 1, 1]),
+              "gather_lanes_256wide_2gathers": ("gather_lanes", [8, 1, 1], [32, 1, 1]),
+              "gather_lanes_taa_256x128_i32": ("gather_lanes", [32, 1, 1], [256, 1, 1])}
 
 
 @pytest.mark.parametrize("label", ONE_KERNEL)
@@ -1298,7 +1359,8 @@ def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
     """One call of the row-offset copy, the scalar add, the transpose, the
     HBM-to-HBM copy, the bitcast, a merge step, the column cumsum, the mask
     matmul, the sublane gather, the sized copy, the row store (P4's
-    write_rows) or the in-row sort is one counted launch and
+    write_rows), the in-row sort, the lane cumsum or a lane gather is one
+    counted launch and
     exactly one kernel on the card, with its name, grid and block (no fill,
     no wrapper-side copy, no host read of s or R), equal to the plain
     version."""
@@ -1328,7 +1390,8 @@ def test_one_kernel_traces_with_the_design_libraries_loaded(cuda, tmp_path):
     launched, ten traced calls of each probe above still hold exactly its
     one kernel: loading more kernel libraries adds nothing to a trace."""
     libs = _design_libs()
-    for label in ("gather_sublanes_taa_axis0", "dma_dynamic_size_rows", "lax_sort_in_kernel"):
+    for label in ("gather_sublanes_taa_axis0", "dma_dynamic_size_rows", "lax_sort_in_kernel", "cumsum_lanes_i32",
+                  *PD.GATHER_LANES):
         args = MP.inputs_on(MP.BY_LABEL[label], cuda)
         for call in PD.design_entries(libs, label).values():
             call(*args)

@@ -5,9 +5,9 @@ text exactly once; the wgmma wrapper that the tool writes for a tile width
 must be the source's own at the source's width; each redesigned kernel has
 its earlier source's path, its turns and, where PyTorch has one, a library
 call (the mask matmul has none: its staging turn stands in); the column
-cumsum's, the mask matmul's, the sublane gather's, the sized copy's and
-the in-row sort's held inputs show what they must catch; ``--sass``'s counts are read right
-from cuobjdump's text.  The builds and times need the card
+cumsum's, the mask matmul's, the sublane gather's, the sized copy's, the
+in-row sort's, the lane cumsum's and the lane gathers' held inputs show what
+they must catch; ``--sass``'s counts are read right from cuobjdump's text.  The builds and times need the card
 (``chip_smoke.py``'s ``probes`` phase)."""
 
 import numpy as np
@@ -34,7 +34,9 @@ SWITCHES = {"quads": [TRANSPOSE_REGISTERS],
             "cumsum_block": [(PD.CUMSUM_THREADS, "constexpr int kCumsumThreads = 128;")],
             "direct": [(PD.GATHER_DIRECT, "constexpr bool kGatherDirect = true;")],
             "count_first": [(PD.SIZED_COUNT_FIRST, "constexpr bool kSizedCountFirst = true;")],
-            "eight_a_lane": [(PD.SORT_EIGHT_A_LANE, "constexpr bool kSortEightALane = true;")]}
+            "eight_a_lane": [(PD.SORT_EIGHT_A_LANE, "constexpr bool kSortEightALane = true;")],
+            "warp_blocks": [(PD.CUMSUM_LANES_GRID, "constexpr bool kCumsumLanesGrid = true;")],
+            "row_staged": [(PD.GATHER_SHUFFLE, "constexpr bool kGatherShuffle = false;")]}
 R4_DESIGNS = ("exchange", "mask_staging")  # the designs made from probe_r4.cu
 
 
@@ -102,12 +104,14 @@ def test_redesigned_kernel_has_its_earlier_source_turns_and_library_call(label):
 
 
 def test_every_kernel_of_the_tools_is_redesigned_once():
-    """The table names sixteen redesigned kernels (the merge step's two
-    forms are one kernel), each with an earlier design, and no kernel is
-    left timed against its library call alone; the column cumsum and the
-    mask matmul were redesigned together, and so were the sublane gather
-    and the sized copy, and the row store and the in-row sort."""
-    assert len(PD.REDESIGNED) == 17 and len(set(PD.REDESIGNED)) == 17
+    """The table names eighteen redesigned kernels in 22 labels (the merge
+    step's two forms are one kernel, and so are the lane gather's four
+    probes), each with an earlier design, and no kernel is left timed
+    against its library call alone; the column cumsum and the mask matmul
+    were redesigned together, and so were the sublane gather and the sized
+    copy, the row store and the in-row sort, and the lane cumsum and the
+    lane gather."""
+    assert len(PD.REDESIGNED) == 22 and len(set(PD.REDESIGNED)) == 22
     assert set(PD.TURNS) == set(PD.REDESIGNED) and not hasattr(PD, "UNCHANGED")
     assert {PD.BEFORE[name] for name in PR.MERGE_STEPS} == {PD.BEFORE["bitcast_f32_u32"]}
     assert PD.BEFORE["cumsum_sublanes_f32"] == PD.BEFORE["i1_to_bf16_astype"] == "9e5ff2a"
@@ -117,6 +121,11 @@ def test_every_kernel_of_the_tools_is_redesigned_once():
     assert PD.BEFORE["dynamic_store_vmem_rows"] == PD.BEFORE["lax_sort_in_kernel"] == "dfc6a14"
     assert PD.TURNS["dynamic_store_vmem_rows"] == ("earlier",)
     assert PD.TURNS["lax_sort_in_kernel"] == ("earlier", "eight_a_lane")
+    lane = ("cumsum_lanes_i32", *PD.GATHER_LANES)
+    assert {PD.BEFORE[label] for label in lane} == {"a5e35e7"} and len(lane) == 5
+    assert set(PD.GATHER_LANES) == {p.label for p in MP.PROBES if p.label.startswith("gather_lanes")}
+    assert PD.TURNS["cumsum_lanes_i32"] == ("earlier", "warp_blocks")
+    assert {PD.TURNS[label] for label in PD.GATHER_LANES} == {("earlier", "row_staged")}
 
 
 def test_held_inputs_cover_every_window_row():
@@ -378,6 +387,116 @@ def test_sort_tiles_catch_a_lane_that_compares_the_wrong_way(stage):
         assert whole == ["full range", "ascending", "descending", "four values", "bitonic"]
 
 
+def _lane_scan(a, lost=None, skipped=None):
+    """The lane cumsum as its kernel makes it: each lane's 4 running sums
+    plus the sum of the lanes before it, wrapping in int32; `lost`: a lane
+    whose carry is dropped (it gets no sum of the lanes before it),
+    `skipped`: a lane whose total is left out of the carries of the lanes
+    after it."""
+    own = a.long().view(a.shape[0], 32, 4).cumsum(2)
+    totals = own[..., 3].clone()
+    if skipped is not None:
+        totals[:, skipped] = 0
+    before = totals.cumsum(1) - totals
+    if lost is not None:
+        before[:, lost] = 0
+    out = (own + before[..., None]).view(a.shape)
+    return ((out + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def test_held_inputs_hold_the_lane_cumsum_where_it_wraps_and_at_every_column():
+    """The lane cumsum is held at the probe's ones, on a full-range random
+    tile, where the int32 sum wraps, and on 16 one-hot tiles (tile t, row r:
+    a 1 at column 8t + r) that together put a 1 at every column; its plain
+    version is np.cumsum in int32 on each, and so is the kernel's scan (4
+    sums a lane, then the lanes before it)."""
+    probe = MP.BY_LABEL["cumsum_lanes_i32"]
+    cases = [a for (a,) in PD.held_inputs(probe, "cpu")]
+    tiles = PD.one_hot_tiles()
+    assert len(tiles) == 16 and len(cases) == 2 + len(tiles)
+    assert torch.equal(cases[0], MP.inputs_on(probe, "cpu")[0])
+    full = cases[1]
+    assert full.min() < -2 ** 30 and full.max() > 2 ** 30
+    exact = full.long().cumsum(1)
+    assert ((exact > 2 ** 31 - 1) | (exact < -2 ** 31)).any()
+    for t, (tile, got) in enumerate(zip(tiles, cases[2:])):
+        assert tile.dtype == np.int32 and tile.shape == (8, 128) and np.array_equal(got.numpy(), tile)
+        assert (tile.sum(1) == 1).all() and (np.argmax(tile, 1) == 8 * t + np.arange(8)).all()
+    assert sorted(np.argmax(np.stack(tiles), 2).ravel().tolist()) == list(range(128))
+    for a in cases:
+        want = torch.from_numpy(np.cumsum(a.numpy(), 1, dtype=np.int32))
+        assert torch.equal(MP.plain(probe, a), want) and torch.equal(_lane_scan(a), want)
+
+
+@pytest.mark.parametrize("lane", range(1, 32))
+def test_one_hot_tiles_catch_a_carry_lost_at_any_lane_boundary(lane):
+    """At the boundary between lane - 1 and lane (columns 4 lane - 1 and
+    4 lane), a scan that drops the carry into the lane, or that leaves lane -
+    1's total out of the lanes after it, gives a wrong row on one of the
+    one-hot tiles: the one whose 1 lies before the boundary, in the lane
+    just before it."""
+    tiles = [torch.from_numpy(t) for t in PD.one_hot_tiles()]
+    for fault in ({"lost": lane}, {"skipped": lane - 1}):
+        wrong = [t for t, a in enumerate(tiles) if not torch.equal(_lane_scan(a, **fault), _lane_scan(a))]
+        assert wrong, fault
+        rows = [(t, r) for t in wrong for r in range(8) if 4 * (lane - 1) <= 8 * t + r < 4 * lane]
+        assert rows, (fault, wrong)
+
+
+@pytest.mark.parametrize("label", PD.GATHER_LANES)
+def test_held_inputs_hold_the_lane_gathers_on_every_index_set(label):
+    """A lane gather is held at the probe's inputs and on one full-range x
+    (for gather_lanes_f32 its bits as float32, with -0 and a signalling NaN
+    in every row) with idx all 0, all W - 1, the identity, the reversal, at
+    W = 256 the upper half alone, and random; its plain version is
+    x[r, idx[r, c]] (the JAX probe's take_along_axis) bit for bit, and on
+    each set a slipped lane or row gives another output."""
+    probe = MP.BY_LABEL[label]
+    x_host, idx_host = probe.inputs()
+    width = x_host.shape[1]
+    sets = PD.lane_indices(len(idx_host), width)
+    assert list(sets) == ["zeros", "last", "identity", "reversal", *(["upper half"] if width > 128 else []), "random"]
+    cases = list(PD.held_inputs(probe, "cpu"))
+    assert len(cases) == 1 + len(sets)
+    x = cases[1][0]
+    assert all(c[0] is x for c in cases[1:]) and x.dtype == torch.from_numpy(x_host).dtype
+    bits = x.view(torch.int32)
+    assert bits.shape == x_host.shape and bits.min() < -2 ** 30 and bits.max() > 2 ** 30
+    if x.dtype == torch.float32:
+        rows = torch.arange(len(x))
+        assert (bits[rows, rows] == -2 ** 31).all() and (bits[rows, width - 1 - rows] == 0x7F800001).all()
+        assert x.isnan().any()
+    rows = torch.arange(len(idx_host))[:, None]
+    for (got_x, idx), (name, want) in zip(cases[1:], sets.items()):
+        assert idx.dtype == torch.int32 and np.array_equal(idx.numpy(), want)
+        assert idx.min() >= 0 and idx.max() < width
+        got = MP.plain(probe, got_x, idx)
+        assert PD.same_bits(got, torch.from_numpy(np.take_along_axis(x.numpy(), want, 1)))
+        assert PD.same_bits(got, x[:, :128]) == (name == "identity")
+        for slip, other in {"lane + 1": x[rows, (idx.long() + 1) % width],
+                            "row + 1": x[(rows + 1) % len(x), idx.long()]}.items():
+            assert not PD.same_bits(other, got), (name, slip)
+
+
+def test_lane_indices_reach_both_halves_of_the_256_wide_row():
+    """The 256-wide gather's index sets take every column of the row, the
+    identity only the lower half and the reversal and the upper-half set only
+    the upper; a gather that read one half alone (the index's top bit lost,
+    or set) misses on those that reach the other."""
+    probe = MP.BY_LABEL["gather_lanes_256wide_2gathers"]
+    sets = PD.lane_indices(8, 256)
+    assert set(np.concatenate([v.ravel() for v in sets.values()]).tolist()) == set(range(256))
+    assert sets["identity"].max() < 128 <= min(sets["reversal"].min(), sets["upper half"].min())
+    assert (sets["random"] < 128).any() and (sets["random"] >= 128).any()
+    cases = list(PD.held_inputs(probe, "cpu"))[1:]
+    rows = torch.arange(8)[:, None]
+    for half, cols in {"lower": lambda i: i % 128, "upper": lambda i: i % 128 + 128}.items():
+        missed = [name for name, (x, idx) in zip(sets, cases)
+                  if not torch.equal(x[rows, cols(idx.long())], MP.plain(probe, x, idx))]
+        assert missed == {"lower": ["last", "reversal", "upper half", "random"],
+                          "upper": ["zeros", "identity", "random"]}[half]
+
+
 # cuobjdump -sass's layout, cut down: a kernel to count, then one that is not
 SASS_TEXT = """
         Function : _ZN12_GLOBAL__N_113gather_stripeEPK4int4S2_PS0_
@@ -393,7 +512,7 @@ SASS_TEXT = """
         /*0080*/                   LDG.E R16, desc[UR4][R2.64+0x4] ;           /* 0x000000040210e981 */
         /*0090*/                   STG.E.128 desc[UR4][R2.64], R4 ;            /* 0x000000040200e986 */
         /*00a0*/                   EXIT ;                                       /* 0x000000000000794d */
-        Function : _ZN12_GLOBAL__N_112cumsum_lanesEPKiPii
+        Function : _ZN12_GLOBAL__N_110roll_lanesEPKiS1_iPii
         /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;                /* 0x000000040204e981 */
         /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;                /* 0x0000000000007b1d */
 """
@@ -402,14 +521,18 @@ SASS_TEXT = """
 def test_count_sass_counts_ops_and_the_loads_behind_a_barrier_or_an_add():
     """--sass's counts from cuobjdump's text: opcodes with any suffix (a
     predicated one too), every instruction, the LDGs after the first FADD or
-    HMMA ("late LDG") and after the first BAR.SYNC, only for kernels named
-    in SASS_KERNELS (the sublane gather's, the sized copy's, the in-row
-    sort's and the row store's, earlier and new, among them)."""
+    HMMA ("late LDG"), after the first BAR.SYNC and after the first SHFL,
+    STS or STG, only for kernels named in SASS_KERNELS (the sublane
+    gather's, the sized copy's, the in-row sort's, the row store's, the lane
+    cumsum's and the lane gather's, earlier and new, among them; not the
+    rolls')."""
     assert {"gather_stripe", "gather_direct", "gather_sublanes", "copy_rows_sized", "sort_rows", "write_rows",
-            "store_rows"} <= set(PD.SASS_KERNELS)
+            "store_rows", "cumsum_lanes", "gather_lanes"} <= set(PD.SASS_KERNELS)
+    assert not any(k in "roll_lanes" for k in PD.SASS_KERNELS)
     counts = PD.count_sass(SASS_TEXT)
     assert list(counts) == ["_ZN12_GLOBAL__N_113gather_stripeEPK4int4S2_PS0_"]
     (got,) = counts.values()
     assert {k: got[k] for k in ("LDG", "STS", "BAR.SYNC", "LDS", "FADD", "STG", "HMMA")} == {
         "LDG": 4, "STS": 1, "BAR.SYNC": 1, "LDS": 1, "FADD": 1, "STG": 1, "HMMA": 0}
     assert got["all"] == 11 and got["late LDG"] == 1 and got["LDG after BAR.SYNC"] == 2
+    assert got["LDG after SHFL, STS or STG"] == 2
