@@ -11,11 +11,10 @@
 // puts one after another.  What each shows is that the card does the probe's
 // operation in the way the TPU kernel did:
 //
-// - lane movement (the rolls) is done by a warp that holds a 128-wide row as
-//   4 registers a lane, element c in register c >> 5 of lane c & 31, with
-//   __shfl_sync and a select on the source register; the lane gathers, the
-//   lane cumsum and the in-row sort hold 4 consecutive elements a lane
-//   (below);
+// - lane movement (the rolls, the lane gathers, the lane cumsum and the
+//   in-row sort) is done by a warp that holds a 128-wide row as 4
+//   consecutive elements a lane, loaded and stored as one 16-byte word, with
+//   __shfl_sync between the lanes (below);
 // - row movement (the sublane gather, the row write and store, the
 //   transpose) goes through a tile in shared memory;
 // - the DMA probes (the row-offset copy, the row write, the sized copy and
@@ -24,7 +23,7 @@
 //   one-dimensional form, on an mbarrier or a bulk group) stay behind
 //   kOffsetBulk, kWriteBulk and kHbmBulk.
 //
-// Sixteen kernels here (and probe_r4.cu's merge step and mask matmul) are
+// Eighteen kernels here (and probe_r4.cu's merge step and mask matmul) are
 // laid out for the card rather than for the TPU's tiles, so that every global
 // load is in flight at once and nothing waits on a round trip that an earlier
 // one could have covered:
@@ -188,6 +187,30 @@
 //   it) took 1.19-1.25x as long on an H100 80GB HBM3 at 700 W, in turns;
 //   the warp's row through shared memory (kGatherShuffle false) 0.98-1.05x
 //   at W = 128 and 0.99-1.01x at W = 256 (tools/probe_designs.py).
+// - pltpu_roll_static and pltpu_roll_dynamic (the probes through
+//   simple_call, :61: np.roll along the lanes of an (8, 128) int32 tile by
+//   3, or by s read on the device).  Bound by bytes: 8 KB, 0.0024 us.  One
+//   block of 8 warps, a warp a row (roll_lanes<Dynamic, Shift>): lane h
+//   loads elements 4h..4h+3 as one 16-byte word, the shift with it; each of
+//   its 4 registers comes from one lane by one __shfl_sync (3 for the
+//   static shift 3, a template argument), then selects on the shift's m
+//   and one 16-byte store.  The earlier design (element c in register c >>
+//   5 of lane c & 31: five 4-byte loads and four 4-byte stores through
+//   plain pointers, 4 SHFL and 14 selects, two % of the shift) took 1.039x
+//   as long on an H100 80GB HBM3 at 700 W, in five rounds of turns (1.081x
+//   static and 0.985x dynamic in one round of another call); the warp's
+//   row through shared memory (kRollStaged true) 1.000-1.001x
+//   (tools/probe_designs.py).
+// - smem_scratch_scalar_loop (the probe through simple_call, :61: the
+//   wrapping int32 sum of a[0:8, 0] filled into an (8, 128) tile).  Bound
+//   by bytes: 32 B read and 4 KB written, 0.0012 us.  One block of 256
+//   threads, each issuing its 8 loads before its first add, then one
+//   16-byte store: no shared scalar, no barrier.  The earlier design
+//   (thread 0's sum into a __shared__ scalar, a __syncthreads, then 4-byte
+//   stores) took 1.065x as long on an H100 80GB HBM3 at 700 W, in five
+//   rounds of turns (1.042x in one round of another call); one load a lane
+//   summed by three __shfl_xor_sync stages (kScalarLaneSum true) 0.996x and
+//   1.022x, a tie (tools/probe_designs.py).
 //
 // One C entry a probe, arrow_probe_<label>(inputs..., out, stream), in the
 // order of the JAX probe's pallas_call arguments (the device scalar first
@@ -259,35 +282,40 @@ __global__ void shifts_popcount(const uint32_t* a, uint32_t* out, int n) {
   }
 }
 
-// smem_scratch_scalar_loop: one thread sums a[i, 0] for i < 8 into a scalar
-// in shared memory; the sum fills the (8, 128) output
-__global__ void scalar_loop_fill(const int32_t* a, int32_t* out) {
-  __shared__ int32_t s;
-  if (threadIdx.x == 0) {
-    s = 0;
-    for (int i = 0; i < 8; ++i) s += a[i * kLanes];
+// smem_scratch_scalar_loop's designs: every thread loads the 8 words, or
+// each lane one of them, summed across the lanes by shuffles (kScalarLaneSum)
+constexpr bool kScalarLaneSum = false;
+
+// The wrapping int32 sum of a[i, 0] for i < 8, filled into the (8, 128)
+// output: one block of 256 threads, one 16-byte store each.  Each thread
+// issues its 8 loads of a[i * 128] (a broadcast of one sector a warp) before
+// its first add and adds in uint32_t, so the sum wraps as the int32 one
+// does; no shared scalar, no barrier.  The other design loads a[(lane & 7),
+// 0] a lane, so that every group of 8 lanes holds the 8 words, and sums them
+// by three __shfl_xor_sync stages.
+__global__ void __launch_bounds__(kTileThreads)
+    scalar_loop_fill(const int32_t* __restrict__ a, int4* __restrict__ out) {
+  uint32_t sum;
+  if constexpr (kScalarLaneSum) {
+    sum = __ldg(a + (threadIdx.x & (kTileRows - 1)) * kLanes);
+#pragma unroll
+    for (int d = 1; d < kTileRows; d <<= 1) sum += __shfl_xor_sync(kFull, sum, d);
+  } else {
+    uint32_t v[kTileRows];
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i) v[i] = __ldg(a + i * kLanes);
+    sum = v[0];
+#pragma unroll
+    for (int i = 1; i < kTileRows; ++i) sum += v[i];
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 8 * kLanes; i += blockDim.x) out[i] = s;
+  const int s = static_cast<int>(sum);
+  out[threadIdx.x] = make_int4(s, s, s, s);
 }
 
 // ---------------------------------------------------------------------------
-// lane and row movement: a warp a row, element c in register c >> 5 of lane
-// c & 31
-
-// The value at lane index `src` of the row that the warp holds in `row`
-// (W / 32 registers a lane): every lane shuffles each register from lane
-// src & 31 and keeps register src >> 5's.  All lanes must call it.
-template <int W>
-__device__ __forceinline__ int32_t row_value(const int32_t (&row)[W / 32], int src) {
-  int32_t v = 0;
-#pragma unroll
-  for (int r = 0; r < W / 32; ++r) {
-    const int32_t got = __shfl_sync(kFull, row[r], src & 31);
-    if ((src >> 5) == r) v = got;
-  }
-  return v;
-}
+// lane and row movement: a warp a row, lane h holding elements 4h..4h+3 (the
+// rolls, the lane gathers); the sublane gather and the transpose through
+// shared memory
 
 // An index into N lanes or rows (the lane gathers' row, the sublane
 // gather's tile); one outside [0, N) traps rather than reading outside them.
@@ -353,22 +381,54 @@ __global__ void __launch_bounds__(Warps * 32)
   out[r * kRowWords + lane] = make_int4(got[0], got[1], got[2], got[3]);
 }
 
-// np.roll along the lanes: out[r, c] = a[r, (c - shift) mod 128], the shift
-// read from the device where `shift_dev` is given
-__global__ void roll_lanes(const int32_t* a, const int32_t* shift_dev, int shift, int32_t* out, int rows) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (r >= rows) return;
-  if (shift_dev != nullptr) shift = shift_dev[0];
-  shift = ((shift % kLanes) + kLanes) % kLanes;
-  int32_t row[4];
+// the rolls' designs: each source register shuffled from the lane that holds
+// it, or the warp's row through shared memory (kRollStaged)
+constexpr bool kRollStaged = false;
+
+// np.roll along the lanes of an (8, 128) int32 tile: out[r, c] = a[r, (c -
+// s) mod 128], s = Shift, or read from the device (Dynamic) together with
+// the row, whose address does not depend on it.  One block of 8 warps, a
+// warp a row: lane h loads elements 4h..4h+3 with one 16-byte load.  With
+// s & 127 = 4q + m (0 <= m < 4; the residue for every int32, INT_MIN too),
+// output register e of lane h is register (e - m) & 3 of lane h - q - [e <
+// m]; so source register k goes to output register (k + m) & 3 from lane h -
+// q - [k + m >= 4]: 4 independent __shfl_sync (none where a static shift
+// keeps the register in its lane), then selects on the warp-uniform m (none
+// for a static shift), then one 16-byte store.  The other design stores the
+// lane's 16 bytes into the warp's row in shared memory and after a
+// __syncwarp reads its 4 words there.
+template <bool Dynamic, int Shift>
+__global__ void __launch_bounds__(kTileThreads)
+    roll_lanes(const int32_t* __restrict__ s, const int4* __restrict__ a, int4* __restrict__ out) {
+  const int i = threadIdx.x;  // the lane's 16-byte word of the tile
+  const int lane = i & 31;
+  int shift = Shift;
+  if constexpr (Dynamic) shift = __ldg(s);
+  const int4 v = __ldg(a + i);
+  const int r = shift & (kLanes - 1), q = r >> 2, m = r & 3;
+  int32_t o[4];
+  if constexpr (kRollStaged) {
+    __shared__ alignas(16) int32_t rows[kTileRows][kLanes];
+    int32_t* row = rows[i / 32];
+    reinterpret_cast<int4*>(row)[lane] = v;
+    __syncwarp();
 #pragma unroll
-  for (int j = 0; j < 4; ++j) row[j] = a[r * kLanes + j * 32 + lane];
+    for (int e = 0; e < 4; ++e) o[e] = row[(4 * lane + e - r) & (kLanes - 1)];
+  } else {
+    const int32_t own[4] = {v.x, v.y, v.z, v.w};
+    int32_t got[4];  // got[k]: source register k of its lane, for output register (k + m) & 3
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = j * 32 + lane;
-    out[r * kLanes + c] = row_value<kLanes>(row, (c - shift + kLanes) & (kLanes - 1));
+    for (int k = 0; k < 4; ++k) {
+      const int back = q + (k + m >= 4);
+      got[k] = (!Dynamic && back == 0) ? own[k] : __shfl_sync(kFull, own[k], (lane - back) & 31);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = (e - m) & 3;  // selects on compile-time indices: nothing goes to local memory
+      o[e] = k == 0 ? got[0] : k == 1 ? got[1] : k == 2 ? got[2] : got[3];
+    }
   }
+  out[i] = make_int4(o[0], o[1], o[2], o[3]);
 }
 
 // The first row of an 8-row window at row `first` (read from the device) of
@@ -1017,7 +1077,7 @@ int arrow_probe_bitcast_f32_u32(const void* a, void* out, void* stream) {
 }
 
 int arrow_probe_smem_scratch_scalar_loop(const void* a, void* out, void* stream) {
-  scalar_loop_fill<<<1, 256, 0, STREAM>>>(in<int32_t>(a), out_<int32_t>(out));
+  scalar_loop_fill<<<1, kTileThreads, 0, STREAM>>>(in<int32_t>(a), out_<int4>(out));
   return done();
 }
 
@@ -1043,12 +1103,12 @@ int arrow_probe_gather_lanes_256wide_2gathers(const void* t, const void* idx, vo
 }
 
 int arrow_probe_pltpu_roll_static(const void* a, void* out, void* stream) {
-  roll_lanes<<<1, 8 * 32, 0, STREAM>>>(in<int32_t>(a), nullptr, 3, out_<int32_t>(out), 8);
+  roll_lanes<false, 3><<<1, kTileThreads, 0, STREAM>>>(nullptr, in<int4>(a), out_<int4>(out));
   return done();
 }
 
 int arrow_probe_pltpu_roll_dynamic(const void* s, const void* a, void* out, void* stream) {
-  roll_lanes<<<1, 8 * 32, 0, STREAM>>>(in<int32_t>(a), in<int32_t>(s), 0, out_<int32_t>(out), 8);
+  roll_lanes<true, 0><<<1, kTileThreads, 0, STREAM>>>(in<int32_t>(s), in<int4>(a), out_<int4>(out));
   return done();
 }
 

@@ -10,8 +10,10 @@ turns on one card.
 ``gather_sublanes_taa_axis0``, the sized copy ``dma_dynamic_size_rows``,
 the row store ``dynamic_store_vmem_rows`` (whose C entry launches the row
 write's ``write_rows``), the in-row sort ``lax_sort_in_kernel``, the lane
-cumsum ``cumsum_lanes_i32`` and the lane gather ``gather_lanes`` behind
-its four probes (:data:`GATHER_LANES`) (``csrc/mosaic_probe.cu``),
+cumsum ``cumsum_lanes_i32``, the lane gather ``gather_lanes`` behind
+its four probes (:data:`GATHER_LANES`), the lane roll ``roll_lanes``
+behind its two probes (:data:`ROLLS`) and the scalar loop
+``smem_scratch_scalar_loop`` (``csrc/mosaic_probe.cu``),
 and the merge step in its two forms, ``mb_step_rollpair`` and
 ``mb_step_taa``, and the mask matmul ``i1_to_bf16_astype``
 (``csrc/probe_r4.cu``), are laid out for the card.  Each other design is a variant of the kernel's
@@ -75,7 +77,14 @@ design, all started together):
 - ``row_staged``: the lane gather through the warp's row in shared memory
   (16-byte stores, a ``__syncwarp``, 4 reads), in place of each output
   shuffled from the lane that holds it (W / 32 ``__shfl_sync`` and selects
-  an output).
+  an output);
+- ``roll_staged``: the roll through the warp's row in shared memory (a
+  16-byte store, a ``__syncwarp``, 4 reads), in place of each of the lane's
+  4 registers shuffled from the lane that holds it (4 independent
+  ``__shfl_sync``, then selects on the shift's m);
+- ``lane_sum``: the scalar loop with one load a lane, ``a[lane & 7, 0]``,
+  summed by three ``__shfl_xor_sync`` stages, in place of each thread's 8
+  loads added in registers.
 
 Every design but ``staging`` is first held to the plain version on the
 probe's inputs, a row window's (the row store's too) at every legal s on
@@ -90,17 +99,20 @@ bit for bit on an order-sensitive tile (:func:`ordered_tile`) and on
 normals, the mask matmul's on every row count from 0 to 128
 (:func:`count_tiles`), the in-row sort's on each of :func:`sort_tiles`, the
 lane cumsum's on a full-range random tile, where the sum wraps, and on each
-of :func:`one_hot_tiles`, and the lane gathers' on a full-range random x
+of :func:`one_hot_tiles`, the lane gathers' on a full-range random x
 (float32 of full-range bits for ``gather_lanes_f32``) with each of
-:func:`lane_indices`.
+:func:`lane_indices`, the rolls' on a full-range random tile and on each of
+:func:`one_hot_tiles` (the dynamic roll's at every shift of ROLL_SHIFTS and
+ROLL_ONE_HOT_SHIFTS), and the scalar loop's on each of
+:func:`scalar_tiles`.
 Then each kernel is timed in turns: plain, new, library, new, a design, new,
 the next design, new, ...; device ms a call, queued behind a spin kernel
 (:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`), beside an
 empty kernel's; the library call is :func:`mosaic_probe.library_call`'s
 (``x + 1``, ``torch._int_mm``, a slice's ``clone``, ``F.pad``, ``x + s``,
 ``t().contiguous()``, ``torch.cumsum``, ``torch.take_along_dim``,
-``torch.sort``); a kernel without one (the mask matmul) is timed plain, new,
-a design, new, .... The merge step has no library call, and its plain
+``torch.sort``, ``torch.roll``); a kernel without one (the mask matmul, the
+scalar loop) is timed plain, new, a design, new, .... The merge step has no library call, and its plain
 version reads R on the host, so it is timed new, a design, new, ...: the
 probe's call at R = 3, and us a step on one block from the slope between two
 R (:func:`probe_r4.us_per_step`), beside one SM's floor for a step (its
@@ -144,11 +156,17 @@ BEFORE = {"grid_1d_blockspec": "9d785cc", "matmul_int8_s32acc": "9d785cc",
           "dynamic_store_vmem_rows": "dfc6a14", "lax_sort_in_kernel": "dfc6a14",
           "cumsum_lanes_i32": "a5e35e7", "gather_lanes_taa_8x128_i32": "a5e35e7",
           "gather_lanes_taa_256x128_i32": "a5e35e7", "gather_lanes_f32": "a5e35e7",
-          "gather_lanes_256wide_2gathers": "a5e35e7"}
+          "gather_lanes_256wide_2gathers": "a5e35e7", "pltpu_roll_static": "7bba077",
+          "pltpu_roll_dynamic": "7bba077", "smem_scratch_scalar_loop": "7bba077"}
 REDESIGNED = tuple(BEFORE)
 # the probes that launch the lane gather gather_lanes<W, Warps>
 GATHER_LANES = ("gather_lanes_taa_8x128_i32", "gather_lanes_taa_256x128_i32", "gather_lanes_f32",
                 "gather_lanes_256wide_2gathers")
+ROLLS = ("pltpu_roll_static", "pltpu_roll_dynamic")  # the probes that launch the lane roll roll_lanes
+# the dynamic roll's shifts on a full-range tile: every (q, m) of s & 127 = 4q + m, both signs, 0, 127, 128,
+# 255, 256, and both ends of the int32 range
+ROLL_SHIFTS = (*range(-130, 261), -2 ** 31, 2 ** 31 - 1)
+ROLL_ONE_HOT_SHIFTS = (-1, 0, 1, 2, 3, 5, 127, 128, 255, -2 ** 31, 2 ** 31 - 1)  # and on each one-hot tile
 FILLED_BEFORE = ("dma_unaligned_row_write",)  # earlier designs that wrote into an output zeroed by the wrapper
 # a window at device row s in [0, 56]
 WINDOWED = ("dynamic_slice_vmem_rows", "dma_unaligned_row_write", "dma_unaligned_row_offset",
@@ -178,6 +196,8 @@ SIZED_COUNT_FIRST = "constexpr bool kSizedCountFirst = false;"
 SORT_EIGHT_A_LANE = "constexpr bool kSortEightALane = false;"
 CUMSUM_LANES_GRID = "constexpr bool kCumsumLanesGrid = false;"
 GATHER_SHUFFLE = "constexpr bool kGatherShuffle = true;"
+ROLL_STAGED = "constexpr bool kRollStaged = false;"
+SCALAR_LANE_SUM = "constexpr bool kScalarLaneSum = false;"
 MASK_PRODUCT_CALL = "  mask_product(c, sa, lane);\n"
 # in its place in mask_staging: the band's address escapes, so its stores (and the loads and compares) stay
 MASK_STAGING_STANDIN = '  asm volatile("" : : "r"(sa) : "memory");\n'
@@ -185,7 +205,7 @@ STAGING = ("staging", "mask_staging")  # designs with a part cut out: timed, not
 # the kernels whose SASS --sass counts
 SASS_KERNELS = ("merge_step", "copy_rows_direct", "bitcast_f32", "cumsum_rows", "mask_matmul", "gather_stripe",
                 "gather_direct", "gather_sublanes", "copy_rows_sized", "sort_rows", "write_rows", "store_rows",
-                "cumsum_lanes", "gather_lanes")
+                "cumsum_lanes", "gather_lanes", "roll_lanes", "scalar_loop_fill")
 SASS_OPS = ("BAR.SYNC", "LDS", "STS", "SHFL", "LDG", "STG", "ISETP", "SEL", "FADD", "HMMA")
 # LDGs counted after the first of these in a kernel: "late LDG" after its first FADD or HMMA (loads behind
 # its arithmetic), "LDG after BAR.SYNC" after its first barrier (loads behind it), "LDG after SHFL, STS or
@@ -206,7 +226,8 @@ TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "s
          "dma_dynamic_size_rows": ("earlier", "count_first"),
          "dynamic_store_vmem_rows": ("earlier",), "lax_sort_in_kernel": ("earlier", "eight_a_lane"),
          "cumsum_lanes_i32": ("earlier", "warp_blocks"),
-         **{label: ("earlier", "row_staged") for label in GATHER_LANES}}
+         **{label: ("earlier", "row_staged") for label in GATHER_LANES},
+         **{label: ("earlier", "roll_staged") for label in ROLLS}, "smem_scratch_scalar_loop": ("earlier", "lane_sum")}
 
 
 def wgmma_wrapper(n: int) -> str:
@@ -282,7 +303,9 @@ def design_sources() -> Dict[str, str]:
                "count_first": _once(text, SIZED_COUNT_FIRST, SIZED_COUNT_FIRST.replace("false", "true")),
                "eight_a_lane": _once(text, SORT_EIGHT_A_LANE, SORT_EIGHT_A_LANE.replace("false", "true")),
                "warp_blocks": _once(text, CUMSUM_LANES_GRID, CUMSUM_LANES_GRID.replace("false", "true")),
-               "row_staged": _once(text, GATHER_SHUFFLE, GATHER_SHUFFLE.replace("true", "false"))}
+               "row_staged": _once(text, GATHER_SHUFFLE, GATHER_SHUFFLE.replace("true", "false")),
+               "roll_staged": _once(text, ROLL_STAGED, ROLL_STAGED.replace("false", "true")),
+               "lane_sum": _once(text, SCALAR_LANE_SUM, SCALAR_LANE_SUM.replace("false", "true"))}
     for label in REDESIGNED:
         if earlier_source(label).is_file():
             designs[library_name(label, "earlier")] = earlier_source(label).read_text()
@@ -431,13 +454,27 @@ def sort_tiles() -> Dict[str, np.ndarray]:
 
 
 def one_hot_tiles() -> List[np.ndarray]:
-    """The lane cumsum's 16 (8, 128) int32 tiles of a single 1 a row: tile t
-    row r at column 8t + r, so that together they put a 1 at each of the 128
-    columns, and a carry lost or misplaced at any lane's boundary shows."""
+    """The lane cumsum's and the rolls' 16 (8, 128) int32 tiles of a single
+    1 a row: tile t row r at column 8t + r, so that together they put a 1 at
+    each of the 128 columns, and a carry lost or misplaced at any lane's
+    boundary, or a roll's output taken from the wrong column, shows."""
     tiles = np.zeros((16, 8, MP.LANES), np.int32)
     t, r = np.meshgrid(np.arange(16), np.arange(8), indexing="ij")
     tiles[t, r, 8 * t + r] = 1
     return list(tiles)
+
+
+def scalar_tiles() -> Dict[str, np.ndarray]:
+    """The scalar loop's (8, 128) int32 tiles beyond the probe's: full-range
+    random values whose column 0 is drawn from [2^30, 2^31), so that its sum
+    wraps, and noise in columns 1..127 beside a column 0 of 1000 r + 7, so
+    that a design that reads another column shows."""
+    rng = np.random.default_rng(23)
+    full = rng.integers(-2 ** 31, 2 ** 31, (8, MP.LANES), np.int32)
+    full[:, 0] = rng.integers(2 ** 30, 2 ** 31, 8, np.int32)
+    noise = rng.integers(-2 ** 31, 2 ** 31, (8, MP.LANES), np.int32)
+    noise[:, 0] = 1000 * np.arange(8) + 7
+    return {"full range": full, "noise": noise}
 
 
 def lane_indices(rows: int, width: int) -> Dict[str, np.ndarray]:
@@ -469,8 +506,26 @@ def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
     in-row sort each of ``sort_tiles``; for the lane cumsum a full-range
     random tile and each of ``one_hot_tiles``; for the lane gathers a
     full-range random x (its bits as float32 for ``gather_lanes_f32``, with
-    -0 and a signalling NaN in every row) with each of ``lane_indices``."""
+    -0 and a signalling NaN in every row) with each of ``lane_indices``; for
+    the rolls a full-range random tile and each of ``one_hot_tiles`` (the
+    dynamic roll's the tile at each shift of ROLL_SHIFTS, then the one-hot
+    tiles at each of ROLL_ONE_HOT_SHIFTS); for the scalar loop each of
+    ``scalar_tiles``."""
     yield MP.inputs_on(probe, device)
+    if probe.label == "pltpu_roll_static":
+        for tile in [_full_range((8, MP.LANES), device), *map(torch.from_numpy, one_hot_tiles())]:
+            yield [tile.to(device)]
+    if probe.label == "pltpu_roll_dynamic":
+        full = _full_range((8, MP.LANES), device)
+        for s in ROLL_SHIFTS:
+            yield [torch.full((1,), s, dtype=torch.int32, device=device), full]
+        tiles = [torch.from_numpy(tile).to(device) for tile in one_hot_tiles()]
+        for s in ROLL_ONE_HOT_SHIFTS:
+            for tile in tiles:
+                yield [torch.full((1,), s, dtype=torch.int32, device=device), tile]
+    if probe.label == "smem_scratch_scalar_loop":
+        for tile in scalar_tiles().values():
+            yield [torch.from_numpy(tile).to(device)]
     if probe.label == "cumsum_lanes_i32":
         yield [_full_range((8, MP.LANES), device)]
         for tile in one_hot_tiles():
@@ -625,7 +680,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", action="store_true",
                     help="also print the SASS counts of the merge step's, the copy's, the cumsum's, the mask matmul's, "
                          "the sublane gather's, the sized copy's, the row write's and store's, the in-row sort's, "
-                         "the lane cumsum's and the lane gather's kernels in each library")
+                         "the lane cumsum's, the lane gather's, the roll's and the scalar loop's kernels in each "
+                         "library")
     ap.add_argument("--labels", nargs="+", choices=REDESIGNED, default=REDESIGNED, help="the kernels (default: all)")
     ap.add_argument("--rounds", type=int, default=1, help="time each kernel's turns this many times over")
     args = ap.parse_args(argv)

@@ -126,12 +126,12 @@ Phases, each printing lines that start with its name:
    clone, pad, x + 1, ...; none for the mask product, whose bf16 matmul of a
    mask made beforehand is printed apart), and back to back (the wrapper's
    rate); the merge steps' us a step beside one SM's floor for a step (its
-   operations over one SM's integer rate); the eighteen redesigned kernels
+   operations over one SM's integer rate); the twenty redesigned kernels
    (probe_designs.REDESIGNED: P2, the int8 product, the row slice, P4, P3,
    P7, the transpose, P6, the bitcast, the merge step in both forms, the
    column cumsum, P9, the sublane gather, P5, the row store, the in-row
-   sort, the lane cumsum and the lane gather in its four probes) timed in
-   turns with their other designs
+   sort, the lane cumsum, the lane gather in its four probes, the lane roll
+   in its two and the scalar loop) timed in turns with their other designs
    (arrow_tpu_torch.tools.probe_designs: the earlier mosaic_probe.cu or
    probe_r4.cu where build/parent/<commit> holds it, and each kernel's
    alternatives, listed in that module), each held to its plain version
@@ -139,7 +139,8 @@ Phases, each printing lines that start with its name:
    s, the scalar add where its sum wraps, full-range tiles, the merge steps
    on tied, full-range and extreme keys at R = 0, 1 and 5, the sort on six
    tiles, the lane cumsum on 16 one-hot tiles, the lane gathers on six or
-   seven index sets, ...); the merge steps also in us a step on one block,
+   seven index sets, the dynamic roll at every shift in [-130, 260] and at
+   both ends of the int32 range, ...); the merge steps also in us a step on one block,
    in turns;
 10. profile: each query at each size under torch.profiler: device busy time,
    the device time in fills and in copies, the device's idle share of the

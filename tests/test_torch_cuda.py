@@ -8,6 +8,7 @@ so that it runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q -p no:cacheprovider
 """
 
+import collections
 import functools
 import importlib
 import json
@@ -1118,8 +1119,10 @@ def test_i1_to_bf16_astype_at_every_row_count(cuda, tile):
 @functools.lru_cache(maxsize=None)
 def _design_libs():
     """The sublane gather's, the sized copy's, the in-row sort's, the lane
-    cumsum's and the lane gather's other designs, built once."""
-    return PD.build(("direct", "count_first", "eight_a_lane", "warp_blocks", "row_staged"))[0]
+    cumsum's, the lane gather's, the roll's and the scalar loop's other
+    designs, built once."""
+    return PD.build(("direct", "count_first", "eight_a_lane", "warp_blocks", "row_staged", "roll_staged",
+                     "lane_sum"))[0]
 
 
 @pytest.mark.parametrize("label,design", [*[("gather_sublanes_taa_axis0", d) for d in ("new", "direct")],
@@ -1134,21 +1137,24 @@ def test_gather_and_sized_copy_on_their_held_inputs(cuda, label, design):
     _hold_on_held_inputs(cuda, label, design, 4 if label == "gather_sublanes_taa_axis0" else len(PD.SIZED_HELD))
 
 
-def _hold_on_held_inputs(cuda, label, design, extra):
+def _hold_on_held_inputs(cuda, label, design, extra, oracle_cases=None):
     """The probe's kernel ("new", one counted launch a call) or its other
     design on the probe's inputs and the `extra` cases of held_inputs, each
     equal bit for bit to the plain version on the card (NaN payloads and
-    signed zeros too) and to the JAX probe's oracle."""
+    signed zeros too) and to the JAX probe's oracle (on the first
+    `oracle_cases` cases where given: an oracle of the probe's input
+    alone)."""
     probe = MP.BY_LABEL[label]
     call = (lambda *a: MP.launch(probe, *a)) if design == "new" else PD.design_entries(_design_libs(), label)[design]
     cases = list(PD.held_inputs(probe, cuda))
     assert len(cases) == 1 + extra
     before = probe.kernel.launches
-    for args in cases:
+    for i, args in enumerate(cases):
         got = call(*args)
         assert PD.same_bits(got, MP.plain(probe, *args)), [a.flatten()[:4].tolist() for a in args]
-        host = [a.cpu().numpy() for a in args]
-        np.testing.assert_array_equal(got.cpu().numpy(), probe.oracle(*host))
+        if oracle_cases is None or i < oracle_cases:
+            host = [a.cpu().numpy() for a in args]
+            np.testing.assert_array_equal(got.cpu().numpy(), probe.oracle(*host))
     assert probe.kernel.launches == before + (len(cases) if design == "new" else 0)
 
 
@@ -1181,6 +1187,27 @@ def test_lane_cumsum_and_gathers_on_their_held_inputs(cuda, label, design):
     probe = MP.BY_LABEL[label]
     extra = 1 + len(PD.one_hot_tiles()) if label == "cumsum_lanes_i32" else len(
         PD.lane_indices(len(probe.inputs()[1]), probe.inputs()[0].shape[1]))
+    _hold_on_held_inputs(cuda, label, design, extra)
+
+
+@pytest.mark.parametrize("label,design", [(label, design) for label in (*PD.ROLLS, "smem_scratch_scalar_loop")
+                                          for design in ("new", *PD.TURNS[label][1:])])
+def test_roll_and_scalar_loop_on_their_held_inputs(cuda, label, design):
+    """The static roll on a full-range random tile and the 16 one-hot tiles,
+    the dynamic roll on a full-range random tile at every shift of
+    ROLL_SHIFTS (every (q, m), both signs, INT_MIN and INT_MAX) and on the
+    one-hot tiles at each of ROLL_ONE_HOT_SHIFTS, and the scalar loop on a
+    full-range tile whose column-0 sum wraps and on noise beside column 0:
+    the shipped kernel (one counted launch a call) and its other design
+    (roll_staged, lane_sum), each equal bit for bit to the plain version on
+    the card; the rolls to np.roll (their oracle) on every input, the scalar
+    loop to its oracle (3584) on the probe's arange."""
+    if label == "smem_scratch_scalar_loop":
+        _hold_on_held_inputs(cuda, label, design, len(PD.scalar_tiles()), oracle_cases=1)
+        return
+    tiles = len(PD.one_hot_tiles())
+    extra = (len(PD.ROLL_SHIFTS) + len(PD.ROLL_ONE_HOT_SHIFTS) * tiles if label == "pltpu_roll_dynamic"
+             else 1 + tiles)
     _hold_on_held_inputs(cuda, label, design, extra)
 
 
@@ -1268,6 +1295,28 @@ def test_matmul_int8_s32acc_cases(cuda, case):
         assert (got == 2_097_152).all()
 
 
+# the host's launch calls in a profile's trace
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+
+
+def _one_traced_kernel(prof, tmp_path, name, what):
+    """The events of `prof`'s exported trace and its one kernel event, which
+    must name `name`.  Where the trace holds no kernel event at all, the
+    assertion's message also carries the same profile's launch calls (name,
+    correlation id, time) and its count of events by category, so that a
+    lost device record can be told from a launch that never happened."""
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = f"{what} kernels {[e['name'] for e in kernels]}"
+    if not kernels:  # a string, so that pytest prints all of it
+        launches = [(e["name"], e.get("args", {}).get("correlation"), e.get("ts")) for e in events
+                    if e.get("name") in LAUNCH_CALLS]
+        found += f"; launches {launches}; events by category {dict(collections.Counter(e.get('cat') for e in events))}"
+    assert len(kernels) == 1 and name in kernels[0]["name"], found
+    return events, kernels[0]
+
+
 def test_grid_1d_blockspec_is_one_launch_of_its_grid(cuda, tmp_path):
     """One call is one kernel on the card: 32 blocks (an 8-row tile each) of
     256 threads (one 16-byte load and store each), equal to x + 1."""
@@ -1282,11 +1331,8 @@ def test_grid_1d_blockspec_is_one_launch_of_its_grid(cuda, tmp_path):
         torch.cuda.synchronize()
     assert probe.kernel.launches == before + 1
     assert torch.equal(got, x + 1)
-    prof.export_chrome_trace(str(tmp_path / "trace.json"))
-    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    assert len(kernels) == 1 and "add_one_tiles" in kernels[0]["name"], [e["name"] for e in kernels]
-    assert (kernels[0]["args"]["grid"], kernels[0]["args"]["block"]) == ([32, 1, 1], [256, 1, 1]), kernels[0]["args"]
+    _, kernel = _one_traced_kernel(prof, tmp_path, "add_one_tiles", ())
+    assert (kernel["args"]["grid"], kernel["args"]["block"]) == ([32, 1, 1], [256, 1, 1]), kernel["args"]
 
 
 @pytest.mark.parametrize("s", range(64 - 8 + 1))
@@ -1326,11 +1372,8 @@ def test_dma_unaligned_row_write_is_one_launch_with_no_fill(cuda, tmp_path):
     assert probe.kernel.launches == before + 1
     assert got.data_ptr() == junk_ptr  # the same memory, so the zeros are the kernel's
     assert torch.equal(got, MP.plain(probe, *args))
-    prof.export_chrome_trace(str(tmp_path / "trace.json"))
-    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    assert len(kernels) == 1 and "write_rows" in kernels[0]["name"], [e["name"] for e in kernels]
-    assert (kernels[0]["args"]["grid"], kernels[0]["args"]["block"]) == ([8, 1, 1], [256, 1, 1]), kernels[0]["args"]
+    _, kernel = _one_traced_kernel(prof, tmp_path, "write_rows", ())
+    assert (kernel["args"]["grid"], kernel["args"]["block"]) == ([8, 1, 1], [256, 1, 1]), kernel["args"]
 
 
 # the kernel that one call of each probe launches: (name, grid, block)
@@ -1351,7 +1394,10 @@ ONE_KERNEL = {"dma_unaligned_row_offset": ("slice_every_row", [8, 1, 1], [256, 1
               "gather_lanes_taa_8x128_i32": ("gather_lanes", [8, 1, 1], [32, 1, 1]),
               "gather_lanes_f32": ("gather_lanes", [8, 1, 1], [32, 1, 1]),
               "gather_lanes_256wide_2gathers": ("gather_lanes", [8, 1, 1], [32, 1, 1]),
-              "gather_lanes_taa_256x128_i32": ("gather_lanes", [32, 1, 1], [256, 1, 1])}
+              "gather_lanes_taa_256x128_i32": ("gather_lanes", [32, 1, 1], [256, 1, 1]),
+              "pltpu_roll_static": ("roll_lanes", [1, 1, 1], [256, 1, 1]),
+              "pltpu_roll_dynamic": ("roll_lanes", [1, 1, 1], [256, 1, 1]),
+              "smem_scratch_scalar_loop": ("scalar_loop_fill", [1, 1, 1], [256, 1, 1])}
 
 
 @pytest.mark.parametrize("label", ONE_KERNEL)
@@ -1359,9 +1405,8 @@ def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
     """One call of the row-offset copy, the scalar add, the transpose, the
     HBM-to-HBM copy, the bitcast, a merge step, the column cumsum, the mask
     matmul, the sublane gather, the sized copy, the row store (P4's
-    write_rows), the in-row sort, the lane cumsum or a lane gather is one
-    counted launch and
-    exactly one kernel on the card, with its name, grid and block (no fill,
+    write_rows), the in-row sort, the lane cumsum, a lane gather, a roll or
+    the scalar loop is one counted launch and exactly one kernel on the card, with its name, grid and block (no fill,
     no wrapper-side copy, no host read of s or R), equal to the plain
     version."""
     probe = _probe(label)
@@ -1375,14 +1420,11 @@ def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
         torch.cuda.synchronize()
     assert probe.kernel.launches == before + 1
     assert torch.equal(got, MP.plain(probe, *args))
-    prof.export_chrome_trace(str(tmp_path / "trace.json"))
-    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
     name, grid, block = ONE_KERNEL[label]
-    assert len(kernels) == 1 and name in kernels[0]["name"], [e["name"] for e in kernels]
+    events, kernel = _one_traced_kernel(prof, tmp_path, name, ())
     copies = [e["name"] for e in events if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
     assert not copies, copies
-    assert (kernels[0]["args"]["grid"], kernels[0]["args"]["block"]) == (grid, block), kernels[0]["args"]
+    assert (kernel["args"]["grid"], kernel["args"]["block"]) == (grid, block), kernel["args"]
 
 
 def test_one_kernel_traces_with_the_design_libraries_loaded(cuda, tmp_path):
@@ -1391,7 +1433,7 @@ def test_one_kernel_traces_with_the_design_libraries_loaded(cuda, tmp_path):
     one kernel: loading more kernel libraries adds nothing to a trace."""
     libs = _design_libs()
     for label in ("gather_sublanes_taa_axis0", "dma_dynamic_size_rows", "lax_sort_in_kernel", "cumsum_lanes_i32",
-                  *PD.GATHER_LANES):
+                  *PD.GATHER_LANES, *PD.ROLLS, "smem_scratch_scalar_loop"):
         args = MP.inputs_on(MP.BY_LABEL[label], cuda)
         for call in PD.design_entries(libs, label).values():
             call(*args)
@@ -1404,10 +1446,7 @@ def test_one_kernel_traces_with_the_design_libraries_loaded(cuda, tmp_path):
             with torch.profiler.profile(activities=activities) as prof:
                 MP.launch(probe, *args)
                 torch.cuda.synchronize()
-            prof.export_chrome_trace(str(tmp_path / "trace.json"))
-            events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
-            kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-            assert len(kernels) == 1 and name in kernels[0], (label, round_, kernels)
+            _one_traced_kernel(prof, tmp_path, name, (label, round_))
 
 
 @pytest.mark.parametrize("name", PR.MERGE_STEPS)

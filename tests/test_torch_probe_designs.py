@@ -6,8 +6,9 @@ must be the source's own at the source's width; each redesigned kernel has
 its earlier source's path, its turns and, where PyTorch has one, a library
 call (the mask matmul has none: its staging turn stands in); the column
 cumsum's, the mask matmul's, the sublane gather's, the sized copy's, the
-in-row sort's, the lane cumsum's and the lane gathers' held inputs show what
-they must catch; ``--sass``'s counts are read right from cuobjdump's text.  The builds and times need the card
+in-row sort's, the lane cumsum's, the lane gathers', the rolls' and the
+scalar loop's held inputs show what they must catch (the rolls' on a numpy
+model of the kernel's 4-register roll); ``--sass``'s counts are read right from cuobjdump's text.  The builds and times need the card
 (``chip_smoke.py``'s ``probes`` phase)."""
 
 import numpy as np
@@ -36,7 +37,9 @@ SWITCHES = {"quads": [TRANSPOSE_REGISTERS],
             "count_first": [(PD.SIZED_COUNT_FIRST, "constexpr bool kSizedCountFirst = true;")],
             "eight_a_lane": [(PD.SORT_EIGHT_A_LANE, "constexpr bool kSortEightALane = true;")],
             "warp_blocks": [(PD.CUMSUM_LANES_GRID, "constexpr bool kCumsumLanesGrid = true;")],
-            "row_staged": [(PD.GATHER_SHUFFLE, "constexpr bool kGatherShuffle = false;")]}
+            "row_staged": [(PD.GATHER_SHUFFLE, "constexpr bool kGatherShuffle = false;")],
+            "roll_staged": [(PD.ROLL_STAGED, "constexpr bool kRollStaged = true;")],
+            "lane_sum": [(PD.SCALAR_LANE_SUM, "constexpr bool kScalarLaneSum = true;")]}
 R4_DESIGNS = ("exchange", "mask_staging")  # the designs made from probe_r4.cu
 
 
@@ -82,8 +85,9 @@ def test_redesigned_kernel_has_its_earlier_source_turns_and_library_call(label):
     probe_r4.cu for the merge steps and the mask matmul) at the commit
     before its redesign, under build/parent/<commit>/, a library of its own;
     every design it is timed against is one that the tool builds; and its
-    library call gives its function on the probe's inputs (the merge steps
-    and the mask matmul have none; the mask matmul's staging stands in)."""
+    library call gives its function on the probe's inputs (the merge steps,
+    the mask matmul and the scalar loop have none; the mask matmul's staging
+    stands in)."""
     source = "probe_r4.cu" if label in PR.BY_NAME else "mosaic_probe.cu"
     assert PD.source_of(label).name == source and PD.source_of(label).is_file()
     path = PD.earlier_source(label)
@@ -99,19 +103,24 @@ def test_redesigned_kernel_has_its_earlier_source_turns_and_library_call(label):
     if label == "i1_to_bf16_astype":
         assert MP.library_call(label, args) is None and "mask_staging" in PD.TURNS[label]
         return
+    if label == "smem_scratch_scalar_loop":
+        assert MP.library_call(label, args) is None and PD.TURNS[label] == ("earlier", "lane_sum")
+        return
     got = MP.library_call(label, args)()
     assert torch.equal(got, MP.plain(probe, *args))
 
 
 def test_every_kernel_of_the_tools_is_redesigned_once():
-    """The table names eighteen redesigned kernels in 22 labels (the merge
+    """The table names twenty redesigned kernels in 25 labels (the merge
     step's two forms are one kernel, and so are the lane gather's four
-    probes), each with an earlier design, and no kernel is left timed
-    against its library call alone; the column cumsum and the mask matmul
-    were redesigned together, and so were the sublane gather and the sized
-    copy, the row store and the in-row sort, and the lane cumsum and the
-    lane gather."""
-    assert len(PD.REDESIGNED) == 22 and len(set(PD.REDESIGNED)) == 22
+    probes and the roll's two), each with an earlier design, and no kernel
+    is left timed against its library call alone; the column cumsum and the
+    mask matmul were redesigned together, and so were the sublane gather and
+    the sized copy, the row store and the in-row sort, the lane cumsum and
+    the lane gather, and the roll and the scalar loop."""
+    assert len(PD.REDESIGNED) == 25 and len(set(PD.REDESIGNED)) == 25
+    kernels = {"mb_step": PR.MERGE_STEPS, "gather_lanes": PD.GATHER_LANES, "roll_lanes": PD.ROLLS}
+    assert len(PD.REDESIGNED) - sum(len(labels) - 1 for labels in kernels.values()) == 20
     assert set(PD.TURNS) == set(PD.REDESIGNED) and not hasattr(PD, "UNCHANGED")
     assert {PD.BEFORE[name] for name in PR.MERGE_STEPS} == {PD.BEFORE["bitcast_f32_u32"]}
     assert PD.BEFORE["cumsum_sublanes_f32"] == PD.BEFORE["i1_to_bf16_astype"] == "9e5ff2a"
@@ -126,6 +135,10 @@ def test_every_kernel_of_the_tools_is_redesigned_once():
     assert set(PD.GATHER_LANES) == {p.label for p in MP.PROBES if p.label.startswith("gather_lanes")}
     assert PD.TURNS["cumsum_lanes_i32"] == ("earlier", "warp_blocks")
     assert {PD.TURNS[label] for label in PD.GATHER_LANES} == {("earlier", "row_staged")}
+    assert {PD.BEFORE[label] for label in (*PD.ROLLS, "smem_scratch_scalar_loop")} == {"7bba077"}
+    assert set(PD.ROLLS) == {p.label for p in MP.PROBES if p.label.startswith("pltpu_roll")}
+    assert {PD.TURNS[label] for label in PD.ROLLS} == {("earlier", "roll_staged")}
+    assert PD.TURNS["smem_scratch_scalar_loop"] == ("earlier", "lane_sum")
 
 
 def test_held_inputs_cover_every_window_row():
@@ -512,7 +525,7 @@ SASS_TEXT = """
         /*0080*/                   LDG.E R16, desc[UR4][R2.64+0x4] ;           /* 0x000000040210e981 */
         /*0090*/                   STG.E.128 desc[UR4][R2.64], R4 ;            /* 0x000000040200e986 */
         /*00a0*/                   EXIT ;                                       /* 0x000000000000794d */
-        Function : _ZN12_GLOBAL__N_110roll_lanesEPKiS1_iPii
+        Function : _ZN12_GLOBAL__N_115shifts_popcountEPKjPji
         /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;                /* 0x000000040204e981 */
         /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;                /* 0x0000000000007b1d */
 """
@@ -524,11 +537,11 @@ def test_count_sass_counts_ops_and_the_loads_behind_a_barrier_or_an_add():
     HMMA ("late LDG"), after the first BAR.SYNC and after the first SHFL,
     STS or STG, only for kernels named in SASS_KERNELS (the sublane
     gather's, the sized copy's, the in-row sort's, the row store's, the lane
-    cumsum's and the lane gather's, earlier and new, among them; not the
-    rolls')."""
+    cumsum's, the lane gather's, the roll's and the scalar loop's, earlier
+    and new, among them; not the u32 shifts')."""
     assert {"gather_stripe", "gather_direct", "gather_sublanes", "copy_rows_sized", "sort_rows", "write_rows",
-            "store_rows", "cumsum_lanes", "gather_lanes"} <= set(PD.SASS_KERNELS)
-    assert not any(k in "roll_lanes" for k in PD.SASS_KERNELS)
+            "store_rows", "cumsum_lanes", "gather_lanes", "roll_lanes", "scalar_loop_fill"} <= set(PD.SASS_KERNELS)
+    assert not any(k in "shifts_popcount" for k in PD.SASS_KERNELS)
     counts = PD.count_sass(SASS_TEXT)
     assert list(counts) == ["_ZN12_GLOBAL__N_113gather_stripeEPK4int4S2_PS0_"]
     (got,) = counts.values()
@@ -536,3 +549,111 @@ def test_count_sass_counts_ops_and_the_loads_behind_a_barrier_or_an_add():
         "LDG": 4, "STS": 1, "BAR.SYNC": 1, "LDS": 1, "FADD": 1, "STG": 1, "HMMA": 0}
     assert got["all"] == 11 and got["late LDG"] == 1 and got["LDG after BAR.SYNC"] == 2
     assert got["LDG after SHFL, STS or STG"] == 2
+
+
+def _register_roll(a, s, strict=False):
+    """np.roll(a, s, 1) as roll_lanes makes it: lane h of a 128-wide row
+    holds elements 4h..4h+3; with s & 127 = 4q + m, source register k of
+    lane h - q - [k + m >= 4] goes to output register (k + m) & 3.
+    `strict`: the lane condition off by one, [k + m > 4]."""
+    q, m = (s & 127) >> 2, s & 3
+    regs = a.reshape(len(a), 32, 4)
+    out = np.empty_like(regs)
+    h = np.arange(32)
+    for k in range(4):
+        wrap = k + m > 4 if strict else k + m >= 4
+        out[:, :, (k + m) & 3] = regs[:, (h - q - wrap) & 31, k]
+    return out.reshape(a.shape)
+
+
+def test_roll_shifts_cover_every_register_and_lane_step():
+    """The dynamic roll is held at every s in [-130, 260] and at INT_MIN and
+    INT_MAX: every (q, m) of s & 127 = 4q + m, both signs, 0, 127, 128, 255
+    and 256; the one-hot tiles at a shift of each m, both signs and both
+    ends of the int32 range."""
+    shifts = PD.ROLL_SHIFTS
+    assert len(set(shifts)) == len(shifts) == 391 + 2
+    assert {((s & 127) >> 2, s & 3) for s in shifts} == {(q, m) for q in range(32) for m in range(4)}
+    assert {0, 127, 128, 255, 256, -1, -128, -130, 260, -2 ** 31, 2 ** 31 - 1} <= set(shifts)
+    assert set(PD.ROLL_ONE_HOT_SHIFTS) <= set(shifts) and {s & 3 for s in PD.ROLL_ONE_HOT_SHIFTS} == {0, 1, 2, 3}
+    assert {-2 ** 31, 2 ** 31 - 1} <= set(PD.ROLL_ONE_HOT_SHIFTS) and min(PD.ROLL_ONE_HOT_SHIFTS) < 0
+
+
+def test_register_roll_is_np_roll_and_an_off_by_one_lane_shows():
+    """The kernel's 4-register roll (one shuffle a source register from lane
+    h - q - [k + m >= 4]) equals np.roll at every held shift on the
+    full-range tile and on the one-hot tiles; with the lane condition off by
+    one it differs from np.roll on the full-range tile at every shift whose
+    m is not 0 (at m = 0 no k + m reaches 4, so no input can show it)."""
+    full = PD._full_range((8, MP.LANES), "cpu").numpy()
+    tiles = PD.one_hot_tiles()
+    for s in PD.ROLL_SHIFTS:
+        want = np.roll(full, s, 1)
+        assert np.array_equal(_register_roll(full, s), want), s
+        assert np.array_equal(_register_roll(full, s, strict=True), want) == (s & 3 == 0), s
+    for s in PD.ROLL_ONE_HOT_SHIFTS:
+        assert all(np.array_equal(_register_roll(tile, s), np.roll(tile, s, 1)) for tile in tiles), s
+        shown = [t for t in tiles if not np.array_equal(_register_roll(t, s, strict=True), np.roll(t, s, 1))]
+        assert bool(shown) == (s & 3 != 0), s
+
+
+@pytest.mark.parametrize("label", PD.ROLLS)
+def test_held_inputs_hold_the_rolls_on_full_range_and_one_hot_tiles(label):
+    """A roll is held at the probe's inputs, on a full-range random tile
+    (the dynamic roll's at every shift of ROLL_SHIFTS) and on the 16 one-hot
+    tiles (the dynamic roll's at each of ROLL_ONE_HOT_SHIFTS); its plain
+    version is np.roll (the JAX probe's oracle) on each, and each one-hot
+    tile's 1 lands at column 8t + r + s, so a roll by another shift gives
+    another output."""
+    probe = MP.BY_LABEL[label]
+    cases = list(PD.held_inputs(probe, "cpu"))
+    tiles = PD.one_hot_tiles()
+    dynamic = label == "pltpu_roll_dynamic"
+    assert len(cases) == 1 + (len(PD.ROLL_SHIFTS) + len(PD.ROLL_ONE_HOT_SHIFTS) * len(tiles) if dynamic
+                              else 1 + len(tiles))
+    assert [(tuple(a.shape), a.dtype) for a in cases[0]] == [(tuple(a.shape), a.dtype) for a in cases[1]]
+    shifts = [int(c[0]) for c in cases[1:]] if dynamic else [3] * (len(cases) - 1)
+    if dynamic:
+        assert shifts == [*PD.ROLL_SHIFTS, *[s for s in PD.ROLL_ONE_HOT_SHIFTS for _ in tiles]]
+    full = cases[1][-1]
+    assert full.min() < -2 ** 30 and full.max() > 2 ** 30 and len(torch.unique(full)) > full.numel() * 0.99
+    one_hots = cases[-len(tiles):] if not dynamic else cases[1 + len(PD.ROLL_SHIFTS):]
+    for i, case in enumerate(one_hots):
+        assert np.array_equal(case[-1].numpy(), tiles[i % len(tiles)])
+    for s, args in zip(shifts, cases[1:]):
+        a = args[-1].numpy()
+        got = MP.plain(probe, *args)
+        np.testing.assert_array_equal(got.numpy(), np.roll(a, s, 1))
+        np.testing.assert_array_equal(got.numpy(), probe.oracle(*[x.numpy() for x in args]))
+    for i, args in enumerate(one_hots):
+        s, t = shifts[len(shifts) - len(one_hots) + i], i % len(tiles)
+        got = MP.plain(probe, *args).numpy()
+        assert (np.argmax(got, 1) == (8 * t + np.arange(8) + s) % 128).all()
+        assert not np.array_equal(got, np.roll(args[-1].numpy(), s + 1, 1))
+
+
+def test_held_inputs_hold_the_scalar_loop_where_it_wraps_and_on_noise():
+    """The scalar loop is held at the probe's arange (the JAX oracle's 3584),
+    on a full-range tile whose column-0 sum wraps, where its plain version is
+    numpy's int32 wrapping sum filled into the tile, and on a tile of noise
+    beside column 0, whose sum differs from every other column's: a design
+    that read another column would miss, and the plain version ignores the
+    noise columns."""
+    probe = MP.BY_LABEL["smem_scratch_scalar_loop"]
+    cases = [a for (a,) in PD.held_inputs(probe, "cpu")]
+    tiles = PD.scalar_tiles()
+    assert list(tiles) == ["full range", "noise"] and len(cases) == 3
+    assert torch.equal(MP.plain(probe, cases[0]), torch.full((8, 128), 3584, dtype=torch.int32))
+    for got, tile in zip(cases[1:], tiles.values()):
+        assert tile.dtype == np.int32 and tile.shape == (8, 128) and np.array_equal(got.numpy(), tile)
+        exact = int(tile[:, 0].astype(np.int64).sum())
+        wrapped = (exact + 2 ** 31) % 2 ** 32 - 2 ** 31
+        assert np.array_equal(tile[:, 0].sum(dtype=np.int32), np.int32(wrapped))
+        assert torch.equal(MP.plain(probe, got), torch.full((8, 128), wrapped, dtype=torch.int32))
+    full, noise = tiles.values()
+    assert full.min() < -2 ** 30 and full.max() > 2 ** 30 and full[:, 0].astype(np.int64).sum() > 2 ** 31
+    sums = noise.sum(0, dtype=np.int32)
+    assert (sums[1:] != sums[0]).all() and sums[0] == sum(1000 * r + 7 for r in range(8))
+    other = noise.copy()
+    other[:, 1:] = np.random.default_rng(0).integers(-2 ** 31, 2 ** 31, (8, 127), np.int32)
+    assert torch.equal(MP.plain(probe, torch.from_numpy(other)), MP.plain(probe, torch.from_numpy(noise)))
