@@ -23,10 +23,11 @@
 //   one-dimensional form, on an mbarrier or a bulk group) stay behind
 //   kOffsetBulk, kWriteBulk and kHbmBulk.
 //
-// Eighteen kernels here (and probe_r4.cu's merge step and mask matmul) are
-// laid out for the card rather than for the TPU's tiles, so that every global
-// load is in flight at once and nothing waits on a round trip that an earlier
-// one could have covered:
+// All twenty probe kernels here (the lane gather's four probes, the roll's
+// two and the compare cast's two counting as one kernel each), and
+// probe_r4.cu's merge step and mask matmul, are laid out for the card rather
+// than for the TPU's tiles, so that every global load is in flight at once
+// and nothing waits on a round trip that an earlier one could have covered:
 //
 // - dynamic_slice_vmem_rows (the probe through simple_call, :61: rows
 //   [s, s + 8) of a (64, 128) int32 tile, s a device scalar).  Bound by
@@ -211,12 +212,30 @@
 //   rounds of turns (1.042x in one round of another call); one load a lane
 //   summed by three __shfl_xor_sync stages (kScalarLaneSum true) 0.996x and
 //   1.022x, a tie (tools/probe_designs.py).
+// - cmp_to_int8_vector and cmp_to_bf16_vector (the probes through
+//   simple_call, :61: (a > 50) cast to int8 or bf16 over a (32, 128) int32
+//   tile).  Bound by bytes: 20 KB and 24 KB, 0.0061 and 0.0073 us.  One
+//   kernel behind both, greater_to<Bits, One>: 4 blocks of 256 threads,
+//   each one 16-byte load of 4 consecutive elements, 4 compares, the 4
+//   results packed into one 4- or 8-byte store as the output type's bits
+//   (0x01; the bf16 1.0 is 0x3F80, with no float round trip).  The earlier
+//   kernels (16 blocks, a 4-byte load and a 1- or 2-byte store a thread
+//   behind an i < n guard, the bf16 one through __float2bfloat16_rn) took
+//   1.046-1.049x as long on an H100 80GB HBM3 at 700 W, in three rounds of
+//   turns; 8 elements a thread in 2 blocks (kCompareEightAThread true)
+//   1.040-1.043x (tools/probe_designs.py).
+// - u32_shifts_popcount (the probe through simple_call, :61: (x >> 3) ^
+//   (x << 2) ^ popcount(x) over an (8, 128) u32 tile).  Bound by bytes:
+//   8 KB, 0.0024 us.  One block of 256 threads, each one 16-byte load, 4
+//   POPC and one 16-byte store, no guard.  The earlier kernel (4 blocks of
+//   4-byte words behind an i < n guard) took 1.046x as long, in three rounds
+//   of turns; 128 threads of two words each (kShiftsTwoWords true) 1.037x
+//   (tools/probe_designs.py).
 //
 // One C entry a probe, arrow_probe_<label>(inputs..., out, stream), in the
 // order of the JAX probe's pallas_call arguments (the device scalar first
 // where the probe has one); each returns cudaGetLastError().  The wrappers
 // are in arrow_tpu_torch/tools/mosaic_probe.py; a pointer is 16-byte aligned.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -264,21 +283,76 @@ __global__ void __launch_bounds__(kScalarThreads)
                      static_cast<int>(v.w + add));
 }
 
-__global__ void greater_to_int8(const int32_t* a, int8_t* out, int n, int32_t than) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = a[i] > than ? 1 : 0;
+// The compare casts' designs: 4 elements a thread (one 16-byte load, 4
+// blocks of 256), or 8 (two 16-byte loads, 2 blocks; kCompareEightAThread)
+constexpr bool kCompareEightAThread = false;
+constexpr int kCompareElems = 32 * kLanes;  // the probes' (32, 128) int32 tile
+constexpr int kCompareLoads = kCompareEightAThread ? 2 : 1;  // 16-byte loads a thread
+constexpr int kCompareBlocks = kCompareElems / (4 * kCompareLoads) / kTileThreads;
+
+// cmp_to_int8_vector and cmp_to_bf16_vector: out[i] = a[i] > than as the
+// Bits-wide pattern One (0x01, the int8 1; 0x3F80, the bf16 1.0) or 0.
+// Thread t loads its 4 x kCompareLoads consecutive elements as kCompareLoads
+// 16-byte words, all issued before its first compare, and packs the results
+// little-endian (element k in byte or halfword k) into 32-bit words that
+// leave as one store: 4 or 8 bytes, or 16 for 8 bf16.  The tile's length is
+// the probes', so there is no guard; no shared memory, no barrier.
+template <typename Bits, uint32_t One>
+__global__ void __launch_bounds__(kTileThreads)
+    greater_to(const int4* __restrict__ a, int32_t than, uint32_t* __restrict__ out) {
+  constexpr int kPer = 4 * kCompareLoads;                        // elements a thread
+  constexpr int kWords = kPer * sizeof(Bits) / 4;                // 32-bit words of its output
+  constexpr int kBits = 8 * sizeof(Bits);
+  const int t = blockIdx.x * kTileThreads + threadIdx.x;
+  int4 v[kCompareLoads];
+#pragma unroll
+  for (int w = 0; w < kCompareLoads; ++w) v[w] = __ldg(a + kCompareLoads * t + w);
+  uint32_t o[kWords] = {};
+#pragma unroll
+  for (int w = 0; w < kCompareLoads; ++w) {
+    const int32_t x[4] = {v[w].x, v[w].y, v[w].z, v[w].w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = 4 * w + k;  // the element's place in the thread's output
+      o[e * kBits / 32] |= (x[k] > than ? One : 0u) << (e * kBits % 32);
+    }
+  }
+  if constexpr (kWords == 1) {
+    out[t] = o[0];
+  } else if constexpr (kWords == 2) {
+    reinterpret_cast<uint2*>(out)[t] = make_uint2(o[0], o[1]);
+  } else {
+    reinterpret_cast<uint4*>(out)[t] = make_uint4(o[0], o[1], o[2], o[3]);
+  }
 }
 
-__global__ void greater_to_bf16(const int32_t* a, __nv_bfloat16* out, int n, int32_t than) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = __float2bfloat16_rn(a[i] > than ? 1.0f : 0.0f);
+// u32_shifts_popcount's designs: one block of 256 threads, a 16-byte word
+// each, or 128 threads of two words each (kShiftsTwoWords)
+constexpr bool kShiftsTwoWords = false;
+constexpr int kShiftsThreads = kShiftsTwoWords ? kTileThreads / 2 : kTileThreads;
+
+__device__ __forceinline__ uint32_t shift_xor_popcount(uint32_t x) {
+  return (x >> 3) ^ (x << 2) ^ static_cast<uint32_t>(__popc(x));
 }
 
-__global__ void shifts_popcount(const uint32_t* a, uint32_t* out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const uint32_t x = a[i];
-    out[i] = (x >> 3) ^ (x << 2) ^ static_cast<uint32_t>(__popc(x));
+__device__ __forceinline__ uint4 shift_xor_popcount(uint4 v) {
+  return make_uint4(shift_xor_popcount(v.x), shift_xor_popcount(v.y), shift_xor_popcount(v.z),
+                    shift_xor_popcount(v.w));
+}
+
+// (x >> 3) ^ (x << 2) ^ popcount(x) over an (8, 128) u32 tile, logical
+// shifts in uint32_t: each thread loads its 16-byte words of x (the second,
+// in kShiftsTwoWords, 2 KB further on) before its first shift and stores
+// 16 bytes a word; no guard, no shared memory, no barrier.
+__global__ void __launch_bounds__(kShiftsThreads)
+    shifts_popcount(const uint4* __restrict__ a, uint4* __restrict__ out) {
+  const int i = threadIdx.x;
+  if constexpr (kShiftsTwoWords) {
+    const uint4 v0 = __ldg(a + i), v1 = __ldg(a + i + kShiftsThreads);
+    out[i] = shift_xor_popcount(v0);
+    out[i + kShiftsThreads] = shift_xor_popcount(v1);
+  } else {
+    out[i] = shift_xor_popcount(__ldg(a + i));
   }
 }
 
@@ -1030,7 +1104,6 @@ T* out_(void* p) {
 
 int done() { return static_cast<int>(cudaGetLastError()); }
 
-constexpr int kElems = 256;  // threads a block of the elementwise probes
 
 }  // namespace
 
@@ -1056,18 +1129,17 @@ int arrow_probe_prefetch_scalar_grid(const void* s, const void* x, void* out, vo
 }
 
 int arrow_probe_cmp_to_int8_vector(const void* a, void* out, void* stream) {
-  greater_to_int8<<<32 * kLanes / kElems, kElems, 0, STREAM>>>(in<int32_t>(a), out_<int8_t>(out), 32 * kLanes, 50);
+  greater_to<uint8_t, 0x01u><<<kCompareBlocks, kTileThreads, 0, STREAM>>>(in<int4>(a), 50, out_<uint32_t>(out));
   return done();
 }
 
 int arrow_probe_cmp_to_bf16_vector(const void* a, void* out, void* stream) {
-  greater_to_bf16<<<32 * kLanes / kElems, kElems, 0, STREAM>>>(in<int32_t>(a), out_<__nv_bfloat16>(out),
-                                                               32 * kLanes, 50);
+  greater_to<uint16_t, 0x3F80u><<<kCompareBlocks, kTileThreads, 0, STREAM>>>(in<int4>(a), 50, out_<uint32_t>(out));
   return done();
 }
 
 int arrow_probe_u32_shifts_popcount(const void* a, void* out, void* stream) {
-  shifts_popcount<<<8 * kLanes / kElems, kElems, 0, STREAM>>>(in<uint32_t>(a), out_<uint32_t>(out), 8 * kLanes);
+  shifts_popcount<<<1, kShiftsThreads, 0, STREAM>>>(in<uint4>(a), out_<uint4>(out));
   return done();
 }
 

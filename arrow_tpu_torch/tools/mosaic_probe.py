@@ -356,10 +356,17 @@ def library_call(label: str, args: Sequence[torch.Tensor]) -> Optional[Callable[
     """One PyTorch call that computes the probe's function on its inputs (a
     probe of this module or of probe_r4), or None where PyTorch has none
     (i1_to_bf16_astype: no one call compares, casts and multiplies; the
-    merge steps).  int64 indices, host shifts and offsets are made here,
+    merge steps; smem_scratch_scalar_loop: no one call sums a column and
+    fills a tile with it; u32_shifts_popcount: PyTorch has no popcount, nor
+    a logical right shift of 32-bit values).  int64 indices, host shifts
+    and offsets, and the compare casts' int8 or bf16 output, are made here,
     outside the call."""
     import torch.nn.functional as F
 
+    if label in ("cmp_to_bf16_vector", "cmp_to_int8_vector"):
+        a = args[0]
+        out = torch.empty(a.shape, dtype=BY_LABEL[label].dtype, device=a.device)
+        return lambda: torch.gt(a, 50, out=out)
     if label.startswith("gather_lanes"):
         x, idx = args[0], args[1].long()
         return lambda: torch.take_along_dim(x, idx, 1)

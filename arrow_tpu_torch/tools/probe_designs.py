@@ -12,8 +12,10 @@ the row store ``dynamic_store_vmem_rows`` (whose C entry launches the row
 write's ``write_rows``), the in-row sort ``lax_sort_in_kernel``, the lane
 cumsum ``cumsum_lanes_i32``, the lane gather ``gather_lanes`` behind
 its four probes (:data:`GATHER_LANES`), the lane roll ``roll_lanes``
-behind its two probes (:data:`ROLLS`) and the scalar loop
-``smem_scratch_scalar_loop`` (``csrc/mosaic_probe.cu``),
+behind its two probes (:data:`ROLLS`), the scalar loop
+``smem_scratch_scalar_loop``, the compare cast ``greater_to<Bits, One>``
+behind its two probes (:data:`COMPARES`) and the u32 shifts
+``u32_shifts_popcount`` (``csrc/mosaic_probe.cu``),
 and the merge step in its two forms, ``mb_step_rollpair`` and
 ``mb_step_taa``, and the mask matmul ``i1_to_bf16_astype``
 (``csrc/probe_r4.cu``), are laid out for the card.  Each other design is a variant of the kernel's
@@ -84,7 +86,14 @@ design, all started together):
   ``__shfl_sync``, then selects on the shift's m);
 - ``lane_sum``: the scalar loop with one load a lane, ``a[lane & 7, 0]``,
   summed by three ``__shfl_xor_sync`` stages, in place of each thread's 8
-  loads added in registers.
+  loads added in registers;
+- ``eight_a_thread``: the compare cast with 8 consecutive elements a
+  thread (two 16-byte loads issued before the first compare, one 8- or
+  16-byte store) in 2 blocks of 256, in place of 4 (one 16-byte load, one
+  4- or 8-byte store) in 4 blocks;
+- ``two_words``: the u32 shifts in one block of 128 threads, each issuing
+  both of its 16-byte loads before its first shift, then two 16-byte
+  stores, in place of 256 threads of one word each.
 
 Every design but ``staging`` is first held to the plain version on the
 probe's inputs, a row window's (the row store's too) at every legal s on
@@ -103,16 +112,19 @@ of :func:`one_hot_tiles`, the lane gathers' on a full-range random x
 (float32 of full-range bits for ``gather_lanes_f32``) with each of
 :func:`lane_indices`, the rolls' on a full-range random tile and on each of
 :func:`one_hot_tiles` (the dynamic roll's at every shift of ROLL_SHIFTS and
-ROLL_ONE_HOT_SHIFTS), and the scalar loop's on each of
-:func:`scalar_tiles`.
+ROLL_ONE_HOT_SHIFTS), the scalar loop's on each of
+:func:`scalar_tiles`, the compare casts' on each of :func:`compare_tiles`
+and the u32 shifts' on each of :func:`shift_tiles`.
 Then each kernel is timed in turns: plain, new, library, new, a design, new,
 the next design, new, ...; device ms a call, queued behind a spin kernel
 (:func:`arrow_tpu_torch.utils.timing.queued_seconds_per_call`), beside an
-empty kernel's; the library call is :func:`mosaic_probe.library_call`'s
+empty kernel's; the command first counts each library call's device
+events in a trace (:func:`device_events`); the library call is :func:`mosaic_probe.library_call`'s
 (``x + 1``, ``torch._int_mm``, a slice's ``clone``, ``F.pad``, ``x + s``,
 ``t().contiguous()``, ``torch.cumsum``, ``torch.take_along_dim``,
-``torch.sort``, ``torch.roll``); a kernel without one (the mask matmul, the
-scalar loop) is timed plain, new, a design, new, .... The merge step has no library call, and its plain
+``torch.sort``, ``torch.roll``, ``torch.gt`` into an int8 or bf16
+``out``); a kernel without one (the mask matmul, the scalar loop, the u32
+shifts) is timed plain, new, a design, new, .... The merge step has no library call, and its plain
 version reads R on the host, so it is timed new, a design, new, ...: the
 probe's call at R = 3, and us a step on one block from the slope between two
 R (:func:`probe_r4.us_per_step`), beside one SM's floor for a step (its
@@ -157,12 +169,17 @@ BEFORE = {"grid_1d_blockspec": "9d785cc", "matmul_int8_s32acc": "9d785cc",
           "cumsum_lanes_i32": "a5e35e7", "gather_lanes_taa_8x128_i32": "a5e35e7",
           "gather_lanes_taa_256x128_i32": "a5e35e7", "gather_lanes_f32": "a5e35e7",
           "gather_lanes_256wide_2gathers": "a5e35e7", "pltpu_roll_static": "7bba077",
-          "pltpu_roll_dynamic": "7bba077", "smem_scratch_scalar_loop": "7bba077"}
+          "pltpu_roll_dynamic": "7bba077", "smem_scratch_scalar_loop": "7bba077",
+          "cmp_to_bf16_vector": "3455197", "cmp_to_int8_vector": "3455197", "u32_shifts_popcount": "3455197"}
 REDESIGNED = tuple(BEFORE)
 # the probes that launch the lane gather gather_lanes<W, Warps>
 GATHER_LANES = ("gather_lanes_taa_8x128_i32", "gather_lanes_taa_256x128_i32", "gather_lanes_f32",
                 "gather_lanes_256wide_2gathers")
 ROLLS = ("pltpu_roll_static", "pltpu_roll_dynamic")  # the probes that launch the lane roll roll_lanes
+COMPARES = ("cmp_to_bf16_vector", "cmp_to_int8_vector")  # the probes that launch the compare cast greater_to
+# the u32 shifts' held high-bit words, each at one position of a 16-byte word: << 2 drops bits of all three,
+# and an arithmetic >> would copy their sign bit
+SHIFT_HIGH_WORDS = (0xFFFFFFFF, 0x80000000, 0xE0000000)
 # the dynamic roll's shifts on a full-range tile: every (q, m) of s & 127 = 4q + m, both signs, 0, 127, 128,
 # 255, 256, and both ends of the int32 range
 ROLL_SHIFTS = (*range(-130, 261), -2 ** 31, 2 ** 31 - 1)
@@ -198,6 +215,8 @@ CUMSUM_LANES_GRID = "constexpr bool kCumsumLanesGrid = false;"
 GATHER_SHUFFLE = "constexpr bool kGatherShuffle = true;"
 ROLL_STAGED = "constexpr bool kRollStaged = false;"
 SCALAR_LANE_SUM = "constexpr bool kScalarLaneSum = false;"
+COMPARE_EIGHT_A_THREAD = "constexpr bool kCompareEightAThread = false;"
+SHIFTS_TWO_WORDS = "constexpr bool kShiftsTwoWords = false;"
 MASK_PRODUCT_CALL = "  mask_product(c, sa, lane);\n"
 # in its place in mask_staging: the band's address escapes, so its stores (and the loads and compares) stay
 MASK_STAGING_STANDIN = '  asm volatile("" : : "r"(sa) : "memory");\n'
@@ -205,11 +224,12 @@ STAGING = ("staging", "mask_staging")  # designs with a part cut out: timed, not
 # the kernels whose SASS --sass counts
 SASS_KERNELS = ("merge_step", "copy_rows_direct", "bitcast_f32", "cumsum_rows", "mask_matmul", "gather_stripe",
                 "gather_direct", "gather_sublanes", "copy_rows_sized", "sort_rows", "write_rows", "store_rows",
-                "cumsum_lanes", "gather_lanes", "roll_lanes", "scalar_loop_fill")
-SASS_OPS = ("BAR.SYNC", "LDS", "STS", "SHFL", "LDG", "STG", "ISETP", "SEL", "FADD", "HMMA")
+                "cumsum_lanes", "gather_lanes", "roll_lanes", "scalar_loop_fill", "greater_to", "shifts_popcount")
+SASS_OPS = ("BAR.SYNC", "LDS", "STS", "SHFL", "LDG", "STG", "ISETP", "SEL", "FADD", "HMMA", "POPC")
 # LDGs counted after the first of these in a kernel: "late LDG" after its first FADD or HMMA (loads behind
 # its arithmetic), "LDG after BAR.SYNC" after its first barrier (loads behind it), "LDG after SHFL, STS or
-# STG" after its first shuffle or store (loads behind a value the warp passes on)
+# STG" after its first shuffle or store (loads behind a value the warp passes on; in a kernel with no shuffle
+# or shared store, such as the compare cast and the u32 shifts, the LDGs after its first STG)
 LATE = {"late LDG": ("FADD", "HMMA"), "LDG after BAR.SYNC": ("BAR.SYNC",),
         "LDG after SHFL, STS or STG": ("SHFL", "STS", "STG")}
 SASS_LINE = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")  # an instruction's opcode
@@ -227,7 +247,8 @@ TURNS = {"grid_1d_blockspec": ("earlier",), "matmul_int8_s32acc": ("earlier", "s
          "dynamic_store_vmem_rows": ("earlier",), "lax_sort_in_kernel": ("earlier", "eight_a_lane"),
          "cumsum_lanes_i32": ("earlier", "warp_blocks"),
          **{label: ("earlier", "row_staged") for label in GATHER_LANES},
-         **{label: ("earlier", "roll_staged") for label in ROLLS}, "smem_scratch_scalar_loop": ("earlier", "lane_sum")}
+         **{label: ("earlier", "roll_staged") for label in ROLLS}, "smem_scratch_scalar_loop": ("earlier", "lane_sum"),
+         **{label: ("earlier", "eight_a_thread") for label in COMPARES}, "u32_shifts_popcount": ("earlier", "two_words")}
 
 
 def wgmma_wrapper(n: int) -> str:
@@ -305,7 +326,9 @@ def design_sources() -> Dict[str, str]:
                "warp_blocks": _once(text, CUMSUM_LANES_GRID, CUMSUM_LANES_GRID.replace("false", "true")),
                "row_staged": _once(text, GATHER_SHUFFLE, GATHER_SHUFFLE.replace("true", "false")),
                "roll_staged": _once(text, ROLL_STAGED, ROLL_STAGED.replace("false", "true")),
-               "lane_sum": _once(text, SCALAR_LANE_SUM, SCALAR_LANE_SUM.replace("false", "true"))}
+               "lane_sum": _once(text, SCALAR_LANE_SUM, SCALAR_LANE_SUM.replace("false", "true")),
+               "eight_a_thread": _once(text, COMPARE_EIGHT_A_THREAD, COMPARE_EIGHT_A_THREAD.replace("false", "true")),
+               "two_words": _once(text, SHIFTS_TWO_WORDS, SHIFTS_TWO_WORDS.replace("false", "true"))}
     for label in REDESIGNED:
         if earlier_source(label).is_file():
             designs[library_name(label, "earlier")] = earlier_source(label).read_text()
@@ -371,6 +394,20 @@ def queued_ms(fn: Callable, what: str) -> float:
     if s is None:
         raise RuntimeError(f"{what}: the host does not get ahead of the device")
     return s * 1e3
+
+
+def device_events(fn: Callable, calls: int = 3) -> List[str]:
+    """The names of the device's events (kernels, copies, fills) in one
+    torch.profiler trace of `calls` calls of `fn`.  Read early in a process:
+    later, after the design libraries are loaded and many calls timed, such
+    short traces on the card lose device records (some or all of them)."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def _full_range(shape, device) -> torch.Tensor:
@@ -477,6 +514,38 @@ def scalar_tiles() -> Dict[str, np.ndarray]:
     return {"full range": full, "noise": noise}
 
 
+def compare_tiles() -> Dict[str, np.ndarray]:
+    """The compare casts' (32, 128) int32 tiles beyond the probe's: full-range
+    random values, and for each position k of a 16-byte word a boundary
+    tile of 50 (not > 50) with 51 at position k of every word; row r's word r
+    also holds INT_MAX at k and INT_MIN, -51 and 49 at the other positions.
+    So the ones of boundary tile k lie at position k alone, and a store that
+    packs the 4 results of a word in another order shows."""
+    full = np.random.default_rng(24).integers(-2 ** 31, 2 ** 31, (32, MP.LANES), np.int32)
+    tiles = {"full range": full}
+    rows = np.arange(32)
+    for k in range(4):
+        tile = np.full((32, MP.LANES), 50, np.int32)
+        tile[:, k::4] = 51
+        for j, v in enumerate((2 ** 31 - 1, -2 ** 31, -51, 49)):
+            tile[rows, 4 * rows + (k + j) % 4] = v
+        tiles[f"boundary {k}"] = tile
+    return tiles
+
+
+def shift_tiles() -> Dict[str, np.ndarray]:
+    """The u32 shifts' (8, 128) tiles (u32 bits in int32) beyond the probe's
+    arange: full-range random bits, and each of SHIFT_HIGH_WORDS at each
+    position k of a 16-byte word (every element at k), zeros elsewhere."""
+    tiles = {"full range": np.random.default_rng(24).integers(-2 ** 31, 2 ** 31, (8, MP.LANES), np.int32)}
+    for word in SHIFT_HIGH_WORDS:
+        for k in range(4):
+            tile = np.zeros((8, MP.LANES), np.uint32)
+            tile[:, k::4] = word
+            tiles[f"{word:#x} at {k}"] = tile.view(np.int32)
+    return tiles
+
+
 def lane_indices(rows: int, width: int) -> Dict[str, np.ndarray]:
     """A lane gather's (rows, 128) int32 indices into rows `width` wide,
     beyond the probe's: all 0, all width - 1, the identity (idx[r, c] = c),
@@ -510,8 +579,15 @@ def held_inputs(probe: MP.Probe, device) -> Iterator[List[torch.Tensor]]:
     the rolls a full-range random tile and each of ``one_hot_tiles`` (the
     dynamic roll's the tile at each shift of ROLL_SHIFTS, then the one-hot
     tiles at each of ROLL_ONE_HOT_SHIFTS); for the scalar loop each of
-    ``scalar_tiles``."""
+    ``scalar_tiles``; for the compare casts each of ``compare_tiles``; for
+    the u32 shifts each of ``shift_tiles``."""
     yield MP.inputs_on(probe, device)
+    if probe.label in COMPARES:
+        for tile in compare_tiles().values():
+            yield [torch.from_numpy(tile).to(device)]
+    if probe.label == "u32_shifts_popcount":
+        for tile in shift_tiles().values():
+            yield [torch.from_numpy(tile).to(device)]
     if probe.label == "pltpu_roll_static":
         for tile in [_full_range((8, MP.LANES), device), *map(torch.from_numpy, one_hot_tiles())]:
             yield [tile.to(device)]
@@ -680,8 +756,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", action="store_true",
                     help="also print the SASS counts of the merge step's, the copy's, the cumsum's, the mask matmul's, "
                          "the sublane gather's, the sized copy's, the row write's and store's, the in-row sort's, "
-                         "the lane cumsum's, the lane gather's, the roll's and the scalar loop's kernels in each "
-                         "library")
+                         "the lane cumsum's, the lane gather's, the roll's, the scalar loop's, the compare cast's "
+                         "and the u32 shifts' kernels in each library")
     ap.add_argument("--labels", nargs="+", choices=REDESIGNED, default=REDESIGNED, help="the kernels (default: all)")
     ap.add_argument("--rounds", type=int, default=1, help="time each kernel's turns this many times over")
     args = ap.parse_args(argv)
@@ -690,6 +766,12 @@ def main(argv=None) -> int:
         print("probe_designs: needs a CUDA device", file=sys.stderr)
         return 2
     print(f"torch {torch.__version__}, device: {device} ({torch.cuda.get_device_name(device)}; {gpu_line()})")
+    for label in args.labels:  # before any design is loaded or timed
+        lib = MP.library_call(label, MP.inputs_on(probe_of(label), device))
+        if lib is not None:
+            events = device_events(lib)
+            print(f"{label}, the library call on the device (torch.profiler, 3 calls): {len(events) / 3:g} events "
+                  f"a call, {sorted(set(events))}")
     run(device, labels=args.labels, rounds=args.rounds)
     if args.sass:
         for lib in [_build.load().path, *sorted(OUT_DIR.glob("lib_*.so"))]:

@@ -123,15 +123,17 @@ Phases, each printing lines that start with its name:
    the integer operations of their R = 3 steps where larger), its plain
    version (host-bound for the merge steps, which read R on the host) and
    its library call (take_along_dim, roll, cumsum, sort, _int_mm, a slice's
-   clone, pad, x + 1, ...; none for the mask product, whose bf16 matmul of a
-   mask made beforehand is printed apart), and back to back (the wrapper's
+   clone, pad, x + 1, gt into an int8 or bf16 out, ...; none for the mask
+   product, whose bf16 matmul of a mask made beforehand is printed apart,
+   the scalar loop and the u32 shifts), and back to back (the wrapper's
    rate); the merge steps' us a step beside one SM's floor for a step (its
-   operations over one SM's integer rate); the twenty redesigned kernels
-   (probe_designs.REDESIGNED: P2, the int8 product, the row slice, P4, P3,
-   P7, the transpose, P6, the bitcast, the merge step in both forms, the
-   column cumsum, P9, the sublane gather, P5, the row store, the in-row
+   operations over one SM's integer rate); the twenty-two redesigned
+   kernels (probe_designs.REDESIGNED: P2, the int8 product, the row slice,
+   P4, P3, P7, the transpose, P6, the bitcast, the merge step in both forms,
+   the column cumsum, P9, the sublane gather, P5, the row store, the in-row
    sort, the lane cumsum, the lane gather in its four probes, the lane roll
-   in its two and the scalar loop) timed in turns with their other designs
+   in its two, the scalar loop, the compare cast in its two and the u32
+   shifts: every kernel of the probe tools) timed in turns with their other designs
    (arrow_tpu_torch.tools.probe_designs: the earlier mosaic_probe.cu or
    probe_r4.cu where build/parent/<commit> holds it, and each kernel's
    alternatives, listed in that module), each held to its plain version
@@ -140,8 +142,9 @@ Phases, each printing lines that start with its name:
    on tied, full-range and extreme keys at R = 0, 1 and 5, the sort on six
    tiles, the lane cumsum on 16 one-hot tiles, the lane gathers on six or
    seven index sets, the dynamic roll at every shift in [-130, 260] and at
-   both ends of the int32 range, ...); the merge steps also in us a step on one block,
-   in turns;
+   both ends of the int32 range, the compare casts on boundary tiles at
+   each position of a 16-byte word, the u32 shifts on high-bit words, ...);
+   the merge steps also in us a step on one block, in turns;
 10. profile: each query at each size under torch.profiler: device busy time,
    the device time in fills and in copies, the device's idle share of the
    query's wall time (also without the idle time spent in the profiler's

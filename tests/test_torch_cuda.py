@@ -1119,10 +1119,10 @@ def test_i1_to_bf16_astype_at_every_row_count(cuda, tile):
 @functools.lru_cache(maxsize=None)
 def _design_libs():
     """The sublane gather's, the sized copy's, the in-row sort's, the lane
-    cumsum's, the lane gather's, the roll's and the scalar loop's other
-    designs, built once."""
+    cumsum's, the lane gather's, the roll's, the scalar loop's, the compare
+    cast's and the u32 shifts' other designs, built once."""
     return PD.build(("direct", "count_first", "eight_a_lane", "warp_blocks", "row_staged", "roll_staged",
-                     "lane_sum"))[0]
+                     "lane_sum", "eight_a_thread", "two_words"))[0]
 
 
 @pytest.mark.parametrize("label,design", [*[("gather_sublanes_taa_axis0", d) for d in ("new", "direct")],
@@ -1143,7 +1143,7 @@ def _hold_on_held_inputs(cuda, label, design, extra, oracle_cases=None):
     equal bit for bit to the plain version on the card (NaN payloads and
     signed zeros too) and to the JAX probe's oracle (on the first
     `oracle_cases` cases where given: an oracle of the probe's input
-    alone)."""
+    alone; a bf16 output as float32, as the oracle gives it)."""
     probe = MP.BY_LABEL[label]
     call = (lambda *a: MP.launch(probe, *a)) if design == "new" else PD.design_entries(_design_libs(), label)[design]
     cases = list(PD.held_inputs(probe, cuda))
@@ -1154,7 +1154,7 @@ def _hold_on_held_inputs(cuda, label, design, extra, oracle_cases=None):
         assert PD.same_bits(got, MP.plain(probe, *args)), [a.flatten()[:4].tolist() for a in args]
         if oracle_cases is None or i < oracle_cases:
             host = [a.cpu().numpy() for a in args]
-            np.testing.assert_array_equal(got.cpu().numpy(), probe.oracle(*host))
+            np.testing.assert_array_equal(MP.as_numpy(got), probe.oracle(*host))
     assert probe.kernel.launches == before + (len(cases) if design == "new" else 0)
 
 
@@ -1209,6 +1209,21 @@ def test_roll_and_scalar_loop_on_their_held_inputs(cuda, label, design):
     extra = (len(PD.ROLL_SHIFTS) + len(PD.ROLL_ONE_HOT_SHIFTS) * tiles if label == "pltpu_roll_dynamic"
              else 1 + tiles)
     _hold_on_held_inputs(cuda, label, design, extra)
+
+
+@pytest.mark.parametrize("label,design", [(label, design) for label in (*PD.COMPARES, "u32_shifts_popcount")
+                                          for design in ("new", *PD.TURNS[label][1:])])
+def test_compare_casts_and_shifts_on_their_held_inputs(cuda, label, design):
+    """The compare casts on a full-range random tile and on the 4 boundary
+    tiles (51 and INT_MAX at one position of every 16-byte word, 50,
+    INT_MIN, -51 and 49 at the others), and the u32 shifts on a full-range
+    random tile and on 0xFFFFFFFF, 0x80000000 and 0xE0000000 at each
+    position of a word: the shipped kernel (one counted launch a call) and
+    its other design (eight_a_thread, two_words), each equal bit for bit to
+    the plain version on the card (the bf16 output as its bits) and to the
+    JAX probe's oracle on every input."""
+    tiles = PD.compare_tiles() if label in PD.COMPARES else PD.shift_tiles()
+    _hold_on_held_inputs(cuda, label, design, len(tiles))
 
 
 # a child process: a lane gather in range, then one with an index of W, whose trap it reads at the synchronize
@@ -1299,12 +1314,26 @@ def test_matmul_int8_s32acc_cases(cuda, case):
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
 
 
-def _one_traced_kernel(prof, tmp_path, name, what):
+def _traced(launch, tmp_path, file="trace.json"):
+    """The events of the exported trace of one profiled `launch()` and the
+    synchronize after it."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        launch()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / file))
+    return json.loads((tmp_path / file).read_text())["traceEvents"]
+
+
+def _one_traced_kernel(prof, tmp_path, name, what, again=None):
     """The events of `prof`'s exported trace and its one kernel event, which
     must name `name`.  Where the trace holds no kernel event at all, the
     assertion's message also carries the same profile's launch calls (name,
     correlation id, time) and its count of events by category, so that a
-    lost device record can be told from a launch that never happened."""
+    lost device record can be told from a launch that never happened, and,
+    where `again` is given, the kernels of one more trace of `again()` (the
+    same launch): a record that came late shows there as a second kernel.
+    The empty trace fails all the same."""
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -1313,6 +1342,10 @@ def _one_traced_kernel(prof, tmp_path, name, what):
         launches = [(e["name"], e.get("args", {}).get("correlation"), e.get("ts")) for e in events
                     if e.get("name") in LAUNCH_CALLS]
         found += f"; launches {launches}; events by category {dict(collections.Counter(e.get('cat') for e in events))}"
+        if again is not None:
+            later = [(e["name"], e.get("args", {}).get("correlation")) for e in _traced(again, tmp_path, "again.json")
+                     if e.get("cat") == "kernel"]
+            found += f"; one more trace of the same launch holds the kernels {later}"
     assert len(kernels) == 1 and name in kernels[0]["name"], found
     return events, kernels[0]
 
@@ -1331,7 +1364,7 @@ def test_grid_1d_blockspec_is_one_launch_of_its_grid(cuda, tmp_path):
         torch.cuda.synchronize()
     assert probe.kernel.launches == before + 1
     assert torch.equal(got, x + 1)
-    _, kernel = _one_traced_kernel(prof, tmp_path, "add_one_tiles", ())
+    _, kernel = _one_traced_kernel(prof, tmp_path, "add_one_tiles", (), again=lambda: MP.launch(probe, x))
     assert (kernel["args"]["grid"], kernel["args"]["block"]) == ([32, 1, 1], [256, 1, 1]), kernel["args"]
 
 
@@ -1372,7 +1405,7 @@ def test_dma_unaligned_row_write_is_one_launch_with_no_fill(cuda, tmp_path):
     assert probe.kernel.launches == before + 1
     assert got.data_ptr() == junk_ptr  # the same memory, so the zeros are the kernel's
     assert torch.equal(got, MP.plain(probe, *args))
-    _, kernel = _one_traced_kernel(prof, tmp_path, "write_rows", ())
+    _, kernel = _one_traced_kernel(prof, tmp_path, "write_rows", (), again=lambda: MP.launch(probe, *args))
     assert (kernel["args"]["grid"], kernel["args"]["block"]) == ([8, 1, 1], [256, 1, 1]), kernel["args"]
 
 
@@ -1397,7 +1430,10 @@ ONE_KERNEL = {"dma_unaligned_row_offset": ("slice_every_row", [8, 1, 1], [256, 1
               "gather_lanes_taa_256x128_i32": ("gather_lanes", [32, 1, 1], [256, 1, 1]),
               "pltpu_roll_static": ("roll_lanes", [1, 1, 1], [256, 1, 1]),
               "pltpu_roll_dynamic": ("roll_lanes", [1, 1, 1], [256, 1, 1]),
-              "smem_scratch_scalar_loop": ("scalar_loop_fill", [1, 1, 1], [256, 1, 1])}
+              "smem_scratch_scalar_loop": ("scalar_loop_fill", [1, 1, 1], [256, 1, 1]),
+              "cmp_to_bf16_vector": ("greater_to", [4, 1, 1], [256, 1, 1]),
+              "cmp_to_int8_vector": ("greater_to", [4, 1, 1], [256, 1, 1]),
+              "u32_shifts_popcount": ("shifts_popcount", [1, 1, 1], [256, 1, 1])}
 
 
 @pytest.mark.parametrize("label", ONE_KERNEL)
@@ -1405,9 +1441,10 @@ def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
     """One call of the row-offset copy, the scalar add, the transpose, the
     HBM-to-HBM copy, the bitcast, a merge step, the column cumsum, the mask
     matmul, the sublane gather, the sized copy, the row store (P4's
-    write_rows), the in-row sort, the lane cumsum, a lane gather, a roll or
-    the scalar loop is one counted launch and exactly one kernel on the card, with its name, grid and block (no fill,
-    no wrapper-side copy, no host read of s or R), equal to the plain
+    write_rows), the in-row sort, the lane cumsum, a lane gather, a roll,
+    the scalar loop, a compare cast or the u32 shifts is one counted launch
+    and exactly one kernel on the card, with its name, grid and block (no
+    fill, no wrapper-side copy, no host read of s or R), equal to the plain
     version."""
     probe = _probe(label)
     args = MP.inputs_on(probe, cuda)
@@ -1421,7 +1458,7 @@ def test_scalar_probe_is_one_launch_of_one_kernel(cuda, tmp_path, label):
     assert probe.kernel.launches == before + 1
     assert torch.equal(got, MP.plain(probe, *args))
     name, grid, block = ONE_KERNEL[label]
-    events, kernel = _one_traced_kernel(prof, tmp_path, name, ())
+    events, kernel = _one_traced_kernel(prof, tmp_path, name, (), again=lambda: MP.launch(probe, *args))
     copies = [e["name"] for e in events if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
     assert not copies, copies
     assert (kernel["args"]["grid"], kernel["args"]["block"]) == (grid, block), kernel["args"]
@@ -1433,7 +1470,7 @@ def test_one_kernel_traces_with_the_design_libraries_loaded(cuda, tmp_path):
     one kernel: loading more kernel libraries adds nothing to a trace."""
     libs = _design_libs()
     for label in ("gather_sublanes_taa_axis0", "dma_dynamic_size_rows", "lax_sort_in_kernel", "cumsum_lanes_i32",
-                  *PD.GATHER_LANES, *PD.ROLLS, "smem_scratch_scalar_loop"):
+                  *PD.GATHER_LANES, *PD.ROLLS, "smem_scratch_scalar_loop", *PD.COMPARES, "u32_shifts_popcount"):
         args = MP.inputs_on(MP.BY_LABEL[label], cuda)
         for call in PD.design_entries(libs, label).values():
             call(*args)
@@ -1446,7 +1483,7 @@ def test_one_kernel_traces_with_the_design_libraries_loaded(cuda, tmp_path):
             with torch.profiler.profile(activities=activities) as prof:
                 MP.launch(probe, *args)
                 torch.cuda.synchronize()
-            _one_traced_kernel(prof, tmp_path, name, (label, round_))
+            _one_traced_kernel(prof, tmp_path, name, (label, round_), again=lambda: MP.launch(probe, *args))
 
 
 @pytest.mark.parametrize("name", PR.MERGE_STEPS)

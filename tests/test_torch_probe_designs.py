@@ -6,9 +6,12 @@ must be the source's own at the source's width; each redesigned kernel has
 its earlier source's path, its turns and, where PyTorch has one, a library
 call (the mask matmul has none: its staging turn stands in); the column
 cumsum's, the mask matmul's, the sublane gather's, the sized copy's, the
-in-row sort's, the lane cumsum's, the lane gathers', the rolls' and the
-scalar loop's held inputs show what they must catch (the rolls' on a numpy
-model of the kernel's 4-register roll); ``--sass``'s counts are read right from cuobjdump's text.  The builds and times need the card
+in-row sort's, the lane cumsum's, the lane gathers', the rolls', the
+scalar loop's, the compare casts' and the u32 shifts' held inputs show what
+they must catch (the rolls' on a numpy model of the kernel's 4-register
+roll, the compare casts' on a model of its packed store, the shifts' on a
+model of its unsigned shifts); ``--sass``'s counts are read right from
+cuobjdump's text.  The builds and times need the card
 (``chip_smoke.py``'s ``probes`` phase)."""
 
 import numpy as np
@@ -39,7 +42,9 @@ SWITCHES = {"quads": [TRANSPOSE_REGISTERS],
             "warp_blocks": [(PD.CUMSUM_LANES_GRID, "constexpr bool kCumsumLanesGrid = true;")],
             "row_staged": [(PD.GATHER_SHUFFLE, "constexpr bool kGatherShuffle = false;")],
             "roll_staged": [(PD.ROLL_STAGED, "constexpr bool kRollStaged = true;")],
-            "lane_sum": [(PD.SCALAR_LANE_SUM, "constexpr bool kScalarLaneSum = true;")]}
+            "lane_sum": [(PD.SCALAR_LANE_SUM, "constexpr bool kScalarLaneSum = true;")],
+            "eight_a_thread": [(PD.COMPARE_EIGHT_A_THREAD, "constexpr bool kCompareEightAThread = true;")],
+            "two_words": [(PD.SHIFTS_TWO_WORDS, "constexpr bool kShiftsTwoWords = true;")]}
 R4_DESIGNS = ("exchange", "mask_staging")  # the designs made from probe_r4.cu
 
 
@@ -85,9 +90,10 @@ def test_redesigned_kernel_has_its_earlier_source_turns_and_library_call(label):
     probe_r4.cu for the merge steps and the mask matmul) at the commit
     before its redesign, under build/parent/<commit>/, a library of its own;
     every design it is timed against is one that the tool builds; and its
-    library call gives its function on the probe's inputs (the merge steps,
-    the mask matmul and the scalar loop have none; the mask matmul's staging
-    stands in)."""
+    library call gives its function on the probe's inputs, bit for bit (the
+    compare casts' torch.gt into an int8 or bf16 out; the merge steps, the
+    mask matmul, the scalar loop and the u32 shifts have none; the mask
+    matmul's staging stands in)."""
     source = "probe_r4.cu" if label in PR.BY_NAME else "mosaic_probe.cu"
     assert PD.source_of(label).name == source and PD.source_of(label).is_file()
     path = PD.earlier_source(label)
@@ -103,24 +109,30 @@ def test_redesigned_kernel_has_its_earlier_source_turns_and_library_call(label):
     if label == "i1_to_bf16_astype":
         assert MP.library_call(label, args) is None and "mask_staging" in PD.TURNS[label]
         return
-    if label == "smem_scratch_scalar_loop":
-        assert MP.library_call(label, args) is None and PD.TURNS[label] == ("earlier", "lane_sum")
+    if label in ("smem_scratch_scalar_loop", "u32_shifts_popcount"):
+        assert MP.library_call(label, args) is None
+        assert PD.TURNS[label] == ("earlier", "lane_sum" if label == "smem_scratch_scalar_loop" else "two_words")
         return
     got = MP.library_call(label, args)()
-    assert torch.equal(got, MP.plain(probe, *args))
+    assert torch.equal(got, MP.plain(probe, *args)) and PD.same_bits(got, MP.plain(probe, *args))
 
 
 def test_every_kernel_of_the_tools_is_redesigned_once():
-    """The table names twenty redesigned kernels in 25 labels (the merge
+    """The table names twenty-two redesigned kernels in 28 labels (the merge
     step's two forms are one kernel, and so are the lane gather's four
-    probes and the roll's two), each with an earlier design, and no kernel
-    is left timed against its library call alone; the column cumsum and the
-    mask matmul were redesigned together, and so were the sublane gather and
-    the sized copy, the row store and the in-row sort, the lane cumsum and
-    the lane gather, and the roll and the scalar loop."""
-    assert len(PD.REDESIGNED) == 25 and len(set(PD.REDESIGNED)) == 25
-    kernels = {"mb_step": PR.MERGE_STEPS, "gather_lanes": PD.GATHER_LANES, "roll_lanes": PD.ROLLS}
-    assert len(PD.REDESIGNED) - sum(len(labels) - 1 for labels in kernels.values()) == 20
+    probes, the roll's two and the compare cast's two), each with an earlier
+    design, and no kernel is left timed against its library call alone; the
+    column cumsum and the mask matmul were redesigned together, and so were
+    the sublane gather and the sized copy, the row store and the in-row
+    sort, the lane cumsum and the lane gather, the roll and the scalar loop,
+    and the compare cast and the u32 shifts.  Every probe of mosaic_probe
+    and every kernel of probe_r4 is among them: no TPU kernel of the tools
+    is left without its redesign."""
+    assert len(PD.REDESIGNED) == 28 and len(set(PD.REDESIGNED)) == 28
+    kernels = {"mb_step": PR.MERGE_STEPS, "gather_lanes": PD.GATHER_LANES, "roll_lanes": PD.ROLLS,
+               "greater_to": PD.COMPARES}
+    assert len(PD.REDESIGNED) - sum(len(labels) - 1 for labels in kernels.values()) == 22
+    assert {p.label for p in MP.PROBES} | {k.label for k in PR.KERNELS} <= set(PD.REDESIGNED)
     assert set(PD.TURNS) == set(PD.REDESIGNED) and not hasattr(PD, "UNCHANGED")
     assert {PD.BEFORE[name] for name in PR.MERGE_STEPS} == {PD.BEFORE["bitcast_f32_u32"]}
     assert PD.BEFORE["cumsum_sublanes_f32"] == PD.BEFORE["i1_to_bf16_astype"] == "9e5ff2a"
@@ -139,6 +151,10 @@ def test_every_kernel_of_the_tools_is_redesigned_once():
     assert set(PD.ROLLS) == {p.label for p in MP.PROBES if p.label.startswith("pltpu_roll")}
     assert {PD.TURNS[label] for label in PD.ROLLS} == {("earlier", "roll_staged")}
     assert PD.TURNS["smem_scratch_scalar_loop"] == ("earlier", "lane_sum")
+    assert {PD.BEFORE[label] for label in (*PD.COMPARES, "u32_shifts_popcount")} == {"3455197"}
+    assert set(PD.COMPARES) == {p.label for p in MP.PROBES if p.label.startswith("cmp_to")}
+    assert {PD.TURNS[label] for label in PD.COMPARES} == {("earlier", "eight_a_thread")}
+    assert PD.TURNS["u32_shifts_popcount"] == ("earlier", "two_words")
 
 
 def test_held_inputs_cover_every_window_row():
@@ -523,9 +539,10 @@ SASS_TEXT = """
         /*0060*/                   LDG.E R14, desc[UR4][R2.64] ;               /* 0x000000040203e981 */
         /*0070*/                   FADD R15, R14, R12 ;                         /* 0x0000000c0e0f7221 */
         /*0080*/                   LDG.E R16, desc[UR4][R2.64+0x4] ;           /* 0x000000040210e981 */
-        /*0090*/                   STG.E.128 desc[UR4][R2.64], R4 ;            /* 0x000000040200e986 */
-        /*00a0*/                   EXIT ;                                       /* 0x000000000000794d */
-        Function : _ZN12_GLOBAL__N_115shifts_popcountEPKjPji
+        /*0090*/                   POPC R17, R16 ;                              /* 0x0000001000117309 */
+        /*00a0*/                   STG.E.128 desc[UR4][R2.64], R4 ;            /* 0x000000040200e986 */
+        /*00b0*/                   EXIT ;                                       /* 0x000000000000794d */
+        Function : _ZN12_GLOBAL__N_112empty_kernelEv
         /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;                /* 0x000000040204e981 */
         /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;                /* 0x0000000000007b1d */
 """
@@ -537,17 +554,19 @@ def test_count_sass_counts_ops_and_the_loads_behind_a_barrier_or_an_add():
     HMMA ("late LDG"), after the first BAR.SYNC and after the first SHFL,
     STS or STG, only for kernels named in SASS_KERNELS (the sublane
     gather's, the sized copy's, the in-row sort's, the row store's, the lane
-    cumsum's, the lane gather's, the roll's and the scalar loop's, earlier
-    and new, among them; not the u32 shifts')."""
+    cumsum's, the lane gather's, the roll's, the scalar loop's, the compare
+    cast's (greater_to_int8 and greater_to_bf16 before it) and the u32
+    shifts', earlier and new, among them; not the empty kernel)."""
     assert {"gather_stripe", "gather_direct", "gather_sublanes", "copy_rows_sized", "sort_rows", "write_rows",
-            "store_rows", "cumsum_lanes", "gather_lanes", "roll_lanes", "scalar_loop_fill"} <= set(PD.SASS_KERNELS)
-    assert not any(k in "shifts_popcount" for k in PD.SASS_KERNELS)
+            "store_rows", "cumsum_lanes", "gather_lanes", "roll_lanes", "scalar_loop_fill", "greater_to",
+            "shifts_popcount"} <= set(PD.SASS_KERNELS)
+    assert not any(k in "empty_kernel" for k in PD.SASS_KERNELS)
     counts = PD.count_sass(SASS_TEXT)
     assert list(counts) == ["_ZN12_GLOBAL__N_113gather_stripeEPK4int4S2_PS0_"]
     (got,) = counts.values()
-    assert {k: got[k] for k in ("LDG", "STS", "BAR.SYNC", "LDS", "FADD", "STG", "HMMA")} == {
-        "LDG": 4, "STS": 1, "BAR.SYNC": 1, "LDS": 1, "FADD": 1, "STG": 1, "HMMA": 0}
-    assert got["all"] == 11 and got["late LDG"] == 1 and got["LDG after BAR.SYNC"] == 2
+    assert {k: got[k] for k in ("LDG", "STS", "BAR.SYNC", "LDS", "FADD", "STG", "HMMA", "POPC")} == {
+        "LDG": 4, "STS": 1, "BAR.SYNC": 1, "LDS": 1, "FADD": 1, "STG": 1, "HMMA": 0, "POPC": 1}
+    assert got["all"] == 12 and got["late LDG"] == 1 and got["LDG after BAR.SYNC"] == 2
     assert got["LDG after SHFL, STS or STG"] == 2
 
 
@@ -657,3 +676,94 @@ def test_held_inputs_hold_the_scalar_loop_where_it_wraps_and_on_noise():
     other = noise.copy()
     other[:, 1:] = np.random.default_rng(0).integers(-2 ** 31, 2 ** 31, (8, 127), np.int32)
     assert torch.equal(MP.plain(probe, torch.from_numpy(other)), MP.plain(probe, torch.from_numpy(noise)))
+
+
+def _packed_compare(a, one, bits, reversed_=False):
+    """The compare cast's output as greater_to stores it, read back as the
+    output dtype's bits: a > 50 of each element as the pattern `one` in a
+    field `bits` wide, the 4 fields of a 16-byte word of a packed
+    little-endian into one 32- or 64-bit store (element k in field k, or in
+    field 3 - k when `reversed_`)."""
+    hit = (a.reshape(-1, 4) > 50).astype(np.uint64)
+    shifts = np.uint64(bits) * np.arange(4, dtype=np.uint64)[::-1 if reversed_ else 1]
+    words = (hit * np.uint64(one) << shifts).sum(1, dtype=np.uint64)
+    stored = words.astype(np.uint32 if bits == 8 else np.uint64)  # the 4- or 8-byte store
+    return stored.view(np.uint8 if bits == 8 else np.uint16).reshape(a.shape)
+
+
+@pytest.mark.parametrize("label", PD.COMPARES)
+def test_packed_compare_is_the_plain_version_and_a_reversed_packing_shows(label):
+    """The compare cast's packed store (4 results a 16-byte word of a,
+    element k in byte or halfword k, 1 as 0x01 or the bf16 0x3F80) equals
+    the plain version's bits on every held input; the same store with the
+    byte or halfword order reversed differs from it on every boundary tile
+    (and on the probe's and the full-range tiles)."""
+    probe = MP.BY_LABEL[label]
+    bf16 = probe.dtype == torch.bfloat16
+    one, bits, view = (0x3F80, 16, torch.int16) if bf16 else (0x01, 8, torch.int8)
+    names = ["probe", *PD.compare_tiles()]
+    shown = []
+    for name, (a,) in zip(names, PD.held_inputs(probe, "cpu"), strict=True):
+        want = MP.plain(probe, a).view(view).numpy().view(np.uint16 if bf16 else np.uint8)
+        assert np.array_equal(_packed_compare(a.numpy(), one, bits), want), name
+        if not np.array_equal(_packed_compare(a.numpy(), one, bits, reversed_=True), want):
+            shown.append(name)
+    assert shown == names
+
+
+def test_compare_tiles_put_the_ones_at_one_word_position():
+    """The compare casts' boundary tile k holds 50, 51, INT_MIN, INT_MAX, -51
+    and 49, and its elements above 50 (51 and INT_MAX) are exactly those at
+    position k of a 16-byte word; the full-range tile has both outcomes at
+    every position."""
+    tiles = PD.compare_tiles()
+    assert list(tiles) == ["full range", *[f"boundary {k}" for k in range(4)]]
+    for k in range(4):
+        tile = tiles[f"boundary {k}"]
+        assert tile.dtype == np.int32 and tile.shape == (32, 128)
+        assert set(np.unique(tile).tolist()) == {50, 51, -2 ** 31, 2 ** 31 - 1, -51, 49}
+        above = tile > 50
+        assert above[:, k::4].all() and above.sum() == tile.size // 4
+    full = tiles["full range"].reshape(-1, 4) > 50
+    assert full.any(0).all() and (~full).any(0).all()
+
+
+def _shifted(x, signed=False):
+    """(x >> 3) ^ (x << 2) ^ popcount(x) of u32 bits, as shifts_popcount
+    makes it (logical shifts of uint32), or with an arithmetic >> (`signed`)."""
+    u = x.view(np.uint32)
+    right = (x >> 3).view(np.uint32) if signed else u >> np.uint32(3)
+    pop = np.vectorize(lambda v: bin(int(v)).count("1"))(u).astype(np.uint32)
+    return (right ^ (u << np.uint32(2)) ^ pop).view(np.int32)
+
+
+def test_shift_model_is_the_plain_version_and_a_signed_shift_shows():
+    """The u32 shifts' model (logical shifts in uint32) equals the plain
+    version and the JAX oracle on every held input; with an arithmetic >>
+    it differs on each high-bit tile, and on no tile whose words are all
+    below 2^31; << 2 drops the top two bits of every high-bit word."""
+    probe = MP.BY_LABEL["u32_shifts_popcount"]
+    names = ["probe", *PD.shift_tiles()]
+    for name, (a,) in zip(names, PD.held_inputs(probe, "cpu"), strict=True):
+        x = a.numpy()
+        assert np.array_equal(_shifted(x), MP.plain(probe, a).numpy()), name
+        assert np.array_equal(_shifted(x), probe.oracle(x)), name
+        high = (x.view(np.uint32) >= 2 ** 31).any()
+        assert np.array_equal(_shifted(x, signed=True), _shifted(x)) == (not high), name
+    for word in PD.SHIFT_HIGH_WORDS:
+        assert (word << 2) & 0xFFFFFFFF != word << 2 and word >= 2 ** 31
+
+
+def test_shift_tiles_put_each_high_word_at_each_word_position():
+    """The u32 shifts are held on a full-range tile and on each of
+    0xFFFFFFFF, 0x80000000 and 0xE0000000 at each position k of a 16-byte
+    word, zeros elsewhere: 12 tiles, each with its word at k alone."""
+    tiles = PD.shift_tiles()
+    assert len(tiles) == 1 + 3 * 4 and PD.SHIFT_HIGH_WORDS == (0xFFFFFFFF, 0x80000000, 0xE0000000)
+    full = tiles.pop("full range").view(np.uint32)
+    assert full.min() < 2 ** 30 and full.max() > 3 * 2 ** 30 and len(np.unique(full)) > full.size * 0.99
+    for (name, tile), (word, k) in zip(tiles.items(), [(w, k) for w in PD.SHIFT_HIGH_WORDS for k in range(4)],
+                                       strict=True):
+        u = tile.view(np.uint32)
+        assert tile.dtype == np.int32 and tile.shape == (8, 128) and name == f"{word:#x} at {k}"
+        assert (u[:, k::4] == word).all() and (u != 0).sum() == u.size // 4
