@@ -37,6 +37,16 @@ sum/min/max/mean and not counted by count.  The range checks of the mxu and
 partition routes read the logical rows in one reduction per column and one
 host read, with the unsigned types read as unsigned (a u32 of 2^31 or more
 is stored negative); a ``key_domain`` guarantee skips them.
+
+Under a profiler each call is an ``att.groupby`` span, each route tried an
+``att.groupby.route.<name>`` span within it, and each phase of a route a span
+of its own (``runtime.profiler.span``): ``range_check``, ``dense_kernel``,
+``class_sort`` and ``dense_result`` on the dense routes; ``prepare``,
+``order``, ``gather``, ``scan`` and ``compact`` on the sort and radix routes.
+Each host wait is an ``att.sync.<cause>`` span: ``range_check``,
+``dense_groups`` (the occupied slots' ``nonzero``), ``num_groups``, and
+``last_segment_end`` (``segment_ends``' flag set from a Python scalar, which
+torch copies from the host and waits for).
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ import torch
 from .. import dtypes as dt
 from ..array.array import ArrowArrayBase, make_array, pad_len
 from ..errors import OperationNotSupported
+from ..runtime.profiler import host_read, span
 from ..table import RecordBatch
 from ..utils import bits as B
 from ..utils.scans import compact_rows, segment_ends, segmented_scan
@@ -121,88 +132,94 @@ def groupby_core(
     """
     n = key_data.shape[0]
     device = key_data.device
-    if merge_len is not None:
-        planes, small = [], []
-        for v, ok in val_entries:
-            small.append(v.dtype if v.element_size() < 4 else None)
-            planes.append(v.to(torch.int32) if v.element_size() < 4 else v)
-            planes.append(ok.to(torch.int32))
-        skey, outs = CK.sort_kv(key_data, planes, merge_len, unsigned=dt.is_unsigned(key_type))
-        in_group = torch.arange(n, device=device) < merge_len
-        sorted_vals = [
-            (sv if sd is None else sv.to(sd), (sf != 0) & in_group)
-            for sd, sv, sf in zip(small, outs[::2], outs[1::2])
-        ]
+    if merge_len is not None:  # the sort carries the value planes: no gather
+        with span("att.groupby.order"):
+            planes, small = [], []
+            for v, ok in val_entries:
+                small.append(v.dtype if v.element_size() < 4 else None)
+                planes.append(v.to(torch.int32) if v.element_size() < 4 else v)
+                planes.append(ok.to(torch.int32))
+            skey, outs = CK.sort_kv(key_data, planes, merge_len, unsigned=dt.is_unsigned(key_type))
+            in_group = torch.arange(n, device=device) < merge_len
+            sorted_vals = [
+                (sv if sd is None else sv.to(sd), (sf != 0) & in_group)
+                for sd, sv, sf in zip(small, outs[::2], outs[1::2])
+            ]
     elif dense:
-        in_group = torch.ones(n, dtype=torch.bool, device=device)
-        if presorted:
-            skey, sorted_vals = key_data, [(v, in_group) for v, _ in val_entries]
-        else:
-            perm = _sort_perm(key_data, key_type, None)
-            skey = key_data[perm]
-            sorted_vals = [(v[perm], in_group) for v, _ in val_entries]
+        perm = None
+        if not presorted:
+            with span("att.groupby.order"):
+                perm = _sort_perm(key_data, key_type, None)
+        with span("att.groupby.gather"):
+            in_group = torch.ones(n, dtype=torch.bool, device=device)
+            skey = key_data if perm is None else key_data[perm]
+            sorted_vals = [(v if perm is None else v[perm], in_group) for v, _ in val_entries]
     else:
-        perm = _sort_perm(key_data, key_type, kvalid)
-        skey = key_data[perm]
-        in_group = kvalid[perm]
-        sorted_vals = [(v[perm], ok[perm] & in_group) for v, ok in val_entries]
+        with span("att.groupby.order"):
+            perm = _sort_perm(key_data, key_type, kvalid)
+        with span("att.groupby.gather"):
+            skey = key_data[perm]
+            in_group = kvalid[perm]
+            sorted_vals = [(v[perm], ok[perm] & in_group) for v, ok in val_entries]
 
-    idx = torch.arange(n, device=device)
-    starts = in_group & ((idx == 0) | (skey != torch.roll(skey, 1)))
-    num_groups = starts.sum()
-    ends = segment_ends(starts, in_group.sum())
+    with span("att.groupby.scan"):
+        idx = torch.arange(n, device=device)
+        starts = in_group & ((idx == 0) | (skey != torch.roll(skey, 1)))
+        num_groups = starts.sum()
+        ends = segment_ends(starts, in_group.sum())
 
-    def scan(v, op, unsigned=False):
-        return segmented_scan(v, starts, op, unsigned)
+        def scan(v, op, unsigned=False):
+            return segmented_scan(v, starts, op, unsigned)
 
-    def count(ok):  # int32 counts ride the 4-byte planes, widened at the end
-        return scan(ok.to(torch.int32), "add")
+        def count(ok):  # int32 counts ride the 4-byte planes, widened at the end
+            return scan(ok.to(torch.int32), "add")
 
-    results, post = [], []
-    vi = 0
-    for agg, vtype in agg_spec:
-        if agg == "count_all":
-            results.append(count(in_group))
-            post.append(torch.int64)
-            continue
-        svals, svalid = sorted_vals[vi]
-        vi += 1
-        if agg in ("sum", "mean"):
-            acc, unsigned = _acc_plane(svals, vtype)
-            ssum = scan(torch.where(svalid, acc, torch.zeros_like(acc)), "add", unsigned)
-            if agg == "sum":
-                results.append(dt.narrow(ssum, vtype))
+        results, post = [], []
+        vi = 0
+        for agg, vtype in agg_spec:
+            if agg == "count_all":
+                results.append(count(in_group))
+                post.append(torch.int64)
+                continue
+            svals, svalid = sorted_vals[vi]
+            vi += 1
+            if agg in ("sum", "mean"):
+                acc, unsigned = _acc_plane(svals, vtype)
+                ssum = scan(torch.where(svalid, acc, torch.zeros_like(acc)), "add", unsigned)
+                if agg == "sum":
+                    results.append(dt.narrow(ssum, vtype))
+                else:
+                    s = ssum.to(torch.float64) if dt.is_float(vtype) else dt.to_float64(
+                        ssum, _A.UINT64 if unsigned else _A.INT64
+                    )
+                    results.append(s / count(svalid).clamp(min=1).to(torch.float64))
+                post.append(None)
+            elif agg == "count":
+                results.append(count(svalid))
+                post.append(torch.int64)
+            elif agg in ("min", "max"):
+                info = dt.info(vtype)
+                small = info.item_size < 4  # 8/16-bit values scan as int32 values
+                plane = dt.widen(svals, vtype).to(torch.int32) if small else svals
+                unsigned = info.is_unsigned and not small
+                if info.is_float:
+                    init = float("inf") if agg == "min" else float("-inf")
+                elif unsigned:  # storage of the type's max (all ones) / min
+                    init = -1 if agg == "min" else 0
+                elif info.is_unsigned:
+                    init = (1 << info.bit_width) - 1 if agg == "min" else 0
+                else:
+                    init = (1 << (info.bit_width - 1)) - 1 if agg == "min" else -(1 << (info.bit_width - 1))
+                contrib = torch.where(svalid, plane, torch.full_like(plane, init))
+                res = scan(contrib, agg, unsigned)
+                results.append(dt.narrow(res.to(torch.int64), vtype) if small else res)
+                post.append(None)
             else:
-                s = ssum.to(torch.float64) if dt.is_float(vtype) else dt.to_float64(
-                    ssum, _A.UINT64 if unsigned else _A.INT64
-                )
-                results.append(s / count(svalid).clamp(min=1).to(torch.float64))
-            post.append(None)
-        elif agg == "count":
-            results.append(count(svalid))
-            post.append(torch.int64)
-        elif agg in ("min", "max"):
-            info = dt.info(vtype)
-            small = info.item_size < 4  # 8/16-bit values scan as int32 values
-            plane = dt.widen(svals, vtype).to(torch.int32) if small else svals
-            unsigned = info.is_unsigned and not small
-            if info.is_float:
-                init = float("inf") if agg == "min" else float("-inf")
-            elif unsigned:  # storage of the type's max (all ones) / min
-                init = -1 if agg == "min" else 0
-            elif info.is_unsigned:
-                init = (1 << info.bit_width) - 1 if agg == "min" else 0
-            else:
-                init = (1 << (info.bit_width - 1)) - 1 if agg == "min" else -(1 << (info.bit_width - 1))
-            contrib = torch.where(svalid, plane, torch.full_like(plane, init))
-            res = scan(contrib, agg, unsigned)
-            results.append(dt.narrow(res.to(torch.int64), vtype) if small else res)
-            post.append(None)
-        else:
-            raise OperationNotSupported(f"unknown aggregation {agg!r}")
+                raise OperationNotSupported(f"unknown aggregation {agg!r}")
 
-    parts = compact_rows(ends, [skey, *results])
-    out_aggs = [p if t is None else p.to(t) for p, t in zip(parts[1:], post)]
+    with span("att.groupby.compact"):
+        parts = compact_rows(ends, [skey, *results])
+        out_aggs = [p if t is None else p.to(t) for p, t in zip(parts[1:], post)]
     return num_groups, parts[0], out_aggs
 
 
@@ -261,9 +278,10 @@ def _range_check(keys: ArrowArrayBase, cols) -> Tuple[int, int, List[int], List[
     if n == 0:
         return 0, 0, [0] * len(cols), [0] * len(cols)
     arrays = (keys, *cols)
-    stats = torch.stack(
-        [torch.stack(torch.aminmax(a.data[:n])).to(torch.int64) for a in arrays]
-    ).tolist()
+    with span("att.groupby.range_check"):
+        stats = torch.stack([torch.stack(torch.aminmax(a.data[:n])).to(torch.int64) for a in arrays])
+        with host_read("range_check"):
+            stats = stats.tolist()
     ranges = []
     for a, (lo, hi) in zip(arrays, stats):
         info = dt.info(a.dtype)
@@ -305,27 +323,29 @@ def _dense_result(keys: ArrowArrayBase, aggregations, count, sums, domain: int) 
     """The groups of dense (count, sum) tables over [0, domain): the
     occupied slots in ascending key order, in buffers of pad_len(domain)
     rows that are zero past the groups."""
-    order = torch.nonzero(count > 0).flatten()
-    ng = int(order.shape[0])
-    cap = pad_len(domain)
-    device = keys.data.device
+    with span("att.groupby.dense_result"):
+        with host_read("dense_groups"):
+            order = torch.nonzero(count > 0).flatten()
+        ng = int(order.shape[0])
+        cap = pad_len(domain)
+        device = keys.data.device
 
-    def wrap(values: torch.Tensor, dtype: _A):
-        buf = torch.zeros(cap, dtype=dt.info(dtype).torch, device=device)
-        buf[:ng] = dt.narrow(values, dtype)
-        return make_array(buf, None, ng, dtype, keys.device)
+        def wrap(values: torch.Tensor, dtype: _A):
+            buf = torch.zeros(cap, dtype=dt.info(dtype).torch, device=device)
+            buf[:ng] = dt.narrow(values, dtype)
+            return make_array(buf, None, ng, dtype, keys.device)
 
-    cnt = count[order].to(torch.int64)
-    cols = {"key": wrap(order, keys.dtype)}
-    for name, col, kind in aggregations:
-        if kind == "count":
-            cols[name] = wrap(cnt, _A.INT64)
-        elif kind == "mean":
-            mean = sums[id(col)][order].to(torch.float64) / cnt.clamp(min=1).to(torch.float64)
-            cols[name] = wrap(mean, _A.FLOAT64)
-        else:
-            cols[name] = wrap(sums[id(col)][order], col.dtype)
-    return RecordBatch(cols)
+        cnt = count[order].to(torch.int64)
+        cols = {"key": wrap(order, keys.dtype)}
+        for name, col, kind in aggregations:
+            if kind == "count":
+                cols[name] = wrap(cnt, _A.INT64)
+            elif kind == "mean":
+                mean = sums[id(col)][order].to(torch.float64) / cnt.clamp(min=1).to(torch.float64)
+                cols[name] = wrap(mean, _A.FLOAT64)
+            else:
+                cols[name] = wrap(sums[id(col)][order], col.dtype)
+        return RecordBatch(cols)
 
 
 def _hash_aggregate_mxu(keys, aggregations, key_domain, value_bits, ranges):
@@ -336,13 +356,14 @@ def _hash_aggregate_mxu(keys, aggregations, key_domain, value_bits, ranges):
     if limits is None:
         return None
     n = keys.length
-    kp = _int32_plane(keys, n)
-    count, sums = None, {}
-    for col, vmax in zip(cols, limits[1]):
-        c, sums[id(col)] = CK.groupby_dense(kp, _int32_plane(col, n), _nlimb(vmax), n)
-        count = c if count is None else count
-    if count is None:  # count(*) alone: any value plane will do
-        count, _ = CK.groupby_dense(kp, kp, 1, n)
+    with span("att.groupby.dense_kernel"):
+        kp = _int32_plane(keys, n)
+        count, sums = None, {}
+        for col, vmax in zip(cols, limits[1]):
+            c, sums[id(col)] = CK.groupby_dense(kp, _int32_plane(col, n), _nlimb(vmax), n)
+            count = c if count is None else count
+        if count is None:  # count(*) alone: any value plane will do
+            count, _ = CK.groupby_dense(kp, kp, 1, n)
     return _dense_result(keys, aggregations, count, sums, SLOTS)
 
 
@@ -368,20 +389,23 @@ def _hash_aggregate_partition(keys, aggregations, key_domain, value_bits, ranges
     nclass = (1 << dom_bits) // SLOTS
     class_bit = SLOTS.bit_length() - 1
     n = keys.length
-    planes = [_int32_plane(c, n) for c in (keys, *cols)]
-    skey, *svals = (p[:n] for p in CK.radix_sort(planes, range(class_bit, dom_bits), n))
-    count, sums = None, {}
-    for col, sv, vmax in zip(cols, svals, vmaxes):
-        c, sums[id(col)] = CK.groupby_region(skey, sv, _nlimb(vmax), nclass)
-        count = c if count is None else count
-    if count is None:  # count(*) alone
-        count, _ = CK.groupby_region(skey, skey, 1, nclass)
+    with span("att.groupby.class_sort"):
+        planes = [_int32_plane(c, n) for c in (keys, *cols)]
+        skey, *svals = (p[:n] for p in CK.radix_sort(planes, range(class_bit, dom_bits), n))
+    with span("att.groupby.dense_kernel"):
+        count, sums = None, {}
+        for col, sv, vmax in zip(cols, svals, vmaxes):
+            c, sums[id(col)] = CK.groupby_region(skey, sv, _nlimb(vmax), nclass)
+            count = c if count is None else count
+        if count is None:  # count(*) alone
+            count, _ = CK.groupby_region(skey, skey, 1, nclass)
     return _dense_result(keys, aggregations, count, sums, 1 << dom_bits)
 
 
 def _sorted_result(keys, aggregations, num_groups, out_keys, out_aggs) -> RecordBatch:
     """The sort and radix routes' groups as a RecordBatch."""
-    ng = int(num_groups)
+    with span("att.groupby.compact"), host_read("num_groups"):
+        ng = int(num_groups)
 
     def wrap(buf, dtype):
         return make_array(buf, None, ng, dtype, keys.device)
@@ -433,12 +457,15 @@ def _hash_aggregate_radix(keys, aggregations, auto: bool):
     if 1 + len(cols) > RADIX_MAX_PLANES:
         return None
     flip = dt.sign_bit(keys.dtype) if dt.info(keys.dtype).is_signed else 0
-    code = keys.data ^ flip  # unsigned order == Arrow order
-    scode, *svals = CK.radix_sort([code, *(c.data for c in cols)], 32, n)  # its significant bits
-    every = torch.ones(n, dtype=torch.bool, device=code.device)
+    with span("att.groupby.prepare"):
+        code = keys.data ^ flip  # unsigned order == Arrow order
+        every = torch.ones(n, dtype=torch.bool, device=code.device)
+    with span("att.groupby.order"):
+        scode, *svals = CK.radix_sort([code, *(c.data for c in cols)], 32, n)  # its significant bits
+        skey = scode ^ flip
     sorted_by_col = {id(c): v for c, v in zip(cols, svals)}
     num_groups, out_keys, out_aggs = groupby_core(
-        scode ^ flip, keys.dtype, every, [(sorted_by_col[id(c)], every) for c in entry_cols],
+        skey, keys.dtype, every, [(sorted_by_col[id(c)], every) for c in entry_cols],
         agg_spec, dense=True, presorted=True,
     )
     return _sorted_result(keys, aggregations, num_groups, out_keys, out_aggs)
@@ -472,61 +499,72 @@ def hash_aggregate(
         raise OperationNotSupported(f"group-by key dtype {keys.dtype.value} unsupported")
     if method not in ("auto", "sort", "mxu", "partition", "radix"):
         raise OperationNotSupported(f"unknown hash_aggregate method {method!r}")
-    dense_ok = method in ("auto", "mxu", "partition") and _dense_eligible(keys, aggregations)
-    ranges = functools.cache(lambda: _range_check(keys, _value_columns(aggregations)))
-    if method in ("auto", "mxu") and dense_ok:
-        out = _hash_aggregate_mxu(keys, aggregations, key_domain, value_bits, ranges)
-        if out is not None:
-            return out
-    if method == "mxu":
-        raise OperationNotSupported(
-            "mxu groupby requires dense keys in [0, 4096), non-negative "
-            "integer values and no nulls"
-        )
-    if method in ("auto", "partition") and dense_ok:
-        out = _hash_aggregate_partition(keys, aggregations, key_domain, value_bits, ranges)
-        if out is not None:
-            return out
-    if method == "partition":
-        raise OperationNotSupported(
-            "partition groupby requires dense keys in (4096, 2^22], "
-            "non-negative integer values and no nulls"
-        )
-    if method in ("auto", "radix"):
-        out = _hash_aggregate_radix(keys, aggregations, auto=method == "auto")
-        if out is not None:
-            return out
-    if method == "radix":
-        raise OperationNotSupported(
-            "radix groupby requires dense no-null full-buffer keys and "
-            "values of 32 bits on a CUDA device (any device with "
-            "ARROW_TPU_FORCE_RADIX_AGG=1)"
-        )
+    with span("att.groupby"):
+        dense_ok = method in ("auto", "mxu", "partition") and _dense_eligible(keys, aggregations)
+        ranges = functools.cache(lambda: _range_check(keys, _value_columns(aggregations)))
+        if method in ("auto", "mxu") and dense_ok:
+            with span("att.groupby.route.mxu"):
+                out = _hash_aggregate_mxu(keys, aggregations, key_domain, value_bits, ranges)
+            if out is not None:
+                return out
+        if method == "mxu":
+            raise OperationNotSupported(
+                "mxu groupby requires dense keys in [0, 4096), non-negative "
+                "integer values and no nulls"
+            )
+        if method in ("auto", "partition") and dense_ok:
+            with span("att.groupby.route.partition"):
+                out = _hash_aggregate_partition(keys, aggregations, key_domain, value_bits, ranges)
+            if out is not None:
+                return out
+        if method == "partition":
+            raise OperationNotSupported(
+                "partition groupby requires dense keys in (4096, 2^22], "
+                "non-negative integer values and no nulls"
+            )
+        if method in ("auto", "radix"):
+            with span("att.groupby.route.radix"):
+                out = _hash_aggregate_radix(keys, aggregations, auto=method == "auto")
+            if out is not None:
+                return out
+        if method == "radix":
+            raise OperationNotSupported(
+                "radix groupby requires dense no-null full-buffer keys and "
+                "values of 32 bits on a CUDA device (any device with "
+                "ARROW_TPU_FORCE_RADIX_AGG=1)"
+            )
+        with span("att.groupby.route.sort"):
+            return _hash_aggregate_sort(keys, aggregations)
+
+
+def _hash_aggregate_sort(keys, aggregations) -> RecordBatch:
+    """The sort route (``groupby_core``): any keys, values and nulls."""
     n = pad_len(keys.length)
     device = keys.data.device
     agg_spec: List[Tuple[str, Optional[_A]]] = []
     val_entries = []
     any_value_nulls = False
-    for _name, col, kind in aggregations:
-        if kind not in AGG_KINDS:
-            raise OperationNotSupported(f"unknown aggregation {kind!r}")
-        if col is None:
-            if kind != "count":
-                raise OperationNotSupported("only count may omit the value column")
-            agg_spec.append(("count_all", None))
-            continue
-        if len(col) != len(keys):
-            raise OperationNotSupported("value column length mismatch")
-        if col.dtype is _A.BOOL:
-            raise OperationNotSupported("bool value columns unsupported")
-        agg_spec.append((kind, col.dtype))
-        val_entries.append(
-            (col.data[:n], _valid_bools(col.validity, keys.length, n, device))
-        )
-        any_value_nulls |= col.validity is not None
+    with span("att.groupby.prepare"):
+        for _name, col, kind in aggregations:
+            if kind not in AGG_KINDS:
+                raise OperationNotSupported(f"unknown aggregation {kind!r}")
+            if col is None:
+                if kind != "count":
+                    raise OperationNotSupported("only count may omit the value column")
+                agg_spec.append(("count_all", None))
+                continue
+            if len(col) != len(keys):
+                raise OperationNotSupported("value column length mismatch")
+            if col.dtype is _A.BOOL:
+                raise OperationNotSupported("bool value columns unsupported")
+            agg_spec.append((kind, col.dtype))
+            val_entries.append(
+                (col.data[:n], _valid_bools(col.validity, keys.length, n, device))
+            )
+            any_value_nulls |= col.validity is not None
+        kvalid = _valid_bools(keys.validity, keys.length, n, device)
 
     dense = keys.validity is None and keys.length == n and not any_value_nulls
-    kvalid = _valid_bools(keys.validity, keys.length, n, device)
     use_merge = _merge_sort_ok(keys, [col for _n, col, _k in aggregations])
     num_groups, out_keys, out_aggs = groupby_core(
         keys.data[:n], keys.dtype, kvalid, val_entries, agg_spec, dense=dense,

@@ -25,6 +25,15 @@ package.  Output order is implementation-defined: compare pair sets.
 
 Only the logical prefixes of the key columns take part.  Null keys never
 match (dropped from both sides).
+
+Under a profiler each ``hash_join`` is an ``att.join`` span holding a span
+for each step (``runtime.profiler.span``): ``att.join.plan`` (its
+``cosort``, ``bounds`` and ``lists``), ``expand`` and ``rank_fill``, or
+``legacy_emit``, then ``take``.  Each host wait is an ``att.sync.<cause>``
+span: ``narrow_check``, ``join_total``, ``join_runs``, the co-sort's
+``radix_significant_bits``, and the run bounds' ``first_key_start`` and
+``last_key_end`` (a flag set from a Python scalar, which torch copies from
+the host and waits for).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from .. import dtypes as dt
 from ..array.array import ArrowArrayBase, make_array, pad_len
 from ..errors import OperationNotSupported
 from ..ops.swizzle import take
+from ..runtime.profiler import host_read, span
 from ..table import RecordBatch
 from ..utils import bits as B
 from ..utils.scans import (
@@ -67,7 +77,10 @@ def _order_key(keys: torch.Tensor, dtype: _A) -> torch.Tensor:
 
 def _key_starts(sk: torch.Tensor) -> torch.Tensor:
     start = sk != torch.roll(sk, 1)
-    start[0] = True
+    # a Python scalar set into a CUDA tensor is copied from pageable host
+    # memory, and that copy waits for the stream
+    with host_read("first_key_start"):
+        start[0] = True
     return start
 
 
@@ -82,7 +95,8 @@ def _run_bounds(skey: torch.Tensor, sb: torch.Tensor):
     nbv = sb.sum(dtype=torch.int32)
     after = nbv - b4 - sb  # build rows strictly after each row
     end = torch.roll(start, -1)
-    end[-1] = True
+    with host_read("last_key_end"):
+        end[-1] = True
     hi = nbv - shift_cummax(torch.where(end, after, -1), reverse=True)
     return lo, hi
 
@@ -148,18 +162,20 @@ def legacy_emit(bk, bvalid, pk, pvalid, dtype, all_valid, limit: Optional[int] =
     first `limit` matches (all of them by default), probe-major.  Returns
     (probe row ids, build row ids, the match total): ids over a power of two
     of at least 1024 rows, zero past the matches kept."""
-    sorder = build_order(bk, bvalid, dtype, all_valid)
-    lo, hi = probe_bounds(bk, bvalid, pk, pvalid, dtype)
-    cnt = (hi - lo).to(torch.int64)
-    ends = torch.cumsum(cnt, 0)
-    t = int(ends[-1])
-    kept = t if limit is None else min(t, limit)
-    j = torch.arange(_bucket(kept), dtype=torch.int64, device=bk.device)
-    pi = torch.searchsorted(ends, j, right=True).clamp(max=pk.shape[0] - 1)
-    bpos = lo[pi].to(torch.int64) + (j - (ends[pi] - cnt[pi]))
-    bi = sorder[bpos.clamp(0, bk.shape[0] - 1)]
-    live = j < kept
-    return torch.where(live, pi, 0).to(torch.int32), torch.where(live, bi, 0).to(torch.int32), t
+    with span("att.join.legacy_emit"):
+        sorder = build_order(bk, bvalid, dtype, all_valid)
+        lo, hi = probe_bounds(bk, bvalid, pk, pvalid, dtype)
+        cnt = (hi - lo).to(torch.int64)
+        ends = torch.cumsum(cnt, 0)
+        with host_read("join_total"):
+            t = int(ends[-1])
+        kept = t if limit is None else min(t, limit)
+        j = torch.arange(_bucket(kept), dtype=torch.int64, device=bk.device)
+        pi = torch.searchsorted(ends, j, right=True).clamp(max=pk.shape[0] - 1)
+        bpos = lo[pi].to(torch.int64) + (j - (ends[pi] - cnt[pi]))
+        bi = sorder[bpos.clamp(0, bk.shape[0] - 1)]
+        live = j < kept
+        return torch.where(live, pi, 0).to(torch.int32), torch.where(live, bi, 0).to(torch.int32), t
 
 
 def _fit(x: torch.Tensor, cap: int) -> torch.Tensor:
@@ -181,32 +197,38 @@ def _plan(bk, bvalid, pk, pvalid, dtype, narrow: bool, buffer_rows: int):
     nb, np_ = bk.shape[0], pk.shape[0]
     tot = nb + np_
     device = bk.device
-    valid = torch.cat([bvalid, pvalid])
-    sorig = torch.where(valid, torch.arange(tot, dtype=torch.int32, device=device), tot)
-    if narrow or dtype is _A.UINT32:  # one u32 key plane; dead rows the largest
-        key = torch.cat([bk, pk])
-        if narrow:
-            key = B.to_int32(key & 0xFFFFFFFF)
-        key = torch.where(valid, key, -1)
-        if _radix_cosort(buffer_rows, device):
-            skey, so = CK.radix_sort((key, sorig), 32)
+    with span("att.join.cosort"):
+        valid = torch.cat([bvalid, pvalid])
+        sorig = torch.where(valid, torch.arange(tot, dtype=torch.int32, device=device), tot)
+        if narrow or dtype is _A.UINT32:  # one u32 key plane; dead rows the largest
+            key = torch.cat([bk, pk])
+            if narrow:
+                key = B.to_int32(key & 0xFFFFFFFF)
+            key = torch.where(valid, key, -1)
+            if _radix_cosort(buffer_rows, device):
+                skey, so = CK.radix_sort((key, sorig), 32)
+            else:
+                skey, perm = torch.sort(dt.widen(key, _A.UINT32))
+                so = sorig[perm]
         else:
-            skey, perm = torch.sort(dt.widen(key, _A.UINT32))
+            okey = torch.cat([_order_key(bk, dtype), _order_key(pk, dtype)])
+            skey, perm = torch.sort(torch.where(valid, okey, torch.iinfo(torch.int64).max))
             so = sorig[perm]
-    else:
-        okey = torch.cat([_order_key(bk, dtype), _order_key(pk, dtype)])
-        skey, perm = torch.sort(torch.where(valid, okey, torch.iinfo(torch.int64).max))
-        so = sorig[perm]
-    isb = (so < nb).to(torch.int32)
-    isp = (so >= nb) & (so < tot)
-    lo_s, hi_s = _run_bounds(skey, isb)
-    cnt_s = torch.where(isp, hi_s - lo_s, 0).to(torch.int32)
-    total = int(cnt_s.sum(dtype=torch.int64))
-    ends_s = prefix_sum(cnt_s.to(torch.int64)).to(torch.int32)  # total < 2^31 on this path
-    (sorder,) = compact_rows(isb == 1, [so])
-    runs = isp & (cnt_s > 0)
-    ends_l, prow_l, lo_l = compact_rows(runs, [ends_s, so - nb, lo_s])
-    return total, int(runs.sum()), sorder, ends_l, prow_l, lo_l
+    with span("att.join.bounds"):
+        isb = (so < nb).to(torch.int32)
+        isp = (so >= nb) & (so < tot)
+        lo_s, hi_s = _run_bounds(skey, isb)
+        cnt_s = torch.where(isp, hi_s - lo_s, 0).to(torch.int32)
+        with host_read("join_total"):
+            total = int(cnt_s.sum(dtype=torch.int64))
+        ends_s = prefix_sum(cnt_s.to(torch.int64)).to(torch.int32)  # total < 2^31 on this path
+    with span("att.join.lists"):
+        (sorder,) = compact_rows(isb == 1, [so])
+        runs = isp & (cnt_s > 0)
+        ends_l, prow_l, lo_l = compact_rows(runs, [ends_s, so - nb, lo_s])
+        with host_read("join_runs"):
+            m_eff = int(runs.sum())
+    return total, m_eff, sorder, ends_l, prow_l, lo_l
 
 
 def _expand(cap: int, ends_l, prow_l, lo_l, m_eff: int, total: int):
@@ -270,9 +292,10 @@ def _narrow_ok(build_keys: ArrowArrayBase, probe_keys: ArrowArrayBase) -> bool:
         return False
     if build_keys.data.shape[0] + probe_keys.data.shape[0] < NARROW_MIN_ROWS:
         return False
-    return not any(
-        bool(((k.data[: k.length] >> 32) != 0).any()) for k in (build_keys, probe_keys)
-    )
+    with host_read("narrow_check"):
+        return not any(
+            bool(((k.data[: k.length] >> 32) != 0).any()) for k in (build_keys, probe_keys)
+        )
 
 
 def join_indices(
@@ -293,15 +316,18 @@ def join_indices(
     mode = os.environ.get("ARROW_TPU_JOIN_EMIT", "auto")
     if mode == "merge" or (mode == "auto" and device.type == "cuda"):
         buffer_rows = build_keys.data.shape[0] + probe_keys.data.shape[0]
-        total, m_eff, sorder, ends_l, prow_l, lo_l = _plan(
-            bk, bvalid, pk, pvalid, dtype, _narrow_ok(build_keys, probe_keys), buffer_rows
-        )
+        with span("att.join.plan"):
+            total, m_eff, sorder, ends_l, prow_l, lo_l = _plan(
+                bk, bvalid, pk, pvalid, dtype, _narrow_ok(build_keys, probe_keys), buffer_rows
+            )
         if total == 0:
             return _empty(device)
         if total < 1 << 31:
             cap = _bucket(total)
-            pidx, bpos = _expand(cap, ends_l, prow_l, lo_l, m_eff, total)
-            pidx, bidx = _rank_fill(cap, bk.shape[0], bpos, pidx, sorder, total)
+            with span("att.join.expand"):
+                pidx, bpos = _expand(cap, ends_l, prow_l, lo_l, m_eff, total)
+            with span("att.join.rank_fill"):
+                pidx, bidx = _rank_fill(cap, bk.shape[0], bpos, pidx, sorder, total)
             return (
                 make_array(pidx, None, total, _A.UINT32),
                 make_array(bidx, None, total, _A.UINT32),
@@ -322,17 +348,19 @@ def hash_join(
     suffixes: Tuple[str, str] = ("_l", "_r"),
 ) -> RecordBatch:
     """Inner equi-join of two RecordBatches; `right` is the build side."""
-    probe_idx, build_idx, _ = join_indices(right[right_on], left[left_on])
-    cols = {}
-    for name, col in left.columns().items():
-        clash = name in right.column_names and not (name == left_on and name == right_on)
-        cols[name + suffixes[0] if clash else name] = take(col, probe_idx)
-    for name, col in right.columns().items():
-        if name == right_on and left_on == right_on:
-            continue  # key column already present from the left side
-        out_name = name + suffixes[1] if name in left.column_names else name
-        cols[out_name] = take(col, build_idx)
-    return RecordBatch(cols)
+    with span("att.join"):
+        probe_idx, build_idx, _ = join_indices(right[right_on], left[left_on])
+        with span("att.join.take"):
+            cols = {}
+            for name, col in left.columns().items():
+                clash = name in right.column_names and not (name == left_on and name == right_on)
+                cols[name + suffixes[0] if clash else name] = take(col, probe_idx)
+            for name, col in right.columns().items():
+                if name == right_on and left_on == right_on:
+                    continue  # key column already present from the left side
+                out_name = name + suffixes[1] if name in left.column_names else name
+                cols[out_name] = take(col, build_idx)
+        return RecordBatch(cols)
 
 
 __all__ = ["build_order", "hash_join", "join_indices", "probe_bounds"]

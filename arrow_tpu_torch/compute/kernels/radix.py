@@ -34,6 +34,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ...runtime.profiler import host_read
 from . import _build
 
 DIGIT_BITS = (1, 2, 8)
@@ -141,7 +142,8 @@ def significant_mask_plain(key: torch.Tensor, n: int) -> int:
         o = torch.cat([o[:h] | o[h : 2 * h], o[2 * h :]]) if odd else o[:h] | o[h:]
         a = torch.cat([a[:h] & a[h : 2 * h], a[2 * h :]]) if odd else a[:h] & a[h:]
     bits = 8 * key.element_size()
-    return (int(o[0]) ^ int(a[0])) & ((1 << bits) - 1)
+    with host_read("radix_significant_bits"):
+        return (int(o[0]) ^ int(a[0])) & ((1 << bits) - 1)
 
 
 def _zero_tail(sorted_prefix: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -186,7 +188,8 @@ def significant_mask_cuda(key: torch.Tensor, n: int) -> int:
     with torch.cuda.device(key.device):
         err = fn(key.data_ptr(), int(key.element_size() == 8), n, out.data_ptr(), _build.stream_of(key))
     _build.check(err, "radix significant bits")
-    o, a = (int(v) for v in out.tolist())
+    with host_read("radix_significant_bits"):
+        o, a = (int(v) for v in out.tolist())
     return (o ^ a) & ((1 << (8 * key.element_size())) - 1)
 
 

@@ -26,6 +26,7 @@ from .. import dtypes as dt
 from ..array.array import ArrowArrayBase, make_array
 from ..array.scalar import Scalar
 from ..errors import OperationNotSupported
+from ..runtime import profiler
 
 
 class AV(NamedTuple):
@@ -105,16 +106,16 @@ def get_op(name: str) -> OpDef:
 def execute(op_name: str, avs: Sequence[AV], params: Optional[dict] = None) -> list:
     """Run a registered op eagerly; returns the list of output AVs.  With
     ``config.profile`` set, its wall time to the end of its device work is
-    logged under the op's name."""
+    logged under the op's name.  Under a profiler the call is an
+    ``att.op.<name>`` span."""
     from ..config import config
 
     impl = get_op(op_name).impl
-    if config.profile:
-        from ..runtime import profiler
-
-        outs = profiler.timed_call(op_name, lambda: impl(*avs, **(params or {})))
-    else:
-        outs = impl(*avs, **(params or {}))
+    with profiler.span(f"att.op.{op_name}"):
+        if config.profile:
+            outs = profiler.timed_call(op_name, lambda: impl(*avs, **(params or {})))
+        else:
+            outs = impl(*avs, **(params or {}))
     return [outs] if isinstance(outs, AV) else list(outs)
 
 

@@ -10,6 +10,13 @@ package blocks until its arrays are ready).  With ``config.profile`` set
 :func:`device_report` runs a call once under ``torch.profiler`` and gives
 each device kernel's time; :func:`start_trace`, :func:`stop_trace` and
 :func:`trace` write a Chrome trace (``trace.json``) into a directory.
+
+:func:`span` names a phase of the port's operators (``att.groupby.order``,
+``att.join.plan``, ...) and :func:`host_read` a statement that waits for
+the device (``att.sync.<cause>``).  Both are
+``record_function`` spans while a ``torch.profiler`` records, so they sit in
+the same trace as the device work they launch and on its clock; otherwise
+they are one shared no-op context and cost a flag read.
 """
 
 from __future__ import annotations
@@ -26,6 +33,24 @@ import torch
 log = logging.getLogger("arrow_tpu_torch")
 
 _TIMINGS: Dict[str, List[float]] = defaultdict(list)
+_NO_SPAN = contextlib.nullcontext()
+#: the runtime calls that launch a kernel (the trace's host side)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def span(name: str):
+    """A ``record_function`` span called `name` while a profiler records;
+    otherwise one shared no-op context, so that nothing is built."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def host_read(cause: str):
+    """The span ``att.sync.<cause>`` around a statement that waits for the
+    device: a device value read on the host, or a Python scalar that torch
+    copies from the host into a device tensor."""
+    return span(f"att.sync.{cause}")
 
 
 def record(name: str, seconds: float) -> None:
@@ -115,6 +140,22 @@ def _activities():
     return acts
 
 
+def lost_kernels(events) -> int:
+    """The runtime launch calls of a trace's events less its device kernel
+    events (copies and fills apart): above 0 when the trace lost device
+    records, as CUPTI does late in a long process."""
+    from torch.autograd import DeviceType
+
+    launches = kernels = 0
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False) and not e.name.startswith(("Memcpy", "Memset")):
+                kernels += 1
+        elif e.name in LAUNCH_CALLS:
+            launches += 1
+    return launches - kernels
+
+
 def device_report(fn, *args, top: int = 25, logdir: Optional[str] = None):
     """Run ``fn(*args)`` once under ``torch.profiler`` and return
     ``[(kernel, calls, total_ms)]`` sorted by total time.
@@ -123,7 +164,9 @@ def device_report(fn, *args, top: int = 25, logdir: Optional[str] = None):
     Where the profiler saw no device activity (a call on the CPU) they are
     the CPU ops by their self time.  Each row is also folded into the
     process-wide log under ``device:<kernel>``; with `logdir`, the Chrome
-    trace is written there as ``trace.json``."""
+    trace is written there as ``trace.json``.  A trace that holds fewer
+    kernel events than launch calls is logged as a warning with the
+    shortfall: its rows then undercount."""
     from torch.autograd import DeviceType
 
     with torch.profiler.profile(activities=_activities()) as prof:
@@ -132,15 +175,20 @@ def device_report(fn, *args, top: int = 25, logdir: Optional[str] = None):
     if logdir is not None:
         os.makedirs(logdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    events = prof.events()
+    lost = lost_kernels(events)
+    if lost > 0:
+        log.warning("device_report: the trace lost %d of its %d launched kernels' device records; "
+                    "its rows undercount", lost, sum(e.name in LAUNCH_CALLS for e in events))
     agg: Dict[str, List[float]] = {}
-    for e in prof.events():
+    for e in events:
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             a = agg.setdefault(e.name, [0.0, 0])
             a[0] += e.time_range.elapsed_us()
             a[1] += 1
     if not agg:
         for e in prof.key_averages():
-            if e.self_cpu_time_total > 0:
+            if e.self_cpu_time_total > 0 and not e.key.startswith("att."):
                 agg[e.key] = [float(e.self_cpu_time_total), e.count]
     rows = sorted(((n, int(c), us / 1e3) for n, (us, c) in agg.items()), key=lambda r: -r[2])[:top]
     for n, _c, ms in rows:

@@ -14,6 +14,7 @@ import torch
 
 from .. import dtypes as dt
 from ..compute import kernels as CK
+from ..runtime.profiler import host_read
 from . import bits as B
 
 
@@ -78,7 +79,9 @@ def segment_ends(starts: torch.Tensor, n_valid) -> torch.Tensor:
     if n == 0:
         return starts.clone()
     nxt = torch.roll(starts, -1)
-    nxt[n - 1] = True
+    # torch copies the Python scalar from pageable host memory and waits
+    with host_read("last_segment_end"):
+        nxt[n - 1] = True
     idx = torch.arange(n, device=starts.device)
     return (idx < n_valid) & (nxt | (idx == n_valid - 1))
 
