@@ -26,6 +26,11 @@ package.  Output order is implementation-defined: compare pair sets.
 Only the logical prefixes of the key columns take part.  Null keys never
 match (dropped from both sides).
 
+The output columns of both sides are then taken by the two index planes in
+one step: the hand-written kernel ``take_columns`` (``compute.kernels``), one
+launch for up to 16 columns, on the card; ``ops.swizzle.gather`` column by
+column, its plain version, on the CPU.
+
 Under a profiler each ``hash_join`` is an ``att.join`` span holding a span
 for each step (``runtime.profiler.span``): ``att.join.plan`` (its
 ``cosort``, ``bounds`` and ``lists``), ``expand`` and ``rank_fill``, or
@@ -46,7 +51,7 @@ import torch
 from .. import dtypes as dt
 from ..array.array import ArrowArrayBase, make_array, pad_len
 from ..errors import OperationNotSupported
-from ..ops.swizzle import take
+from ..ops.kernel import array_av
 from ..runtime.profiler import host_read, span
 from ..table import RecordBatch
 from ..utils import bits as B
@@ -351,15 +356,20 @@ def hash_join(
     with span("att.join"):
         probe_idx, build_idx, _ = join_indices(right[right_on], left[left_on])
         with span("att.join.take"):
-            cols = {}
+            names, picked = [], []
             for name, col in left.columns().items():
                 clash = name in right.column_names and not (name == left_on and name == right_on)
-                cols[name + suffixes[0] if clash else name] = take(col, probe_idx)
+                names.append(name + suffixes[0] if clash else name)
+                picked.append((col, 0))
             for name, col in right.columns().items():
                 if name == right_on and left_on == right_on:
                     continue  # key column already present from the left side
-                out_name = name + suffixes[1] if name in left.column_names else name
-                cols[out_name] = take(col, build_idx)
+                names.append(name + suffixes[1] if name in left.column_names else name)
+                picked.append((col, 1))
+            outs = CK.take_columns([(array_av(c), p) for c, p in picked], (probe_idx.data, build_idx.data),
+                                   probe_idx.length)
+            cols = {name: make_array(o.data, o.validity, o.length, o.dtype, col.device)
+                    for name, (col, _), o in zip(names, picked, outs)}
         return RecordBatch(cols)
 
 

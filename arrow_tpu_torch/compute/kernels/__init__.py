@@ -10,7 +10,10 @@
 - ``segscan``: B2, inclusive segmented scan of one to three planes;
 - ``radix``: B3 and B4, stable LSD radix sort of planes (1-, 2- or 8-bit
   digits);
-- ``merge``: B7, stable pairwise merge of sorted runs, and ``sort_kv`` on it.
+- ``merge``: B7, stable pairwise merge of sorted runs, and ``sort_kv`` on it;
+- ``take``: ``take_columns``, the join's output take: many columns gathered
+  by one or two index planes in one launch (no TPU kernel: XLA's gather
+  there).
 
 Importing the package registers every kernel in ``_build.KERNELS``.  No
 module builds or loads anything at import: ``_build`` compiles the
@@ -18,23 +21,24 @@ library at the first launch on a CUDA tensor.
 
 The operators reach the kernels through :func:`compact_multi`,
 :func:`segmented_scan`, :func:`segmented_scan_multi`, :func:`radix_sort`,
-:func:`merge_pass`, :func:`sort_kv`, :func:`groupby_dense` and
-:func:`groupby_region` here (:func:`compact` and :func:`split_multi` too,
-though no operator calls them), which call the kernel wrappers.  Inside a
-:func:`plain_versions` block they call the plain versions instead, on any
-device: that is the reference path the kernels are held against on the card.
+:func:`merge_pass`, :func:`sort_kv`, :func:`groupby_dense`,
+:func:`groupby_region` and :func:`take_columns` here (:func:`compact` and
+:func:`split_multi` too, though no operator calls them), which call the
+kernel wrappers.  Inside a :func:`plain_versions` block they call the plain
+versions instead, on any device: that is the reference path the kernels are
+held against on the card.
 """
 
 import contextlib
 
-from . import _build, compaction, compaction3, groupby_mxu, merge, radix, segscan  # noqa: F401
+from . import _build, compaction, compaction3, groupby_mxu, merge, radix, segscan, take  # noqa: F401
 from . import groupby_region as region  # the module; groupby_region() below is its entry
 
 __all__ = [
-    "compaction", "compaction3", "groupby_mxu", "merge", "radix", "region", "segscan",
+    "compaction", "compaction3", "groupby_mxu", "merge", "radix", "region", "segscan", "take",
     "compact", "compact_multi", "groupby_dense", "groupby_region", "merge_pass",
     "plain_versions", "radix_sort", "using_plain", "segmented_scan", "segmented_scan_multi", "sort_kv",
-    "split_multi",
+    "split_multi", "take_columns",
 ]
 
 _plain = False
@@ -117,3 +121,10 @@ def groupby_region(keys, vals, nlimb, nclass):
     """Kernel B6 as the operators call it (see ``groupby_region.groupby_region``)."""
     fn = region.groupby_region_plain if _plain else region.groupby_region
     return fn(keys, vals, nlimb, nclass)
+
+
+def take_columns(columns, planes, length):
+    """The join's output take as the operators call it (see
+    ``take.take_columns``)."""
+    fn = take.take_columns_plain if _plain else take.take_columns
+    return fn(columns, planes, length)

@@ -1,8 +1,11 @@
 """Swizzle routines: merge (select by mask), take (gather), put (scatter).
 
 Counterpart of ``arrow_tpu/ops/swizzle.py``, in plain PyTorch (the JAX
-package leaves this tier to XLA's gather and scatter; no hand kernel is owed
-here).
+package leaves this tier to XLA's gather and scatter).  The join's output
+take does not come here on the card: ``compute/join.py`` gathers every
+output column of both sides with the hand-written kernel ``take_columns``
+(``compute.kernels``), whose plain version is :func:`gather` column by
+column.
 
 - ``take(a, indexes)``: out[i] = a[indexes[i]], with the validity bits
   gathered too; bool columns gather their bits and re-pack them.

@@ -28,7 +28,10 @@ Phases, each printing lines that start with its name:
    join's two call shapes), on 8 planes, on views one row in and in a race
    check (ten repeats of the join's expand call at 2^27 rows); the split
    (B8) and the one-plane compaction (B9), which no operator calls, are also
-   timed there at 2^27 rows;
+   timed there at 2^27 rows; take_columns, the join's output take, over
+   column widths, BOOL, validity, lengths and 2-33 columns (one launch a
+   16), then timed at join q5's shapes (2^27-row index planes, 9e7 live,
+   6 u32 and 1 f64 column a side) beside torch.index_select a column;
 4. flagship: the flagship query (compare -> filter -> sort group-by) through
    the public API at 2^20 and 2^27 rows, checked against the same query on
    the plain versions and against a numpy oracle; the kernels' launch counts
@@ -164,10 +167,11 @@ four group-by queries, the distributed phase's P = 1 operators and
 dist_sort_1b, the elementwise phase's pipelined chains and the probe
 tools' runs), its largest error against its plain version, and its
 kernel, plain, library and bound times summed over the calls of those runs
-(B8 and B9: over their timed calls of phase 3; fused_pipeline: simple.py's
-chain at 2^27, fused, replayed eagerly, and as (x + 10.0) * 10.0 on the
-bare buffer; the probe kernels: their calls on the JAX probes' inputs in
-phase 9, device times queued behind a spin), and last the line
+(B8, B9 and take_columns: over their timed calls of phase 3;
+fused_pipeline: simple.py's chain at 2^27, fused, replayed eagerly, and as
+(x + 10.0) * 10.0 on the bare buffer; the probe kernels: their calls on the
+JAX probes' inputs in phase 9, device times queued behind a spin), and last
+the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero without that line; so does a machine
 without CUDA.
@@ -223,6 +227,15 @@ B6_CLASSES = (1, 2, 256, 1024)
 B6_ORDERS = ("skew", "unsorted", "grouped")
 B8_FORMS = ("0", "0.01", "0.5", "0.99", "1", "first", "last", "alternate", "block", "bit0", "bit31")
 TIMED_N = 1 << 27  # where B8 and B9 are timed
+# take_columns (the join's take): (capacity, length) of its index planes, the
+# column kinds (torch dtype names, "bool": packed bits), and the shapes of
+# join q5 (h2o db-benchmark J1_1e8: 9e7 of 2^27 emit rows live, sources of
+# 1e8 rows, 6 u32 and 1 f64 column a side) where it is timed
+TAKE_SHAPES = ((0, 0), (64, 0), (64, 64), (130, 37), (257, 255), (8193, 8191), ((1 << 20) + 4, 1_000_003))
+TAKE_KINDS = ("int8", "int16", "int32", "float32", "int64", "float64", "bool")
+TAKE_Q5_CAP, TAKE_Q5_LIVE, TAKE_Q5_ROWS = 1 << 27, 90_000_000, 100_000_000
+TAKE_Q5_SIDE = ("int32",) * 6 + ("float64",)
+SECTOR_BYTES = 32  # what the card fetches for one random element
 SORT_JOIN_N = 1 << 27
 GROUPBY_N = 1 << 27
 # kernels that the group-by query's auto route must launch, by key distribution
@@ -254,7 +267,8 @@ PROFILE_GAPS = 4  # the longest device-idle gaps of a profiled query, printed
 # the device functions of the hand-written kernels (arrow_tpu_torch/csrc)
 OWN_DEVICE_FUNCTIONS = ("compact_pass", "seg_lookback",
                         "radix_histogram", "radix_scan_histogram", "radix_onesweep", "radix_or_and",
-                        "merge_partition", "merge_tiles", "dense_histogram", "region_histogram")
+                        "merge_partition", "merge_tiles", "dense_histogram", "region_histogram",
+                        "take_columns_kernel")
 
 # device ops that profile_query sums apart: buffers filled with a constant
 # (zeros), and copies (memcpy, torch's copy and concatenation kernels, NCCL)
@@ -1158,9 +1172,108 @@ def check_b9(device, gen, smi):
     return worst, timed
 
 
+def _take_source(kind, n, nulls, gen, device):
+    """An AV of exactly `n` buffer rows (BOOL: whole words) on the card,
+    with validity words of about half the rows when `nulls`."""
+    import torch
+
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.ops.kernel import AV
+    from arrow_tpu_torch.utils import bits as B
+
+    def words(rows):
+        w = torch.randint(-(2**31), 2**31, (B.num_words(rows),), generator=gen, device=device).to(torch.int32)
+        return B.mask_tail(w, rows)
+
+    valid = words(n) if nulls else None
+    if kind == "bool":
+        return AV(words(n), valid, n, dt.ArrowType.BOOL)
+    if kind.startswith("float"):
+        data = torch.randn(n, generator=gen, device=device, dtype=getattr(torch, kind))
+    else:
+        data = torch.randint(-(2**62), 2**62, (n,), generator=gen, device=device).to(getattr(torch, kind))
+    return AV(data, valid, n, dt.from_torch_dtype(data.dtype))
+
+
+def _take_plane(cap, length, rows, gen, device):
+    """An int32 index plane of `cap` rows: u32 row ids in [0, rows) for the
+    first `length` rows, zeros after them."""
+    import torch
+
+    ids = torch.randint(0, rows, (cap,), generator=gen, device=device, dtype=torch.int64)
+    ids[length:] = 0
+    return ids.to(torch.int32)
+
+
+def check_take_columns(device, gen, smi):
+    """take_columns over the column kinds, with and without validity, at the
+    planes' (capacity, length) pairs, with indices past the sources (clamped)
+    and 2 to 33 columns (one launch a 16); then timed at join q5's shapes
+    beside its bound, its plain version and torch.index_select a column.
+    Returns (max abs err, the timed call's Measured)."""
+    import torch
+
+    from arrow_tpu_torch.compute.kernels import take as TT
+
+    worst, cases, failures = 0.0, 0, []
+    for cap, length in TAKE_SHAPES:
+        for ncols in (2, 7, 16, 17, 33):
+            cases += 1
+            cols = [_take_source(TAKE_KINDS[i % len(TAKE_KINDS)], 45 + 5000 * (i % 3), (i + ncols) % 2 == 1,
+                                 gen, device) for i in range(ncols)]
+            planes = [_take_plane(cap, length, 5100, gen, device), _take_plane(cap, length, 60, gen, device)]
+            planes[1][: length // 7] = -1  # 2^32 - 1: past every source
+            columns = [(c, i % 2) for i, c in enumerate(cols)]
+            before = TT.KERNEL.launches
+            got = TT.take_columns(columns, planes, length)
+            torch.cuda.synchronize()
+            want = TT.take_columns_plain(columns, planes, length)
+            launched = TT.KERNEL.launches - before
+            flat = [t for o in got for t in (o.data, o.validity) if t is not None]
+            ok, err = _exact(flat, [t for o in want for t in (o.data, o.validity) if t is not None])
+            ok &= launched == (-(-ncols // TT.MAX_COLUMNS) if cap else 0)
+            worst = max(worst, err)
+            if not ok:
+                failures.append(f"cap={cap} length={length} columns={ncols} launches={launched}")
+            del cols, planes, got, want, flat
+    print(f"kernels: take_columns vs plain: {cases} cases ((capacity, length) in {list(TAKE_SHAPES)}, 2-33 "
+          f"columns of {list(TAKE_KINDS)}, half with validity, indices past the sources), exact incl. the zero "
+          f"tails; max abs err {worst}; failures {failures}")
+    require(not failures, "take_columns disagrees with its plain version")
+    torch.cuda.empty_cache()
+
+    cap, live, rows = TAKE_Q5_CAP, TAKE_Q5_LIVE, TAKE_Q5_ROWS
+    sides = [[_take_source(k, rows, False, gen, device) for k in TAKE_Q5_SIDE] for _ in range(2)]
+    planes = [_take_plane(cap, live, rows, gen, device) for _ in range(2)]
+    columns = [(c, side) for side in range(2) for c in sides[side]]
+    got = TT.take_columns(columns, planes, live)
+    want = TT.take_columns_plain(columns, planes, live)
+    torch.cuda.synchronize()
+    ok, err = _exact([o.data for o in got], [o.data for o in want])
+    require(ok, "take_columns at join q5's shapes disagrees with its plain version")
+    del got, want
+    ms, plain_ms = interleaved_ms(lambda: TT.take_columns(columns, planes, live),
+                                  lambda: TT.take_columns_plain(columns, planes, live))
+    wide = [p[:live].to(torch.int64) for p in planes]
+    library_ms = cuda_ms(lambda: [torch.index_select(c.data, 0, wide[side]) for c, side in columns])
+    del wide
+    width = sum(c.data.element_size() for c, _ in columns)
+    least = 2 * 4 * live + live * width + cap * width  # planes and sources read once, outputs written once
+    sectors = 2 * 4 * live + live * SECTOR_BYTES * len(columns) + cap * width
+    timed = Measured(err, ms, plain_ms, library_ms, least / HBM_BYTES_PER_S * 1e3)
+    print(f"kernels: take_columns at join q5's shapes ({len(columns)} columns, {list(TAKE_Q5_SIDE)} a side, "
+          f"sources of {rows} rows, index planes of {cap} rows, {live} live; random ids): {timed.line()}; "
+          f"library = torch.index_select a column on the live rows' int64 ids; the floor with a "
+          f"{SECTOR_BYTES}-byte sector a random read {sectors / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+          f"{least / ms / 1e6:.1f} GB/s of least bytes, {sectors / ms / 1e6:.1f} GB/s with sectors ({smi})")
+    del sides, planes, columns
+    torch.cuda.empty_cache()
+    return err, timed
+
+
 def phase_kernels(smi):
     """Every kernel against its plain version.  Returns (max abs error by
-    kernel, timed calls of B8 and B9 by kernel)."""
+    kernel, timed calls of B8, B9 and take_columns by kernel)."""
     import torch
 
     device = torch.device("cuda")
@@ -1178,6 +1291,7 @@ def phase_kernels(smi):
     timed = {}
     errs["split_multi"], timed["split_multi"] = check_b8(device, gen, smi)
     errs["compact"], timed["compact"] = check_b9(device, gen, smi)
+    errs["take_columns"], timed["take_columns"] = check_take_columns(device, gen, smi)
     return errs, timed
 
 
@@ -2943,8 +3057,9 @@ def main() -> int:
 
     from arrow_tpu_torch.compute.kernels import _build
 
-    # each kernel's numbers from the runs that launch it: B8 and B9 from their
-    # timed calls of phase 3, the rest from the main paths' replayed calls
+    # each kernel's numbers from the runs that launch it: B8, B9 and
+    # take_columns from their timed calls of phase 3, the rest from the main
+    # paths' replayed calls
     for name, m in (*sort_join_measured.items(), *groupby_measured.items(), *ew_measured.items(),
                     *probe_measured.items()):
         measured[name] = measured[name] + m if name in measured else m

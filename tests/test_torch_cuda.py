@@ -9,6 +9,7 @@ so that it runs where JAX is not installed:
 """
 
 import collections
+import contextlib
 import functools
 import importlib
 import json
@@ -35,14 +36,16 @@ from arrow_tpu_torch.compute.kernels import merge as M
 from arrow_tpu_torch.compute.kernels import plain_versions
 from arrow_tpu_torch.compute.kernels import radix as R
 from arrow_tpu_torch.compute.kernels import segscan as S
+from arrow_tpu_torch.compute.kernels import take as TT
 from arrow_tpu_torch.compute.kernels.groupby_region import KERNEL as REGION_KERNEL
 from arrow_tpu_torch.compute.kernels.groupby_region import groupby_region, groupby_region_plain
+from arrow_tpu_torch.ops.kernel import AV
 from arrow_tpu_torch.tools import mosaic_probe as MP
 from arrow_tpu_torch.tools import probe_designs as PD
 from arrow_tpu_torch.tools import probe_r4 as PR
 from arrow_tpu_torch.utils import bits as TB
 from arrow_tpu_torch.utils import scans as TS
-from torch_helpers import MERGE_PATTERNS, merge_edge_planes
+from torch_helpers import MERGE_PATTERNS, TAKE_KINDS, TAKE_SHAPES, TAKE_SRC_ROWS, exact_column, index_plane, merge_edge_planes
 
 TSORT = importlib.import_module("arrow_tpu_torch.compute.sort")  # the module, not compute.sort()
 
@@ -764,6 +767,131 @@ def test_take_on_cuda_matches_cpu(cuda):
     idx = att.UInt32Array.from_slice(rng.integers(0, 5000, 7001).astype(np.uint32), device="cpu")
     for c in (col, flags):
         _same(TK.take(c, idx), TK.take(_to(c, cuda), _to(idx, cuda)))
+
+
+# ------------------------------------------- take_columns, the join's take
+
+
+def _take_same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.data.is_cuda and g.dtype is w.dtype and g.length == w.length
+        assert g.data.dtype == w.data.dtype and torch.equal(g.data.view(torch.uint8), w.data.view(torch.uint8))
+        assert (g.validity is None) == (w.validity is None)
+        assert g.validity is None or torch.equal(g.validity, w.validity)
+
+
+def _take_launch(columns, planes, length):
+    """The kernel's outputs and its plain version's, both on the card; the
+    launches it counted."""
+    before = TT.KERNEL.launches
+    got = TT.take_columns(columns, planes, length)
+    torch.cuda.synchronize()
+    launched = TT.KERNEL.launches - before
+    return got, TT.take_columns_plain(columns, planes, length), launched
+
+
+def _on(arr, device):
+    return AV(arr.data.to(device), None if arr.validity is None else arr.validity.to(device), arr.length,
+                 arr.dtype)
+
+
+@pytest.mark.parametrize("shape", [*TAKE_SHAPES, ((1 << 20) + 4, 1_000_003)], ids=lambda s: f"cap{s[0]}-len{s[1]}")
+@pytest.mark.parametrize("nulls", [False, True], ids=["no_validity", "validity"])
+@pytest.mark.parametrize("kind", TAKE_KINDS)
+def test_take_columns_kernel_matches_plain(cuda, kind, nulls, shape):
+    """Bit for bit, zeros past the length, indices past the source clamped."""
+    cap, length = shape
+    rng = np.random.default_rng([TAKE_KINDS.index(kind), nulls, cap, length])
+    cols = [_on(exact_column(rng, kind, n, nulls), cuda) for n in (TAKE_SRC_ROWS, 70_001)]
+    planes = [index_plane(rng, cap, length, n).data.to(cuda) for n in (TAKE_SRC_ROWS, 70_001)]
+    got, want, launched = _take_launch([(cols[0], 0), (cols[1], 1), (cols[0], 1)], planes, length)
+    _take_same(got, want)
+    assert launched == (1 if cap else 0)
+
+
+@pytest.mark.parametrize("ncols", [16, 17, 22, 33])
+def test_take_columns_kernel_many_columns(cuda, ncols):
+    """Every width, BOOL and validity mixed, both planes, one launch a 16
+    columns; views one row into their buffers, an index plane too."""
+    rng = np.random.default_rng(ncols)
+    kinds = (TAKE_KINDS * 4)[:ncols]
+    cols = [_on(exact_column(rng, kind, 5000 + i, i % 3 == 0), cuda) for i, kind in enumerate(kinds)]
+    cols = [c if i % 4 or c.dtype is att.ArrowType.BOOL else c._replace(data=c.data[1:]) for i, c in enumerate(cols)]
+    planes = [index_plane(rng, 8193, 8191, 5000).data.to(cuda), index_plane(rng, 8194, 8192, 5000).data.to(cuda)[1:]]
+    columns = [(c, i % 2) for i, c in enumerate(cols)]
+    got, want, launched = _take_launch(columns, planes, 8191)
+    _take_same(got, want)
+    assert launched == -(-ncols // TT.MAX_COLUMNS)
+
+
+def _wide_batches(cuda, n_probe, n_build, extra):
+    """A probe and a build batch on the card, keyed by "k", with columns of
+    every width, BOOL and validity on both sides (``extra`` more a side)."""
+    rng = np.random.default_rng(41)
+    kinds = TAKE_KINDS[: 6 + extra]
+
+    def batch(n, domain):
+        cols = {"k": att.UInt32Array.from_slice(rng.integers(0, domain, n).astype(np.uint32), device=cuda)}
+        for i, kind in enumerate(kinds):
+            cols[f"c{i}"] = _to(exact_column(rng, kind, n, i % 2 == 1), cuda)
+        return att.RecordBatch(cols)
+
+    return batch(n_probe, 3000), batch(n_build, 3000)
+
+
+@pytest.mark.parametrize("extra", [0, 4])
+def test_hash_join_takes_with_take_columns(cuda, extra):
+    """hash_join on the card gathers its output columns with take_columns,
+    one launch a 16 columns, equal bit for bit to its plain path's."""
+    left, right = _wide_batches(cuda, 20_000, 5_000, extra)
+    ncols = len(left.column_names) + len(right.column_names) - 1
+    before = TT.KERNEL.launches
+    got = TC.hash_join(left, right, "k", "k")
+    torch.cuda.synchronize()
+    assert TT.KERNEL.launches - before == -(-ncols // TT.MAX_COLUMNS)
+    with plain_versions():
+        want = TC.hash_join(left, right, "k", "k")
+    assert TT.KERNEL.launches - before == -(-ncols // TT.MAX_COLUMNS)
+    assert got.column_names == want.column_names and len(got.column_names) == ncols
+    _take_same([got[n] for n in got.column_names], [want[n] for n in want.column_names])
+
+
+def test_join_take_runs_no_per_column_gather(cuda, monkeypatch):
+    """Inside att.join.take on the card: no index gather, no arange, where,
+    compare, clamp or widening copy; only the kernel's outputs allocated.
+    The ops are read by a dispatch mode, not a profiler: a CPU-only profile
+    here left the file's later CUDA traces without device records in a
+    whole-file run on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    left, right = _wide_batches(cuda, 20_000, 5_000, 4)
+    inside, ops = [False], []
+    real_span = TJ.span
+
+    @contextlib.contextmanager
+    def spy(name):
+        was = inside[0]
+        inside[0] = was or name == "att.join.take"
+        try:
+            with real_span(name):
+                yield
+        finally:
+            inside[0] = was
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if inside[0]:
+                ops.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setattr(TJ, "span", spy)
+    before = TT.KERNEL.launches
+    with Ops():
+        TC.hash_join(left, right, "k", "k")
+    torch.cuda.synchronize()
+    assert TT.KERNEL.launches - before == 2  # 21 output columns
+    assert ops and set(ops) <= {"aten.empty"}, sorted(set(ops))
 
 
 def test_sort_join_query_on_cuda(cuda):

@@ -2,7 +2,8 @@
 compared as pair sets (output order is implementation-defined): both emits
 of each package through ARROW_TPU_JOIN_EMIT, duplicate keys on both sides,
 null keys, empty sides, u64 keys that narrow to one u32 plane and u64 keys
-that do not, i64 negatives, the co-sort on the radix route; and the
+that do not, i64 negatives, the co-sort on the radix route; hash_join's
+one take of every output column against ``ops.take`` of each; and the
 ``merge_len`` group-by under ARROW_TPU_FORCE_MERGE=1 against the JAX
 package's.  Exact."""
 
@@ -11,11 +12,14 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import arrow_tpu as at
 from arrow_tpu import compute as JC
 from arrow_tpu.table import RecordBatch as JBatch
+import arrow_tpu_torch as att
 from arrow_tpu_torch import compute as TC
+from arrow_tpu_torch import kernels as TK
 from arrow_tpu_torch.compute import join as TJ
 from arrow_tpu_torch.compute import kernels as TCK
 from arrow_tpu_torch.compute.kernels import merge as TM
@@ -168,6 +172,53 @@ def test_hash_join_matches_jax(emit, monkeypatch):
     got = TC.hash_join(batch_to_torch(left), batch_to_torch(right), "k", "key")
     assert got.column_names == want.column_names == ["k", "v", "x_l", "key", "x_r"]
     assert _rows(got) == _rows(want)
+
+
+def _payload(rng, name, n, null_p):
+    """A CPU column of `n` rows of type `name` with a `null_p` share of nulls."""
+    if name == "bool":
+        vals = (rng.random(n) < 0.5).tolist()
+        return (att.BooleanArray.from_optional_slice([v if ok else None for v, ok in zip(vals, rng.random(n) >= null_p)],
+                                                       device="cpu") if null_p
+                else att.BooleanArray.from_slice(vals, device="cpu"))
+    vals = rng.integers(-100, 100, n).astype(name) if name[0] in "iu" else rng.standard_normal(n).astype(name)
+    t = att.ArrowType(name)
+    if not null_p:
+        return att.PrimitiveArray.from_slice(vals, dtype=t, device="cpu")
+    valid = rng.random(n) >= null_p
+    return att.PrimitiveArray.from_optional_slice([v if ok else None for v, ok in zip(vals.tolist(), valid)],
+                                                    dtype=t, device="cpu")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("emit", ["legacy", "merge"])
+def test_hash_join_take_equals_a_take_per_column(case, emit, monkeypatch):
+    """hash_join's one take of every output column gives the batch that
+    join_indices and ``ops.take`` of each column give, bit for bit: every
+    element width, BOOL, validity or none, both sides, both emits."""
+    monkeypatch.setenv("ARROW_TPU_JOIN_EMIT", emit)
+    build, probe = (jax_to_torch(k) for k in _case(case))
+    rng = np.random.default_rng(len(case) + 11)
+    left = att.RecordBatch({
+        "k": probe, "v": _payload(rng, "float64", NP, 0.2), "b": _payload(rng, "bool", NP, 0.0),
+        "s": _payload(rng, "int16", NP, 0.1), "x": _payload(rng, "uint8", NP, 0.0),
+    })
+    right = att.RecordBatch({
+        "k": build, "w": _payload(rng, "float32", NB, 0.3), "b": _payload(rng, "bool", NB, 0.2),
+        "x": _payload(rng, "int64", NB, 0.0),
+    })
+    got = TC.hash_join(left, right, "k", "k")
+    pi, bi, total = TC.join_indices(build, probe)
+    want = {"k": TK.take(probe, pi), "v": TK.take(left["v"], pi), "b_l": TK.take(left["b"], pi),
+            "s": TK.take(left["s"], pi), "x_l": TK.take(left["x"], pi), "w": TK.take(right["w"], bi),
+            "b_r": TK.take(right["b"], bi), "x_r": TK.take(right["x"], bi)}
+    assert got.column_names == list(want)
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype is w.dtype and g.length == w.length == total, name
+        assert g.data.dtype == w.data.dtype and torch.equal(g.data.view(torch.uint8), w.data.view(torch.uint8)), name
+        assert (g.validity is None) == (w.validity is None), name
+        assert g.validity is None or torch.equal(g.validity, w.validity), name
 
 
 @pytest.mark.parametrize("vname", ["float32", "uint16"])

@@ -40,7 +40,6 @@ def _join(probe, build):
     )
 
 
-TAKES = ["    att.op.take", "    att.op.take"]
 SORT_TAIL = [
     "    att.groupby.gather",
     "    att.groupby.scan",
@@ -82,12 +81,12 @@ CASES = {
                "      att.sync.radix_significant_bits", *SORT_TAIL]),
     "join_legacy": ({}, _join("k100", "b32"),
                     ["att.join", "  att.join.legacy_emit", "    att.sync.first_key_start", "    att.sync.last_key_end",
-                     "    att.sync.join_total", "  att.join.take", *TAKES]),
+                     "    att.sync.join_total", "  att.join.take"]),
     "join_merge": ({"ARROW_TPU_JOIN_EMIT": "merge"}, _join("k100", "b32"),
-                   ["att.join", *PLAN, "  att.join.expand", "  att.join.rank_fill", "  att.join.take", *TAKES]),
+                   ["att.join", *PLAN, "  att.join.expand", "  att.join.rank_fill", "  att.join.take"]),
     "join_merge_narrowed": ({"ARROW_TPU_JOIN_EMIT": "merge"}, _join("i64", "b64"),
                             ["att.join", "  att.join.plan", "    att.sync.narrow_check", *PLAN[1:],
-                             "  att.join.expand", "  att.join.rank_fill", "  att.join.take", *TAKES]),
+                             "  att.join.expand", "  att.join.rank_fill", "  att.join.take"]),
 }
 
 

@@ -7,9 +7,12 @@ operators promise."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 import arrow_tpu_torch as att
 from arrow_tpu_torch import io as tio
+from arrow_tpu_torch.array.array import make_array
+from arrow_tpu_torch.utils import bits as TB
 
 
 # selections that stress a tiled compaction's edges (see edge_pattern)
@@ -71,6 +74,40 @@ def merge_edge_planes(name, n, run_len, unique, seed=0):
     if not unique:
         planes.append(rng.integers(-(2**31), 2**31, n).astype(np.int32))
     return planes
+
+
+# the join's take (compute.kernels.take_columns): every element width and
+# BOOL, and (capacity, length) pairs of its index planes: empty, nothing
+# live, all live, lengths of no multiple of 4 or 32
+TAKE_KINDS = ["int8", "uint8", "int16", "uint16", "int32", "uint32", "float32", "int64", "uint64", "float64", "bool"]
+TAKE_SHAPES = [(0, 0), (64, 0), (64, 64), (130, 37), (257, 255), (1024, 1000)]
+TAKE_SRC_ROWS = 45  # a source buffer of exactly this many rows (no padding), so that a clamp reads a real row
+
+
+def exact_column(rng, kind, n, nulls):
+    """A CPU column of exactly `n` buffer rows (BOOL: whole words), with a
+    validity bitmap of a 30% null share when `nulls`."""
+    A = att.ArrowType
+    valid = rng.random(n) >= 0.3
+    validity = torch.from_numpy(TB.pack_bits_np(valid).view(np.int32).copy()) if nulls else None
+    if kind == "bool":
+        words = torch.from_numpy(TB.pack_bits_np(rng.random(n) < 0.5).view(np.int32).copy())
+        return make_array(words, validity, n, A.BOOL)
+    t = A(kind)
+    info = np.iinfo(kind) if kind[0] in "iu" else None
+    host = (rng.integers(info.min, info.max, n, endpoint=True, dtype=kind) if info is not None
+            else rng.standard_normal(n).astype(kind))
+    return make_array(torch.from_numpy(att.dtypes.to_storage_np(host, t).copy()), validity, n, t)
+
+
+def index_plane(rng, cap, length, src_rows):
+    """A CPU UInt32Array of `cap` buffer rows and `length` rows: row ids in
+    [0, src_rows + 8) with some at 2^32 - 1 (past every source), zeros past
+    the length."""
+    ids = rng.integers(0, src_rows + 8, cap).astype(np.uint32)
+    ids[rng.random(cap) < 0.05] = np.uint32(2**32 - 1)
+    ids[length:] = 0
+    return make_array(torch.from_numpy(ids.view(np.int32).copy()), None, length, att.ArrowType.UINT32)
 
 
 # the elementwise tier's differential tests share one input length, so that
