@@ -8,6 +8,13 @@ and its validity plane, shares one launch per group of at most
 ``MAX_PLANES`` planes.  ``method="sort"`` keeps the JAX package's
 stable-partition route.  Outputs keep the input's capacity, with zeros past
 the logical length (the host-synced count).
+
+Under a profiler each :func:`filter` call is an ``att.filter`` span
+(``runtime.profiler.span``), and each host wait an ``att.sync.<cause>``
+span: ``filter_count``, the selected-row count read to the host, which sets
+the outputs' logical length (B1's count in :func:`filter` and
+:func:`filter_indices`, the selection's sum on the sort route, the mask's
+popcount in :func:`filter_count`).
 """
 
 from __future__ import annotations
@@ -20,10 +27,12 @@ from .. import dtypes as dt
 from ..array.array import ArrowArrayBase, make_array, pad_len
 from ..array.boolean import BooleanArray
 from ..errors import OperationNotSupported
+from ..runtime.profiler import host_read, span
 from ..table import RecordBatch
 from ..utils import bits as B
 from ..utils.scans import stable_partition
-from .kernels import compact_multi, compaction3
+from . import kernels as CK
+from .kernels import compaction3
 
 
 def _select_words(mask: BooleanArray) -> torch.Tensor:
@@ -49,13 +58,14 @@ def _filter_compact(cols, mask: BooleanArray) -> Tuple[list, int]:
     count = None
     for g in range(0, len(planes), compaction3.MAX_PLANES):
         group = planes[g : g + compaction3.MAX_PLANES]
-        vouts, wouts, count = compact_multi(
+        vouts, wouts, count = CK.compact_multi(
             [t for _, _, t, w in group if not w], [t for _, _, t, w in group if w], select, cap
         )
         vit, wit = iter(vouts), iter(wouts)
         for ci, is_valid, _, is_word in group:
             out[ci, is_valid] = B.pack_bits(next(wit) != 0) if is_word else next(vit)
-    k = int(count)
+    with host_read("filter_count"):
+        k = int(count)
     results = []
     for ci, c in enumerate(cols):
         d = out[ci, False]
@@ -69,7 +79,8 @@ def _filter_sort(cols, mask: BooleanArray) -> Tuple[list, int]:
     """Stable-partition route: one stable sort on the 0/1 selection key."""
     cap = pad_len(mask.length)
     sel = B.unpack_bits(_select_words(mask)[: cap // B.WORD_BITS], cap)
-    k = int(sel.sum())
+    with host_read("filter_count"):
+        k = int(sel.sum())
     operands, slots = [], []
     for c in cols:
         is_bool = c.dtype is dt.ArrowType.BOOL
@@ -108,11 +119,12 @@ def filter(
     cols: List[ArrowArrayBase] = (
         list(data.columns().values()) if isinstance(data, RecordBatch) else [data]
     )
-    if method == "sort":
-        results, k = _filter_sort(cols, mask)
-    else:
-        results, k = _filter_compact(cols, mask)
-    out = [make_array(d, v, k, c.dtype, c.device) for c, (d, v) in zip(cols, results)]
+    with span("att.filter"):
+        if method == "sort":
+            results, k = _filter_sort(cols, mask)
+        else:
+            results, k = _filter_compact(cols, mask)
+        out = [make_array(d, v, k, c.dtype, c.device) for c, (d, v) in zip(cols, results)]
     if isinstance(data, RecordBatch):
         return RecordBatch(dict(zip(data.columns().keys(), out)))
     return out[0]
@@ -120,15 +132,17 @@ def filter(
 
 def filter_count(mask: BooleanArray) -> int:
     """Number of rows a filter would select."""
-    return int(B.popcount_words(_select_words(mask)))
+    with host_read("filter_count"):
+        return int(B.popcount_words(_select_words(mask)))
 
 
 def filter_indices(mask: BooleanArray) -> Tuple[ArrowArrayBase, int]:
     """Selected row indices (UInt32Array) + count; null mask rows excluded."""
     cap = pad_len(mask.length)
     rows = torch.arange(cap, dtype=torch.int32, device=mask.data.device)
-    (out,), _, count = compact_multi(
+    (out,), _, count = CK.compact_multi(
         [rows], [], _select_words(mask)[: cap // B.WORD_BITS], cap
     )
-    k = int(count)
+    with host_read("filter_count"):
+        k = int(count)
     return make_array(out, None, k, dt.ArrowType.UINT32, mask.device), k

@@ -4,13 +4,16 @@ Counterpart of ``arrow_tpu/compute/hash_aggregate.py``.  Four routes, tried
 in this order under ``method="auto"``, as in the JAX package:
 
 - **mxu**: keys in [0, 4096), sum/count/mean of non-negative integer
-  columns of at most 32 bits, no nulls.  One dense-table kernel launch per
-  value column (kernel B5, ``kernels/groupby_mxu.py``); the groups are the
-  occupied slots.
-- **partition**: the same columns over keys in [0, 2^22) with a key of at
-  least 4096.  The rows are grouped by class (``key >> 12``) by a radix
-  sort over the class bits (kernel B3), then one region-table launch per
-  value column (kernel B6, ``kernels/groupby_region.py``).
+  columns of at most 64 bits, no nulls, each column's logical rows x its
+  largest value below 2^63 (so its sums are exact in int64).  One
+  dense-table kernel launch per value column (kernel B5,
+  ``kernels/groupby_mxu.py``; a 64-bit column stays 64-bit); the groups are
+  the occupied slots.
+- **partition**: the mxu route's columns of at most 32 bits, over keys in
+  [0, 2^22) with a key of at least 4096.  The rows are grouped by class
+  (``key >> 12``) by a radix sort over the class bits (kernel B3), then one
+  region-table launch per value column (kernel B6,
+  ``kernels/groupby_region.py``).
 - **radix**: no nulls, a full buffer, 32-bit keys and values, on CUDA
   tensors (``ARROW_TPU_FORCE_RADIX_AGG=1``: any device).  A radix sort over
   the keys' significant bits (B3) carrying the value planes replaces the
@@ -244,12 +247,13 @@ def _value_columns(aggregations) -> list:
     return cols
 
 
-def _dense_eligible(keys: ArrowArrayBase, aggregations) -> bool:
-    """Whether the mxu and partition routes may take the query (the ranges
-    are checked later): integer keys without nulls; sum, count and mean of
-    integer columns of at most 32 bits without nulls.  The JAX package's
-    ``_mxu_path_eligible`` also asks for a multiple of 8192 rows, its pad
-    unit; the port's kernels take any length."""
+def _dense_eligible(keys: ArrowArrayBase, aggregations, value_bytes: int) -> bool:
+    """Whether a dense route may take the query (the ranges are checked
+    later): integer keys without nulls; sum, count and mean of integer
+    columns of at most `value_bytes` bytes (the mxu route 8, the partition
+    route 4) without nulls.  The JAX package's ``_mxu_path_eligible`` also
+    asks for a multiple of 8192 rows, its pad unit, and 32-bit values; the
+    port's kernels take any length."""
     if keys.validity is not None or not dt.is_integer(keys.dtype):
         return False
     for _name, col, kind in aggregations:
@@ -258,7 +262,7 @@ def _dense_eligible(keys: ArrowArrayBase, aggregations) -> bool:
         if col is not None and (
             col.validity is not None
             or not dt.is_integer(col.dtype)
-            or dt.item_size(col.dtype) > 4
+            or dt.item_size(col.dtype) > value_bytes
             or len(col) != len(keys)
         ):
             return False
@@ -292,18 +296,25 @@ def _range_check(keys: ArrowArrayBase, cols) -> Tuple[int, int, List[int], List[
     return kmin, kmax, [hi for _lo, hi in vals], [lo for lo, _hi in vals]
 
 
-def _value_limits(cols, key_domain, value_bits, ranges, fits):
+def _value_limits(cols, key_domain, value_bits, ranges, fits, rows):
     """(largest key, value maxima) when the keys are non-negative, the
-    largest one `fits` the route and the values are non-negative; else None.
-    key_domain=(lo, hi) is the caller's guarantee of keys in [lo, hi) and
-    non-negative values below 2^value_bits (default 32)."""
+    largest one `fits` the route, the values are non-negative and `rows`
+    times each column's largest value is below 2^63 (its sums exact in
+    int64); else None.  key_domain=(lo, hi) is the caller's guarantee of
+    keys in [lo, hi) and non-negative values below 2^value_bits (default:
+    the column's own width, at least 32, so a 64-bit column without
+    value_bits declines)."""
     if key_domain is not None:
         lo, hi = key_domain
-        if lo < 0 or not fits(hi - 1):
+        kmax = hi - 1
+        vmaxes = [(1 << (value_bits or max(32, 8 * dt.item_size(c.dtype)))) - 1 for c in cols]
+        if lo < 0 or not fits(kmax):
             return None
-        return hi - 1, [(1 << (value_bits or 32)) - 1] * len(cols)
-    kmin, kmax, vmaxes, vmins = ranges()
-    if kmin < 0 or not fits(kmax) or any(v < 0 for v in vmins):
+    else:
+        kmin, kmax, vmaxes, vmins = ranges()
+        if kmin < 0 or not fits(kmax) or any(v < 0 for v in vmins):
+            return None
+    if any(rows * v >= 1 << 63 for v in vmaxes):
         return None
     return kmax, vmaxes
 
@@ -313,6 +324,13 @@ def _int32_plane(arr: ArrowArrayBase, n: int) -> torch.Tensor:
     kernels take (32-bit storage as it is; other widths through int64)."""
     data = arr.data[:n]
     return data if data.dtype == torch.int32 else dt.widen(data, arr.dtype).to(torch.int32)
+
+
+def _value_plane(arr: ArrowArrayBase, n: int) -> torch.Tensor:
+    """The first n rows of a value column as B5 takes them: 64-bit storage as
+    it is, the rest as :func:`_int32_plane`."""
+    data = arr.data[:n]
+    return data if data.element_size() == 8 else _int32_plane(arr, n)
 
 
 def _nlimb(vmax: int) -> int:
@@ -352,15 +370,15 @@ def _hash_aggregate_mxu(keys, aggregations, key_domain, value_bits, ranges):
     """Keys in [0, 4096): one B5 launch per value column.  None when the
     ranges disqualify the route."""
     cols = _value_columns(aggregations)
-    limits = _value_limits(cols, key_domain, value_bits, ranges, lambda k: k < SLOTS)
+    n = keys.length
+    limits = _value_limits(cols, key_domain, value_bits, ranges, lambda k: k < SLOTS, n)
     if limits is None:
         return None
-    n = keys.length
     with span("att.groupby.dense_kernel"):
         kp = _int32_plane(keys, n)
         count, sums = None, {}
         for col, vmax in zip(cols, limits[1]):
-            c, sums[id(col)] = CK.groupby_dense(kp, _int32_plane(col, n), _nlimb(vmax), n)
+            c, sums[id(col)] = CK.groupby_dense(kp, _value_plane(col, n), _nlimb(vmax), n)
             count = c if count is None else count
         if count is None:  # count(*) alone: any value plane will do
             count, _ = CK.groupby_dense(kp, kp, 1, n)
@@ -379,8 +397,9 @@ def _hash_aggregate_partition(keys, aggregations, key_domain, value_bits, ranges
     cols = _value_columns(aggregations)
     if 1 + len(cols) > RADIX_MAX_PLANES:
         return None
+    n = keys.length
     limits = _value_limits(
-        cols, key_domain, value_bits, ranges, lambda k: SLOTS <= k < 1 << PARTITION_MAX_BITS
+        cols, key_domain, value_bits, ranges, lambda k: SLOTS <= k < 1 << PARTITION_MAX_BITS, n
     )
     if limits is None:
         return None
@@ -388,7 +407,6 @@ def _hash_aggregate_partition(keys, aggregations, key_domain, value_bits, ranges
     dom_bits = max(kmax, 1).bit_length()
     nclass = (1 << dom_bits) // SLOTS
     class_bit = SLOTS.bit_length() - 1
-    n = keys.length
     with span("att.groupby.class_sort"):
         planes = [_int32_plane(c, n) for c in (keys, *cols)]
         skey, *svals = (p[:n] for p in CK.radix_sort(planes, range(class_bit, dom_bits), n))
@@ -492,17 +510,16 @@ def hash_aggregate(
 
     key_domain=(lo, hi): the caller's guarantee that the keys lie in
     [lo, hi) and the values are non-negative below 2^value_bits (default
-    32); the mxu and partition routes then skip their range check and its
-    host read.
+    each column's width, at least 32); the mxu and partition routes then
+    skip their range check and its host read.
     """
     if not dt.is_integer(keys.dtype):
         raise OperationNotSupported(f"group-by key dtype {keys.dtype.value} unsupported")
     if method not in ("auto", "sort", "mxu", "partition", "radix"):
         raise OperationNotSupported(f"unknown hash_aggregate method {method!r}")
     with span("att.groupby"):
-        dense_ok = method in ("auto", "mxu", "partition") and _dense_eligible(keys, aggregations)
         ranges = functools.cache(lambda: _range_check(keys, _value_columns(aggregations)))
-        if method in ("auto", "mxu") and dense_ok:
+        if method in ("auto", "mxu") and _dense_eligible(keys, aggregations, 8):
             with span("att.groupby.route.mxu"):
                 out = _hash_aggregate_mxu(keys, aggregations, key_domain, value_bits, ranges)
             if out is not None:
@@ -510,9 +527,9 @@ def hash_aggregate(
         if method == "mxu":
             raise OperationNotSupported(
                 "mxu groupby requires dense keys in [0, 4096), non-negative "
-                "integer values and no nulls"
+                "integer values, rows x the largest value below 2^63 and no nulls"
             )
-        if method in ("auto", "partition") and dense_ok:
+        if method in ("auto", "partition") and _dense_eligible(keys, aggregations, 4):
             with span("att.groupby.route.partition"):
                 out = _hash_aggregate_partition(keys, aggregations, key_domain, value_bits, ranges)
             if out is not None:
@@ -520,7 +537,7 @@ def hash_aggregate(
         if method == "partition":
             raise OperationNotSupported(
                 "partition groupby requires dense keys in (4096, 2^22], "
-                "non-negative integer values and no nulls"
+                "non-negative integer values of at most 32 bits and no nulls"
             )
         if method in ("auto", "radix"):
             with span("att.groupby.route.radix"):

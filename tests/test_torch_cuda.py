@@ -1015,6 +1015,40 @@ def test_groupby_dense_kernel_matches_plain(cuda, n, domain, nlimb):
 
 
 @pytest.mark.parametrize("n", [0, 1, 31, 8193, (1 << 20) + 17])
+@pytest.mark.parametrize("domain", [1, 5, 8, 100, 5000])
+@pytest.mark.parametrize("nlimb", [1, 5, 8])
+def test_groupby_dense_kernel_64_bit_values_match_plain(cuda, n, domain, nlimb):
+    """int64 values with bits above 32, cut to 1, 5 or 8 limbs, over a
+    handful of keys and the whole table; aligned and unaligned planes, and
+    `length` below the rows."""
+    rng = np.random.default_rng([n, domain, nlimb])
+    keys = torch.from_numpy(rng.integers(0, domain, n).astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.integers(0, 2**62, n, dtype=np.int64)).to(cuda)
+    for length, k, v in ((None, keys, vals), (max(0, n - 9), keys, vals), (None, keys[1:], vals[1:])):
+        want = GM.groupby_dense_plain(k, v, nlimb, length)
+        before = GM.KERNEL.launches
+        got = GM.groupby_dense(k, v, nlimb, length)
+        torch.cuda.synchronize()
+        assert GM.KERNEL.launches == before + 1
+        assert all(g.is_cuda and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("domain", [1, 3, 8])
+def test_groupby_dense_kernel_few_keys_match_plain(cuda, domain):
+    """32-bit values of every pattern over a handful of keys, so that every
+    lane of a warp adds into one of a few slots and their low words wrap
+    many times: the plain version's tables, bit for bit."""
+    rng = np.random.default_rng(domain)
+    n = (1 << 22) + 3
+    keys = torch.from_numpy(rng.integers(0, domain, n).astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(cuda)
+    got = GM.groupby_dense(keys, vals, 4)
+    want = GM.groupby_dense_plain(keys, vals, 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[0].sum()) == n
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 8193, (1 << 20) + 17])
 @pytest.mark.parametrize("nclass", [1, 2, 256, 1024])
 @pytest.mark.parametrize("order", ["grouped", "unsorted", "skew"])
 def test_groupby_region_kernel_matches_plain(cuda, n, nclass, order):
@@ -1031,7 +1065,7 @@ def test_groupby_region_kernel_matches_plain(cuda, n, nclass, order):
 
 @pytest.mark.parametrize("method,domain,vname", [
     ("mxu", 4096, "uint32"), ("partition", 1 << 20, "int32"), ("partition", 5000, "uint8"),
-    ("radix", 1 << 31, "int32"), ("radix", 300, "float32"),
+    ("radix", 1 << 31, "int32"), ("radix", 300, "float32"), ("mxu", 5, "int64"), ("mxu", 4096, "int64"),
 ])
 def test_groupby_routes_on_cuda_match_cpu(cuda, method, domain, vname):
     """Each route on the card launches its kernels and gives the CPU's sort
@@ -1039,7 +1073,7 @@ def test_groupby_routes_on_cuda_match_cpu(cuda, method, domain, vname):
     rng = np.random.default_rng(31)
     n = 100_000
     keys = att.UInt32Array.from_slice(rng.integers(0, domain, n).astype(np.uint32), device="cpu")
-    high = 2**32 if vname == "uint32" else 2**8 if vname == "uint8" else 1000
+    high = {"uint32": 2**32, "uint8": 2**8, "int64": 2**40}.get(vname, 1000)
     vals = att.PrimitiveArray.from_slice(rng.integers(0, high, n).astype(vname), dtype=att.ArrowType(vname),
                                          device="cpu")
     aggs = [("s", vals, "sum"), ("c", vals, "count"), ("m", vals, "mean"), ("n", None, "count")]

@@ -84,6 +84,11 @@ CASES = {
                      "    att.sync.join_total", "  att.join.take"]),
     "join_merge": ({"ARROW_TPU_JOIN_EMIT": "merge"}, _join("k100", "b32"),
                    ["att.join", *PLAN, "  att.join.expand", "  att.join.rank_fill", "  att.join.take"]),
+    "filter": ({}, lambda c: C.filter(att.RecordBatch({"k": c["k100"], "v": c["i64"]}), att.kernels.lt_scalar(c["v1"], 3)),
+               ["att.op.lt_scalar", "att.filter", "  att.sync.filter_count"]),
+    "filter_sort": ({}, lambda c: C.filter(att.RecordBatch({"k": c["k100"]}), att.kernels.lt_scalar(c["v1"], 3),
+                                           method="sort"),
+                    ["att.op.lt_scalar", "att.filter", "  att.sync.filter_count"]),
     "join_merge_narrowed": ({"ARROW_TPU_JOIN_EMIT": "merge"}, _join("i64", "b64"),
                             ["att.join", "  att.join.plan", "    att.sync.narrow_check", *PLAN[1:],
                              "  att.join.expand", "  att.join.rank_fill", "  att.join.take"]),
@@ -160,6 +165,17 @@ def test_span_tree(case):
     call, tree = case
     _, got = _traced(lambda: call(_cols(8)))
     assert got == tree
+
+
+@pytest.mark.parametrize("call", ["filter_count", "filter_indices"])
+def test_filter_count_reads_are_named(call):
+    """filter_count's and filter_indices' count reads are att.sync.filter_count
+    spans, and only those: no att.filter span, no other wait."""
+    mask = att.kernels.lt_scalar(_cols(9)["v1"], 3)
+    out, lines = _traced(lambda: getattr(C, call)(mask))
+    want = int((_cols(9)["v1"].data < 3).sum())
+    assert (out if call == "filter_count" else out[1]) == want
+    assert lines == ["att.sync.filter_count"]
 
 
 def _event(name, device=False, annotation=False):
