@@ -7,16 +7,26 @@ expands the ranges into (probe row, build row) pairs.
 
 Two emits, as in the JAX package:
 
-- **merge-expand** (the default on CUDA): no random gathers.  The co-sort
-  (kernel B3 for a single u32 key plane, the native key or a narrowed 64-bit
-  one, at ``RADIX_COSORT_ROWS`` buffer rows and more; ``torch.sort``
-  otherwise) gives the key-ordered build row list and the non-empty probe run
-  list, compacted by kernel B1.  A merge pass (kernel B7) of the run ends
-  with the output positions run-length-decodes every output slot, one
-  segmented max scan of three planes (kernel B2) fills the runs' values in,
-  and a second merge pass against the rank-indexed build list resolves build
-  ranks to row ids.
-  Output order is build-rank-major;
+- **merge** (the default on CUDA): no random gathers.  The co-sort (kernel
+  B3 for a single u32 key plane, the native key or a narrowed 64-bit one, at
+  ``RADIX_COSORT_ROWS`` buffer rows and more; a stable ``torch.sort``
+  otherwise) puts each key's build rows before its probe rows.  One host
+  read, ``join_counts``, gives the match total and the number of non-empty
+  probe runs, and they choose between two emits:
+
+  - **one-match**, when they are equal (every matched probe row meets
+    exactly one build row, as against a build side with unique keys): one
+    segmented max scan (kernel B2) of the build rows' ids over the key
+    segments hands each probe row its build row, and one compaction (kernel
+    B1) of the matched probe rows gives the pairs;
+  - **merge-expand** otherwise: the key-ordered build row list and the
+    non-empty probe run list, compacted by kernel B1; a merge pass (kernel
+    B7) of the run ends with the output positions run-length-decodes every
+    output slot, one segmented max scan of three planes (kernel B2) fills
+    the runs' values in, and a second merge pass against the rank-indexed
+    build list resolves build ranks to row ids.
+
+  Output order is build-rank-major in both;
 - **legacy** (the default on the CPU): ``probe_bounds`` + ``build_order``
   and a searchsorted emit, probe-major.
 
@@ -32,13 +42,14 @@ launch for up to 16 columns, on the card; ``ops.swizzle.gather`` column by
 column, its plain version, on the CPU.
 
 Under a profiler each ``hash_join`` is an ``att.join`` span holding a span
-for each step (``runtime.profiler.span``): ``att.join.plan`` (its
-``cosort``, ``bounds`` and ``lists``), ``expand`` and ``rank_fill``, or
-``legacy_emit``, then ``take``.  Each host wait is an ``att.sync.<cause>``
-span: ``narrow_check``, ``join_total``, ``join_runs``, the co-sort's
-``radix_significant_bits``, and the run bounds' ``first_key_start`` and
-``last_key_end`` (a flag set from a Python scalar, which torch copies from
-the host and waits for).
+for each step: ``att.join.plan`` (its ``cosort`` and ``bounds``, and on the
+merge-expand emit ``lists``), ``expand`` (holding ``one_match`` on that emit)
+and on the merge-expand emit ``rank_fill``, or ``legacy_emit``, then
+``take``.  Each host wait is an ``att.sync.<cause>`` span: ``narrow_check``,
+``join_counts`` (the merge emit's), ``join_total`` (the legacy emit's), the
+co-sort's ``radix_significant_bits``, and the run bounds' ``first_key_start``
+and ``last_key_end`` (a flag set from a Python scalar, which torch copies
+from the host and waits for).
 """
 
 from __future__ import annotations
@@ -92,7 +103,7 @@ def _key_starts(sk: torch.Tensor) -> torch.Tensor:
 def _run_bounds(skey: torch.Tensor, sb: torch.Tensor):
     """Over co-sorted rows with build flags `sb` (int32 0/1): for every row,
     lo = build rows in strictly earlier key segments and hi = build rows up to
-    the end of its own segment."""
+    the end of its own segment; and the key segments' start flags."""
     b4 = prefix_sum(sb) - sb
     start = _key_starts(skey)
     # b4 is non-decreasing, so a masked cummax carries it across the segment
@@ -103,7 +114,7 @@ def _run_bounds(skey: torch.Tensor, sb: torch.Tensor):
     with host_read("last_key_end"):
         end[-1] = True
     hi = nbv - shift_cummax(torch.where(end, after, -1), reverse=True)
-    return lo, hi
+    return lo, hi, start
 
 
 def probe_bounds(bkeys, bvalid, pkeys, pvalid, dtype: _A):
@@ -125,7 +136,7 @@ def probe_bounds(bkeys, bvalid, pkeys, pvalid, dtype: _A):
         okey = torch.cat([_order_key(bkeys, dtype), _order_key(pkeys, dtype)])
         skey, perm = torch.sort(okey, stable=True)
         sb, sorig = isb[perm], perm.to(torch.int32)
-    lo_s, hi_s = _run_bounds(skey, sb)
+    lo_s, hi_s, _ = _run_bounds(skey, sb)
     if use_merge:
         _, lo_o, hi_o = merge_lex_sort([sorig], [lo_s, hi_s])
     else:
@@ -197,8 +208,16 @@ def _radix_cosort(buffer_rows: int, device: torch.device) -> bool:
 
 
 def _plan(bk, bvalid, pk, pvalid, dtype, narrow: bool, buffer_rows: int):
-    """prep -> co-sort -> post: the key-ordered build row list (sorder) and
-    the non-empty probe runs (end, probe row, lo), compacted by kernel B1."""
+    """prep -> co-sort -> bounds -> lists: the match total, the number of
+    non-empty probe runs, and the emit's inputs.  When the two are equal
+    (and when no merge emit follows: no match, or 2^31 pairs), those are
+    the one-match emit's, over the co-sorted rows: the origin row ids (`so`,
+    dead rows ``nb + np``), build flags, key-segment starts and run flags.
+    Otherwise they are the merge-expand emit's: the key-ordered build row
+    list (sorder) and the non-empty probe runs (end, probe row, lo),
+    compacted by kernel B1.  Within a key, build rows sort before probe rows
+    (kernel B3 and the stable ``torch.sort`` keep the concatenation's
+    order)."""
     nb, np_ = bk.shape[0], pk.shape[0]
     tot = nb + np_
     device = bk.device
@@ -213,27 +232,39 @@ def _plan(bk, bvalid, pk, pvalid, dtype, narrow: bool, buffer_rows: int):
             if _radix_cosort(buffer_rows, device):
                 skey, so = CK.radix_sort((key, sorig), 32)
             else:
-                skey, perm = torch.sort(dt.widen(key, _A.UINT32))
+                skey, perm = torch.sort(dt.widen(key, _A.UINT32), stable=True)
                 so = sorig[perm]
         else:
             okey = torch.cat([_order_key(bk, dtype), _order_key(pk, dtype)])
-            skey, perm = torch.sort(torch.where(valid, okey, torch.iinfo(torch.int64).max))
+            skey, perm = torch.sort(torch.where(valid, okey, torch.iinfo(torch.int64).max), stable=True)
             so = sorig[perm]
     with span("att.join.bounds"):
         isb = (so < nb).to(torch.int32)
         isp = (so >= nb) & (so < tot)
-        lo_s, hi_s = _run_bounds(skey, isb)
+        lo_s, hi_s, start = _run_bounds(skey, isb)
         cnt_s = torch.where(isp, hi_s - lo_s, 0).to(torch.int32)
-        with host_read("join_total"):
-            total = int(cnt_s.sum(dtype=torch.int64))
-        ends_s = prefix_sum(cnt_s.to(torch.int64)).to(torch.int32)  # total < 2^31 on this path
-    with span("att.join.lists"):
-        (sorder,) = compact_rows(isb == 1, [so])
         runs = isp & (cnt_s > 0)
+        with host_read("join_counts"):
+            total, m_eff = torch.stack([cnt_s.sum(dtype=torch.int64), runs.sum(dtype=torch.int64)]).tolist()
+    if total == m_eff or total >= 1 << 31:
+        return total, m_eff, (so, isb, start, runs)
+    with span("att.join.lists"):
+        ends_s = prefix_sum(cnt_s.to(torch.int64)).to(torch.int32)  # total < 2^31 on this path
+        (sorder,) = compact_rows(isb == 1, [so])
         ends_l, prow_l, lo_l = compact_rows(runs, [ends_s, so - nb, lo_s])
-        with host_read("join_runs"):
-            m_eff = int(runs.sum())
-    return total, m_eff, sorder, ends_l, prow_l, lo_l
+    return total, m_eff, (sorder, ends_l, prow_l, lo_l)
+
+
+def _one_match(cap: int, nb: int, so, isb, start, runs):
+    """The pairs when every run holds one build row: the segment's build
+    row id, which sorts before its probe rows, carried onto them by one
+    segmented max scan (B2); the matched probe rows compacted with it (B1).
+    Ids over `cap` rows, zero past the matches."""
+    with span("att.join.one_match"):
+        bid = segmented_scan(torch.where(isb == 1, so, -1), start, "max")
+        pidx, bidx = compact_rows(runs, [so - nb, bid])
+        # a cut keeps no view of the longer co-sorted buffers
+        return tuple(p[:cap].clone() if p.shape[0] > cap else _fit(p, cap) for p in (pidx, bidx))
 
 
 def _expand(cap: int, ends_l, prow_l, lo_l, m_eff: int, total: int):
@@ -322,17 +353,22 @@ def join_indices(
     if mode == "merge" or (mode == "auto" and device.type == "cuda"):
         buffer_rows = build_keys.data.shape[0] + probe_keys.data.shape[0]
         with span("att.join.plan"):
-            total, m_eff, sorder, ends_l, prow_l, lo_l = _plan(
+            total, m_eff, emit_in = _plan(
                 bk, bvalid, pk, pvalid, dtype, _narrow_ok(build_keys, probe_keys), buffer_rows
             )
         if total == 0:
             return _empty(device)
         if total < 1 << 31:
             cap = _bucket(total)
-            with span("att.join.expand"):
-                pidx, bpos = _expand(cap, ends_l, prow_l, lo_l, m_eff, total)
-            with span("att.join.rank_fill"):
-                pidx, bidx = _rank_fill(cap, bk.shape[0], bpos, pidx, sorder, total)
+            if total == m_eff:
+                with span("att.join.expand"):
+                    pidx, bidx = _one_match(cap, bk.shape[0], *emit_in)
+            else:
+                sorder, ends_l, prow_l, lo_l = emit_in
+                with span("att.join.expand"):
+                    pidx, bpos = _expand(cap, ends_l, prow_l, lo_l, m_eff, total)
+                with span("att.join.rank_fill"):
+                    pidx, bidx = _rank_fill(cap, bk.shape[0], bpos, pidx, sorder, total)
             return (
                 make_array(pidx, None, total, _A.UINT32),
                 make_array(bidx, None, total, _A.UINT32),

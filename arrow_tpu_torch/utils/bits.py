@@ -36,14 +36,21 @@ def _shifts(device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+#: a 64-bit lane of eight 0/1 bytes times this holds byte b's bit at bit
+#: 56 + b (every other partial product lands on a bit of its own: no carry)
+_GATHER_BYTES = 0x0102040810204080
+
+
 def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     """bool[N] -> int32[ceil(N/32)] (LSB-first); a partial last word is
-    zero-filled.  Packs in int64 so that bit 31 is exact."""
+    zero-filled.  Eight rows a 64-bit lane, one a byte: one multiply gathers
+    their bits into the lane's top byte, and four lanes' bytes are a word."""
+    mask = mask.to(torch.bool)
     n = mask.shape[0]
-    if n % WORD_BITS:
-        mask = torch.nn.functional.pad(mask, (0, WORD_BITS - n % WORD_BITS))
-    m = mask.reshape(-1, WORD_BITS).to(torch.int64)
-    return to_int32((m << _shifts(mask.device)).sum(dim=1))
+    if n % WORD_BITS or mask.storage_offset() % 8 or mask.stride(0) != 1:
+        mask = torch.cat([mask, mask.new_zeros(-n % WORD_BITS)])  # a new, whole-word tensor
+    lanes = mask.view(torch.uint8).view(torch.int64)
+    return ((lanes * _GATHER_BYTES) >> 56).to(torch.uint8).view(torch.int32)
 
 
 def unpack_bits(words: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:

@@ -38,9 +38,12 @@ Phases, each printing lines that start with its name:
    during the query; per-step times for the kernel and plain paths;
 5. sort_join: the sort-join query (the flagship's filter and group-by, the
    groups joined back onto the kept rows, the kept rows sorted by key) at
-   2^27 rows, checked against the plain path and a numpy oracle; the launch
-   counts and peak device memory during the query (every kernel but the
-   2-bit radix must launch); each kernel call of a second run of the query,
+   2^27 rows, checked against the plain path and a numpy oracle; its join
+   meets one group a kept row (the one-match emit), so the groups' keys are
+   also probed against the kept rows (a repeated build key a group: the
+   merge-expand emit, B7), each kept row once; the launch counts and peak
+   device memory during both (every kernel but the 2-bit radix must
+   launch); each kernel call of a second run of both,
    replayed on its own arguments against its plain version and timed beside
    it; the sort rerun with
    ARROW_TPU_RADIX_R=4 (the 2-bit radix, whose launches and calls are read
@@ -1730,6 +1733,26 @@ def check_sort_join(label, out, oracle, want_rows):
     check_sorted(label, sk, sv, oracle)
 
 
+def general_join(kept, groups):
+    """The groups' keys probed against the kept rows: each group meets its
+    kept rows, so join_indices takes the merge-expand emit (B7)."""
+    from arrow_tpu_torch import compute as C
+
+    return C.join_indices(kept["k"], groups["key"])
+
+
+def check_general_join(kept, groups, pairs):
+    """Every kept row once, beside the group of its key."""
+    import torch
+
+    pi, bi, t = pairs
+    rows = bi.data[:t].long()
+    require(t == kept.num_rows and torch.equal(torch.sort(rows).values, torch.arange(t, device=rows.device))
+            and torch.equal(kept["k"].data[rows], groups["key"].data[pi.data[:t].long()]),
+            f"the groups probed against the kept rows: {t} pairs, not each of {kept.num_rows} kept rows once "
+            "beside its group")
+
+
 def phase_sort_join(smi):
     """The sort-join query at full size.  Returns (launches by kernel, replay
     numbers by kernel); the 2-bit radix's come from its rerun of the sort."""
@@ -1751,6 +1774,7 @@ def phase_sort_join(smi):
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     out = flagship.sort_join_query(batch)
+    general = general_join(out[0], out[1])
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in _build.KERNELS.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1759,8 +1783,10 @@ def phase_sort_join(smi):
           f"{joined.num_rows} joined rows; launches during the query {launches}; radix_sort passes "
           f"{_build.KERNELS['radix_sort'].passes}; peak device memory {peak_gib:.2f} GiB")
     for name in ("compact_multi", "segmented_scan", "radix_sort", "merge_pass"):
-        require(launches[name] > 0, f"{name} was not launched by the sort-join query: {launches}")
+        require(launches[name] > 0, f"{name} was not launched by the sort-join query or the general join: {launches}")
     check_sort_join("sort_join", out, oracle, want_rows)
+    check_general_join(out[0], out[1], general)
+    del general
     with plain_path():
         plain = flagship.sort_join_query(batch)
     check_sort_join("sort_join plain path", plain, oracle, want_rows)
@@ -1796,8 +1822,10 @@ def phase_sort_join(smi):
     launches["radix_sort_2bit"] = launches4["radix_sort_2bit"]
     del out, sk, sv
     with recorded_calls() as calls:  # the query once more, its kernel calls kept for replay
-        flagship.sort_join_query(batch)
+        again = flagship.sort_join_query(batch)
+        general_join(again[0], again[1])
         torch.cuda.synchronize()
+        del again
     calls["radix_sort_2bit"] = calls4["radix_sort_2bit"]
     measured = replay_calls(calls, smi, "sort_join")
     del calls, calls4

@@ -133,6 +133,22 @@ def test_bits_match_jax(n):
     np.testing.assert_array_equal(TB.unpack_bits_np(words_np, n), mask)
 
 
+@pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("layout", ["whole_words", "partial_word", "odd_offset", "offset_8", "strided", "empty"])
+def test_pack_bits_any_layout(layout, share):
+    """pack_bits (eight rows a 64-bit lane) equals numpy's little-endian
+    packbits on masks of any length, offset and stride; all ones sets bit 31
+    of every word and the top bit of every lane."""
+    n = {"whole_words": 4096, "partial_word": 1000, "empty": 0}.get(layout, 2016)
+    full = np.random.default_rng(len(layout)).random(2 * n + 16) < share
+    start = {"odd_offset": 3, "offset_8": 8}.get(layout, 0)
+    mask = torch.from_numpy(full)[::2][:n] if layout == "strided" else torch.from_numpy(full)[start:start + n]
+    got = TB.pack_bits(mask)
+    assert got.dtype == torch.int32 and got.shape == (TB.num_words(n),)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), TB.pack_bits_np(mask.numpy()))
+    np.testing.assert_array_equal(TB.unpack_bits(got, n).numpy(), mask.numpy())
+
+
 def test_record_batch_from_arrow_buffers():
     from arrow_tpu import io as jio
     from arrow_tpu.table import RecordBatch as JBatch

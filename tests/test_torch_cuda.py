@@ -757,6 +757,42 @@ def test_join_on_cuda_matches_cpu(cuda, name, domain, null_p, monkeypatch):
     assert _pair_set(got[0], got[1]) == _pair_set(want[0], want[1])
 
 
+@pytest.mark.parametrize("name,null_p", [("uint32", 0.0), ("int64", 0.2)])
+def test_join_one_match_on_cuda_matches_cpu(cuda, name, null_p, monkeypatch):
+    """Unique build keys on the card (co-sort on kernel B3 for u32 keys, with
+    its gate opened at this size): the one-match emit, one B2 fill and one
+    B1 compaction past the plan's and no B7 pass, against the CPU's legacy
+    emit; index planes of the emit's capacity, zero past the matches."""
+    monkeypatch.setattr(TJ, "RADIX_COSORT_ROWS", 0)
+    rng = np.random.default_rng(31)
+    dt_ = np.dtype(name)
+    keys = rng.permutation(20_000).astype(dt_)
+    build = att.PrimitiveArray.from_optional_slice(
+        [int(v) if ok else None for v, ok in zip(keys, rng.random(20_000) >= null_p)],
+        dtype=att.ArrowType(name), device="cpu",
+    )
+    probe = att.PrimitiveArray.from_slice(rng.integers(0, 30_000, 50_001).astype(dt_), dtype=att.ArrowType(name),
+                                          device="cpu")
+    want = TC.join_indices(build, probe)
+    fills = []
+    one_match = TJ._one_match
+
+    def counted(*args):
+        before = S.KERNEL.launches, C3.KERNEL.launches
+        out = one_match(*args)
+        fills.append((S.KERNEL.launches - before[0], C3.KERNEL.launches - before[1]))
+        return out
+
+    monkeypatch.setattr(TJ, "_one_match", counted)
+    before = M.KERNEL.launches
+    got = TC.join_indices(_to(build, cuda), _to(probe, cuda))
+    assert fills == [(1, 1)] and M.KERNEL.launches == before
+    assert got[0].data.is_cuda and got[2] == want[2] > 0
+    assert _pair_set(got[0], got[1]) == _pair_set(want[0], want[1])
+    for plane in (got[0].data, got[1].data):
+        assert plane.shape[0] == TJ._bucket(got[2]) and not bool(plane[got[2]:].any())
+
+
 def test_take_on_cuda_matches_cpu(cuda):
     rng = np.random.default_rng(29)
     col = att.UInt32Array.from_optional_slice(
@@ -895,8 +931,9 @@ def test_join_take_runs_no_per_column_gather(cuda, monkeypatch):
 
 
 def test_sort_join_query_on_cuda(cuda):
-    """The sort-join query on the card: kernels B1, B2, B3 (its gates
-    opened at this size) and B7 all launch; the result equals the plain
+    """The sort-join query on the card: kernels B1, B2 and B3 (its gates
+    opened at this size) launch, and no B7 pass, since each kept row meets
+    one group (the join's one-match emit); the result equals the plain
     path's and a numpy oracle's."""
     n = 1 << 18
     cols = flagship.make_host_columns(n, seed=2)
@@ -911,8 +948,9 @@ def test_sort_join_query_on_cuda(cuda):
             pk, pg, pj, (psk, psv) = flagship.sort_join_query(batch)
     finally:
         TJ.RADIX_COSORT_ROWS, TSORT.RADIX_AUTO_ROWS = saved
-    for name in ("compact_multi", "segmented_scan", "radix_sort", "merge_pass"):
+    for name in ("compact_multi", "segmented_scan", "radix_sort"):
         assert after[name] > before[name], name
+    assert after["merge_pass"] == before["merge_pass"]
     keep = cols["v"] > 0
     order = np.argsort(cols["k"][keep], kind="stable")
     np.testing.assert_array_equal(sk.raw_values(), cols["k"][keep][order])

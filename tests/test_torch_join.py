@@ -2,7 +2,9 @@
 compared as pair sets (output order is implementation-defined): both emits
 of each package through ARROW_TPU_JOIN_EMIT, duplicate keys on both sides,
 null keys, empty sides, u64 keys that narrow to one u32 plane and u64 keys
-that do not, i64 negatives, the co-sort on the radix route; hash_join's
+that do not, i64 negatives, the co-sort on the radix route, the merge
+emit's two paths (one-match for unique matched build keys, merge-expand for
+a repeated one) and their index planes; hash_join's
 one take of every output column against ``ops.take`` of each; and the
 ``merge_len`` group-by under ARROW_TPU_FORCE_MERGE=1 against the JAX
 package's.  Exact."""
@@ -51,12 +53,47 @@ CASES = {  # name -> (key type, domain, build null share, probe null share)
     "u64_narrow": ("uint64", 60, 0.0, 0.0),
     "u64_wide": ("uint64_wide", 25, 0.0, 0.1),
     "no_match": ("int32", 10, 0.0, 0.0),
+    # built below: unique build keys (probe misses and nulls); unique matched
+    # build keys beside repeated unmatched ones; one repeated matched key
+    "unique_build": ("int32", 2 * NB, 0.1, 0.2),
+    "unique_matched": ("uint32", NB // 2 + 50, 0.0, 0.1),
+    "one_repeat": ("int64", NB, 0.0, 0.0),
 }
+#: case -> whether every matched probe row meets one build row, so that the
+#: merge emit takes its one-match path
+ONE_MATCH = {"unique_build": True, "unique_matched": True, "one_repeat": False, "u32_nulls": False}
+
+
+def _array(vals, name, valid=None):
+    t = at.ArrowType(name)
+    if valid is None:
+        return at.PrimitiveArray.from_slice(vals.astype(np.dtype(name)), dtype=t)
+    return at.PrimitiveArray.from_optional_slice(
+        [v if ok else None for v, ok in zip(vals.astype(np.dtype(name)).tolist(), valid)], dtype=t
+    )
+
+
+def _one_match_case(case, rng):
+    name, domain, bnull, pnull = CASES[case]
+    if case == "unique_build":
+        bvals = rng.permutation(NB)
+    elif case == "unique_matched":  # and keys 1000-1009 15 times each, never probed
+        bvals = rng.permutation(np.concatenate([np.arange(NB // 2), np.repeat(np.arange(1000, 1010), 15)]))
+    else:  # one_repeat: unique keys around zero, and key 7 twice
+        bvals = rng.permutation(np.concatenate([np.arange(NB - 1) - NB // 2, [7]]))
+    pvals = rng.integers(0, domain, NP) - (NB // 2 if case == "one_repeat" else 0)
+    if case == "one_repeat":
+        pvals[rng.integers(0, NP)] = 7
+    bvalid = rng.random(bvals.shape[0]) >= bnull if bnull else None
+    pvalid = rng.random(NP) >= pnull if pnull else None
+    return _array(bvals, name, bvalid), _array(pvals, name, pvalid)
 
 
 def _case(case):
     name, domain, bnull, pnull = CASES[case]
     rng = np.random.default_rng(len(case))
+    if case in ONE_MATCH and not case.startswith("u32"):
+        return _one_match_case(case, rng)
     build = _keys(rng, name, NB, domain, bnull)
     probe = _keys(rng, name, NP, domain, pnull)
     if case == "no_match":
@@ -124,9 +161,35 @@ def test_radix_cosort_route(monkeypatch):
     here the gate is opened for the CPU, where B3 runs its plain version."""
     monkeypatch.setenv("ARROW_TPU_JOIN_EMIT", "merge")
     monkeypatch.setattr(TJ, "_radix_cosort", lambda rows, device: True)
-    for case in ("u32_dups", "u32_nulls"):
+    for case in ("u32_dups", "u32_nulls", "unique_matched"):
         build, probe = _case(case)
         assert _pairs(*TC.join_indices(jax_to_torch(build), jax_to_torch(probe))) == _jax_pairs(case)
+
+
+def _refuse(name):
+    def call(*args, **kwargs):
+        raise AssertionError(f"{name} ran")
+    return call
+
+
+@pytest.mark.parametrize("case", list(ONE_MATCH))
+def test_merge_emit_path(case, monkeypatch):
+    """The merge emit takes its one-match path (no B7 expand, no rank fill)
+    exactly when every matched probe row meets one build row, repeated
+    unmatched build keys included, and the merge-expand path for a repeated
+    matched build key; either gives the JAX package's pairs and the legacy
+    emit's, on index planes of ``_bucket(total)`` rows, zero past total."""
+    build, probe = (jax_to_torch(k) for k in _case(case))
+    monkeypatch.setenv("ARROW_TPU_JOIN_EMIT", "legacy")
+    legacy = _pairs(*TC.join_indices(build, probe))
+    monkeypatch.setenv("ARROW_TPU_JOIN_EMIT", "merge")
+    for name in ("_expand", "_rank_fill") if ONE_MATCH[case] else ("_one_match",):
+        monkeypatch.setattr(TJ, name, _refuse(name))
+    pi, bi, total = TC.join_indices(build, probe)
+    assert _pairs(pi, bi, total) == legacy == _jax_pairs(case)
+    assert total > 0
+    for plane in (pi.data, bi.data):
+        assert plane.shape[0] == TJ._bucket(total) and not plane[total:].any()
 
 
 def test_legacy_emit_on_merge_sorts(monkeypatch):

@@ -31,6 +31,7 @@ def _cols(seed: int):
         "i64": att.Int64Array.from_slice(rng.integers(0, 500, N).astype(np.int64), device="cpu"),
         "b64": att.Int64Array.from_slice(np.arange(400, dtype=np.int64), device="cpu"),
         "b32": att.UInt32Array.from_slice(np.arange(60, dtype=np.uint32), device="cpu"),
+        "b32dup": att.UInt32Array.from_slice(np.arange(61, dtype=np.uint32) % 60, device="cpu"),  # key 0 twice
     }
 
 
@@ -60,10 +61,11 @@ PLAN = [
     "    att.join.bounds",
     "      att.sync.first_key_start",
     "      att.sync.last_key_end",
-    "      att.sync.join_total",
-    "    att.join.lists",
-    "      att.sync.join_runs",
+    "      att.sync.join_counts",
 ]
+#: unique build keys: one host read between the plan's spans, and the
+#: one-match emit inside att.join.expand
+ONE_MATCH = ["  att.join.expand", "    att.join.one_match", "  att.join.take"]
 
 #: name -> (environment, the call, the span tree it opens, in order)
 CASES = {
@@ -82,16 +84,17 @@ CASES = {
     "join_legacy": ({}, _join("k100", "b32"),
                     ["att.join", "  att.join.legacy_emit", "    att.sync.first_key_start", "    att.sync.last_key_end",
                      "    att.sync.join_total", "  att.join.take"]),
-    "join_merge": ({"ARROW_TPU_JOIN_EMIT": "merge"}, _join("k100", "b32"),
-                   ["att.join", *PLAN, "  att.join.expand", "  att.join.rank_fill", "  att.join.take"]),
+    "join_merge": ({"ARROW_TPU_JOIN_EMIT": "merge"}, _join("k100", "b32"), ["att.join", *PLAN, *ONE_MATCH]),
+    "join_merge_repeated_build_key": ({"ARROW_TPU_JOIN_EMIT": "merge"}, _join("k100", "b32dup"),
+                                      ["att.join", *PLAN, "    att.join.lists", "  att.join.expand",
+                                       "  att.join.rank_fill", "  att.join.take"]),
     "filter": ({}, lambda c: C.filter(att.RecordBatch({"k": c["k100"], "v": c["i64"]}), att.kernels.lt_scalar(c["v1"], 3)),
                ["att.op.lt_scalar", "att.filter", "  att.sync.filter_count"]),
     "filter_sort": ({}, lambda c: C.filter(att.RecordBatch({"k": c["k100"]}), att.kernels.lt_scalar(c["v1"], 3),
                                            method="sort"),
                     ["att.op.lt_scalar", "att.filter", "  att.sync.filter_count"]),
     "join_merge_narrowed": ({"ARROW_TPU_JOIN_EMIT": "merge"}, _join("i64", "b64"),
-                            ["att.join", "  att.join.plan", "    att.sync.narrow_check", *PLAN[1:],
-                             "  att.join.expand", "  att.join.rank_fill", "  att.join.take"]),
+                            ["att.join", "  att.join.plan", "    att.sync.narrow_check", *PLAN[1:], *ONE_MATCH]),
 }
 
 
