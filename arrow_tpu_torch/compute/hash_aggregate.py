@@ -14,14 +14,15 @@ in this order under ``method="auto"``, as in the JAX package:
   (``key >> 12``) by a radix sort over the class bits (kernel B3), then one
   region-table launch per value column (kernel B6,
   ``kernels/groupby_region.py``).
-- **radix**: no nulls, a full buffer, 32-bit keys and values, on CUDA
-  tensors (``ARROW_TPU_FORCE_RADIX_AGG=1``: any device).  A radix sort over
-  the keys' significant bits (B3) carrying the value planes replaces the
-  sort route's sort; steps 2-3 below follow.  Under ``auto`` it also needs
-  at least 2^26 buffer rows, the JAX package's gate.  The JAX package also
-  sends keys of more than 28 significant bits to the sort route; on the
-  H100 the radix route wins at 31 bits too (``chip_smoke.py``'s groupby
-  phase: 39.1 against 49.5 ms at 2^27 rows), so the port has no bit gate.
+- **radix**: no nulls, a full buffer, 32-bit keys and values, on any device.
+  A radix sort over the keys' significant bits (B3) carrying the value
+  planes replaces the sort route's sort; steps 2-3 below follow.  Under
+  ``auto`` it also needs a buffer long enough for
+  ``compute.sort.radix_pays``, the row gate of every radix route (2^26 rows,
+  the JAX package's gate).  The JAX package also sends keys of more than 28
+  significant bits to the sort route; on the H100 the radix route wins at 31
+  bits too (``chip_smoke.py``'s groupby phase: 39.1 against 49.5 ms at 2^27
+  rows), so the port has no bit gate.
 - **sort**, any keys, values and nulls (``groupby_core``):
 
   1. one stable sort by (valid-key rank, key), then a gather of every value
@@ -30,9 +31,6 @@ in this order under ``method="auto"``, as in the JAX package:
      (kernel B2) that restarts at the group starts, so a group's result sits
      at its last row;
   3. the group-end rows of (key, results) compacted to the front (kernel B1).
-
-  Under ``ARROW_TPU_FORCE_MERGE=1`` the sort of step 1 runs on kernel B7
-  (``groupby_core``'s ``merge_len`` branch), as in the JAX package.
 
 Groups come out in ascending key order, and the output never depends on the
 route.  Rows with a null key are dropped; null values are skipped by
@@ -55,7 +53,6 @@ torch copies from the host and waits for).
 from __future__ import annotations
 
 import functools
-import os
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -70,13 +67,11 @@ from ..utils.scans import compact_rows, segment_ends, segmented_scan
 from . import kernels as CK
 from .kernels.groupby_mxu import SLOTS, nlimbs_for_bits
 from .kernels.radix import MAX_PLANES as RADIX_MAX_PLANES
+from .sort import radix_pays
 
 AGG_KINDS = ("sum", "count", "min", "max", "mean")
 _A = dt.ArrowType
 PARTITION_MAX_BITS = 22  # the partition route's key domain: at most 2^22
-# the radix route's row gate under method="auto", the JAX package's
-# (arrow_tpu/compute/hash_aggregate.py:626)
-RADIX_AUTO_ROWS = 1 << 26
 
 
 def _valid_bools(validity: Optional[torch.Tensor], length: int, n: int, device) -> torch.Tensor:
@@ -116,7 +111,6 @@ def groupby_core(
     val_entries: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     agg_spec: Sequence[Tuple[str, Optional[_A]]],
     dense: bool = False,
-    merge_len: Optional[int] = None,
     presorted: bool = False,
 ):
     """Sort + segmented-scan group-by.
@@ -124,10 +118,7 @@ def groupby_core(
     key_data: (n,) storage keys of `key_type`; kvalid: (n,) bool valid-key
     mask; val_entries: (values, valid bools) for each non-count_all entry of
     agg_spec, a list of (agg, value type).  dense: every row of every buffer
-    is valid, so the sort drops the rank key and the validity planes.
-    merge_len: the keys are non-null 32-bit and every row below merge_len is
-    valid; the sort runs on kernel B7 (``sort_kv``) with each value plane (of
-    at most 4 bytes) and its validity riding as 32-bit planes.  presorted
+    is valid, so the sort drops the rank key and the validity planes.  presorted
     (with dense): the caller already ordered the key and value planes by key
     (the radix route), so there is no sort.
     Returns (num_groups tensor, out_keys, [out_agg...]) with capacity n,
@@ -135,20 +126,7 @@ def groupby_core(
     """
     n = key_data.shape[0]
     device = key_data.device
-    if merge_len is not None:  # the sort carries the value planes: no gather
-        with span("att.groupby.order"):
-            planes, small = [], []
-            for v, ok in val_entries:
-                small.append(v.dtype if v.element_size() < 4 else None)
-                planes.append(v.to(torch.int32) if v.element_size() < 4 else v)
-                planes.append(ok.to(torch.int32))
-            skey, outs = CK.sort_kv(key_data, planes, merge_len, unsigned=dt.is_unsigned(key_type))
-            in_group = torch.arange(n, device=device) < merge_len
-            sorted_vals = [
-                (sv if sd is None else sv.to(sd), (sf != 0) & in_group)
-                for sd, sv, sf in zip(small, outs[::2], outs[1::2])
-            ]
-    elif dense:
+    if dense:
         perm = None
         if not presorted:
             with span("att.groupby.order"):
@@ -224,17 +202,6 @@ def groupby_core(
         parts = compact_rows(ends, [skey, *results])
         out_aggs = [p if t is None else p.to(t) for p, t in zip(parts[1:], post)]
     return num_groups, parts[0], out_aggs
-
-
-def _merge_sort_ok(keys: ArrowArrayBase, value_cols) -> bool:
-    """Whether the group-by sort rides kernel B7: opt-in through the JAX
-    package's ``ARROW_TPU_FORCE_MERGE=1`` only, for non-null keys of 32-bit
-    storage (u32/i32/date32) and value columns of at most 4 bytes."""
-    if os.environ.get("ARROW_TPU_FORCE_MERGE") != "1":
-        return False
-    if keys.validity is not None or keys.data.dtype != torch.int32:
-        return False
-    return all(c is None or dt.item_size(c.dtype) <= 4 for c in value_cols)
 
 
 def _value_columns(aggregations) -> list:
@@ -444,13 +411,10 @@ def _hash_aggregate_radix(keys, aggregations, auto: bool):
     unsigned-order code over its significant bits, carrying the value
     planes.  None when the route does not apply: nulls, a padded buffer,
     keys or values not of 32 bits (the JAX package's gate lets 8- and 16-bit
-    ones through to a bitcast that raises), more than 7 value columns, a CPU
-    tensor without ``ARROW_TPU_FORCE_RADIX_AGG=1``; under ``auto`` (unforced)
-    also fewer than RADIX_AUTO_ROWS buffer rows."""
+    ones through to a bitcast that raises), more than 7 value columns; under
+    ``auto`` also a buffer too short for ``radix_pays``."""
     n = int(keys.data.shape[0])
-    forced = os.environ.get("ARROW_TPU_FORCE_RADIX_AGG") == "1"
-    gated = auto and not forced
-    if not (keys.data.is_cuda or forced) or (gated and n < RADIX_AUTO_ROWS):
+    if auto and not radix_pays(n):
         return None
     if keys.validity is not None or keys.length != n or dt.item_size(keys.dtype) != 4:
         return None
@@ -547,8 +511,7 @@ def hash_aggregate(
         if method == "radix":
             raise OperationNotSupported(
                 "radix groupby requires dense no-null full-buffer keys and "
-                "values of 32 bits on a CUDA device (any device with "
-                "ARROW_TPU_FORCE_RADIX_AGG=1)"
+                "values of 32 bits"
             )
         with span("att.groupby.route.sort"):
             return _hash_aggregate_sort(keys, aggregations)
@@ -582,9 +545,7 @@ def _hash_aggregate_sort(keys, aggregations) -> RecordBatch:
         kvalid = _valid_bools(keys.validity, keys.length, n, device)
 
     dense = keys.validity is None and keys.length == n and not any_value_nulls
-    use_merge = _merge_sort_ok(keys, [col for _n, col, _k in aggregations])
     num_groups, out_keys, out_aggs = groupby_core(
-        keys.data[:n], keys.dtype, kvalid, val_entries, agg_spec, dense=dense,
-        merge_len=keys.length if use_merge else None,
+        keys.data[:n], keys.dtype, kvalid, val_entries, agg_spec, dense=dense
     )
     return _sorted_result(keys, aggregations, num_groups, out_keys, out_aggs)

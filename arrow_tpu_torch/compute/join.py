@@ -8,11 +8,11 @@ expands the ranges into (probe row, build row) pairs.
 Two emits, as in the JAX package:
 
 - **merge** (the default on CUDA): no random gathers.  The co-sort (kernel
-  B3 for a single u32 key plane, the native key or a narrowed 64-bit one, at
-  ``RADIX_COSORT_ROWS`` buffer rows and more; a stable ``torch.sort``
-  otherwise) puts each key's build rows before its probe rows.  One host
-  read, ``join_counts``, gives the match total and the number of non-empty
-  probe runs, and they choose between two emits:
+  B3 for a single u32 key plane, the native key or a narrowed 64-bit one,
+  where the buffer rows of both sides pass ``compute.sort.radix_pays``; a
+  stable ``torch.sort`` otherwise) puts each key's build rows before its
+  probe rows.  One host read, ``join_counts``, gives the match total and the
+  number of non-empty probe runs, and they choose between two emits:
 
   - **one-match**, when they are equal (every matched probe row meets
     exactly one build row, as against a build side with unique keys): one
@@ -27,8 +27,8 @@ Two emits, as in the JAX package:
     build list resolves build ranks to row ids.
 
   Output order is build-rank-major in both;
-- **legacy** (the default on the CPU): ``probe_bounds`` + ``build_order``
-  and a searchsorted emit, probe-major.
+- **legacy** (the default on the CPU): ``probe_bounds`` + ``build_order``,
+  a stable ``torch.sort`` each, and a searchsorted emit, probe-major.
 
 ``ARROW_TPU_JOIN_EMIT=merge|legacy`` overrides the choice, as in the JAX
 package.  Output order is implementation-defined: compare pair sets.
@@ -66,16 +66,12 @@ from ..ops.kernel import array_av
 from ..runtime.profiler import host_read, span
 from ..table import RecordBatch
 from ..utils import bits as B
-from ..utils.scans import (
-    compact_rows, merge_lex_sort, merge_sort_ok, prefix_sum, segmented_scan, shift_cummax,
-)
+from ..utils.scans import compact_rows, prefix_sum, segmented_scan, shift_cummax
 from . import kernels as CK
-from .sort import sortable_limbs
+from .sort import radix_pays
 
 _A = dt.ArrowType
 _SENT = 0x7FFFFFFF
-#: the co-sort rides kernel B3 from this many buffer rows (build + probe) on
-RADIX_COSORT_ROWS = 1 << 26
 #: 64-bit keys are checked for a u32 range (narrowing) from this many on
 NARROW_MIN_ROWS = 1 << 22
 
@@ -123,36 +119,19 @@ def probe_bounds(bkeys, bvalid, pkeys, pvalid, dtype: _A):
     n, m = bkeys.shape[0], pkeys.shape[0]
     device = bkeys.device
     isb = torch.cat([bvalid.to(torch.int32), torch.zeros(m, dtype=torch.int32, device=device)])
-    rows = torch.arange(n + m, dtype=torch.int32, device=device)
-    use_merge = merge_sort_ok(bkeys, pkeys)
-    if use_merge:
-        limbs = [
-            torch.cat([b, p]) for b, p in zip(sortable_limbs(bkeys, dtype), sortable_limbs(pkeys, dtype))
-        ]
-        out = merge_lex_sort(limbs, [isb, rows])
-        skey = out[0] if len(limbs) == 1 else (out[0].to(torch.int64) << 32) | (out[1].to(torch.int64) & 0xFFFFFFFF)
-        sb, sorig = out[len(limbs)], out[len(limbs) + 1]
-    else:
-        okey = torch.cat([_order_key(bkeys, dtype), _order_key(pkeys, dtype)])
-        skey, perm = torch.sort(okey, stable=True)
-        sb, sorig = isb[perm], perm.to(torch.int32)
-    lo_s, hi_s, _ = _run_bounds(skey, sb)
-    if use_merge:
-        _, lo_o, hi_o = merge_lex_sort([sorig], [lo_s, hi_s])
-    else:
-        lo_o, hi_o = torch.empty_like(lo_s), torch.empty_like(hi_s)
-        lo_o[sorig.to(torch.int64)] = lo_s
-        hi_o[sorig.to(torch.int64)] = hi_s
+    okey = torch.cat([_order_key(bkeys, dtype), _order_key(pkeys, dtype)])
+    skey, perm = torch.sort(okey, stable=True)
+    lo_s, hi_s, _ = _run_bounds(skey, isb[perm])
+    lo_o, hi_o = torch.empty_like(lo_s), torch.empty_like(hi_s)
+    lo_o[perm] = lo_s
+    hi_o[perm] = hi_s
     lo_p = torch.where(pvalid, lo_o[n:], 0)
     hi_p = torch.where(pvalid, hi_o[n:], 0)
     return lo_p, torch.maximum(hi_p, lo_p)
 
 
-def build_order(bkeys, bvalid, dtype: _A, all_valid: bool = False) -> torch.Tensor:
+def build_order(bkeys, bvalid, dtype: _A) -> torch.Tensor:
     """Valid build rows' ids in key order (rank -> row id), invalid last."""
-    rows = torch.arange(bkeys.shape[0], dtype=torch.int32, device=bkeys.device)
-    if all_valid and merge_sort_ok(bkeys):
-        return merge_lex_sort(sortable_limbs(bkeys, dtype), [rows])[-1]
     perm = torch.sort(_order_key(bkeys, dtype), stable=True).indices
     perm = perm[torch.sort((~bvalid)[perm].to(torch.int32), stable=True).indices]
     return perm.to(torch.int32)
@@ -173,13 +152,13 @@ def _empty(device) -> Tuple[ArrowArrayBase, ArrowArrayBase, int]:
     return make_array(empty, None, 0, _A.UINT32), make_array(empty, None, 0, _A.UINT32), 0
 
 
-def legacy_emit(bk, bvalid, pk, pvalid, dtype, all_valid, limit: Optional[int] = None):
+def legacy_emit(bk, bvalid, pk, pvalid, dtype, limit: Optional[int] = None):
     """probe_bounds + build_order, then a searchsorted expansion of the
     first `limit` matches (all of them by default), probe-major.  Returns
     (probe row ids, build row ids, the match total): ids over a power of two
     of at least 1024 rows, zero past the matches kept."""
     with span("att.join.legacy_emit"):
-        sorder = build_order(bk, bvalid, dtype, all_valid)
+        sorder = build_order(bk, bvalid, dtype)
         lo, hi = probe_bounds(bk, bvalid, pk, pvalid, dtype)
         cnt = (hi - lo).to(torch.int64)
         ends = torch.cumsum(cnt, 0)
@@ -199,12 +178,6 @@ def _fit(x: torch.Tensor, cap: int) -> torch.Tensor:
     if x.shape[0] >= cap:
         return x[:cap]
     return torch.cat([x, torch.zeros(cap - x.shape[0], dtype=x.dtype, device=x.device)])
-
-
-def _radix_cosort(buffer_rows: int, device: torch.device) -> bool:
-    """The JAX package's gate for the co-sort on the radix chain, read on
-    buffer lengths: CUDA tensors, at least ``RADIX_COSORT_ROWS`` rows."""
-    return device.type == "cuda" and buffer_rows >= RADIX_COSORT_ROWS
 
 
 def _plan(bk, bvalid, pk, pvalid, dtype, narrow: bool, buffer_rows: int):
@@ -229,7 +202,7 @@ def _plan(bk, bvalid, pk, pvalid, dtype, narrow: bool, buffer_rows: int):
             if narrow:
                 key = B.to_int32(key & 0xFFFFFFFF)
             key = torch.where(valid, key, -1)
-            if _radix_cosort(buffer_rows, device):
+            if radix_pays(buffer_rows):
                 skey, so = CK.radix_sort((key, sorig), 32)
             else:
                 skey, perm = torch.sort(dt.widen(key, _A.UINT32), stable=True)
@@ -375,7 +348,7 @@ def join_indices(
                 total,
             )
         # 2^31 pairs or more: the legacy emit's int64 positions
-    probe_idx, build_idx, t = legacy_emit(bk, bvalid, pk, pvalid, dtype, build_keys.validity is None)
+    probe_idx, build_idx, t = legacy_emit(bk, bvalid, pk, pvalid, dtype)
     if t == 0:
         return _empty(device)
     return make_array(probe_idx, None, t, _A.UINT32), make_array(build_idx, None, t, _A.UINT32), t

@@ -24,9 +24,11 @@ The operators reach the kernels through :func:`compact_multi`,
 :func:`merge_pass`, :func:`sort_kv`, :func:`groupby_dense`,
 :func:`groupby_region` and :func:`take_columns` here (:func:`compact` and
 :func:`split_multi` too, though no operator calls them), which call the
-kernel wrappers.  Inside a :func:`plain_versions` block they call the plain
-versions instead, on any device: that is the reference path the kernels are
-held against on the card.
+kernel wrappers.  A wrapper launches its CUDA kernel for CUDA tensors and
+runs its plain version for CPU tensors, so an operator's route that calls
+a kernel needs no device test.  Inside a :func:`plain_versions` block they
+call the plain versions instead, on any device: that is the reference path
+the kernels are held against on the card.
 """
 
 import contextlib
@@ -95,9 +97,9 @@ def segmented_scan_multi(planes, flags, op, unsigned=False):
 
 def radix_sort(planes, nbits_or_bits, n=None, digit_bits=None):
     """Kernels B3/B4 as the operators call them (see ``radix.radix_sort``);
-    the digit width defaults to ``radix.chain_digit_bits()``."""
+    the digit width defaults to ``radix.DEFAULT_DIGIT_BITS``."""
     fn = radix.radix_sort_plain if _plain else radix.radix_sort
-    return fn(planes, nbits_or_bits, n, digit_bits or radix.chain_digit_bits())
+    return fn(planes, nbits_or_bits, n, digit_bits or radix.DEFAULT_DIGIT_BITS)
 
 
 def merge_pass(planes, run_len, unique_payload=False):

@@ -1,14 +1,14 @@
 """Stable LSD radix sort of up to 8 planes by plane 0 (kernels B3 and B4).
 
 Counterpart of ``arrow_tpu/compute/kernels/radix.py``: the chain of
-``_radix_pass_call`` (B3, one bit a pass) behind ``radix_sort_chain[_parts]``,
-and its 2-bit form ``_radix4_pass_call`` (B4), which ``ARROW_TPU_RADIX_R=4``
-selects.  The CUDA kernel is ``arrow_tpu_torch/csrc/radix.cu``, templated on
-the digit width: 1 is B3's pass, 2 is B4's, 8 the default: one histogram of
-every pass's digits, then one onesweep launch a pass.  Beside it,
-:func:`radix_sort_plain` is the same function in plain PyTorch: one stable
-``torch.sort`` of the digit and a gather per pass, at the same width and the
-same digit positions.
+``_radix_pass_call`` (B3, one bit a pass) behind
+``radix_sort_chain[_parts]``, and its 2-bit form ``_radix4_pass_call`` (B4),
+which a call selects with ``digit_bits=2``.  The CUDA kernel is
+``arrow_tpu_torch/csrc/radix.cu``, templated on the digit width: 1 is B3's
+pass, 2 is B4's, 8 the default: one histogram of every pass's digits, then
+one onesweep launch a pass.  Beside it, :func:`radix_sort_plain` is the same
+function in plain PyTorch: one stable ``torch.sort`` of the digit and a
+gather per pass, at the same width and the same digit positions.
 
 Contract: plane 0 is a 32- or 64-bit key whose bit pattern, read as
 unsigned, orders the rows (an unsigned-order code); the other planes are
@@ -29,7 +29,6 @@ kernel for CUDA tensors, never one in place of the other.
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -57,12 +56,6 @@ KERNEL_2BIT = _build.register_kernel(
 )
 
 Bits = Union[int, Sequence[int]]
-
-
-def chain_digit_bits() -> int:
-    """The digit width of the operators' sorts: 2 (kernel B4) under the JAX
-    package's ``ARROW_TPU_RADIX_R=4`` switch, else the default 8."""
-    return 2 if os.environ.get("ARROW_TPU_RADIX_R") == "4" else DEFAULT_DIGIT_BITS
 
 
 def _kernel(digit_bits: int) -> _build.Kernel:

@@ -4,15 +4,19 @@ Counterpart of ``arrow_tpu/compute/sort.py``.  Routes (``method=``):
 
 - "xla": one stable ``torch.sort`` of an integer code of the key (it stands
   where the JAX package has ``lax.sort``), then a gather;
-- "radix": kernel B3 (B4 under ``ARROW_TPU_RADIX_R=4``, see
-  ``kernels/radix.py``): the key code and every payload plane ride the sort,
-  over the significant digits of the logical prefix only;
+- "radix": kernel B3 (``kernels/radix.py``): the key code and every payload
+  plane ride the sort, over the significant digits of the logical prefix
+  only;
 - "merge": kernel B7 through ``sort_kv``: (key code, row id) in
   unique-payload mode, then a gather.  32-bit non-null ascending keys only;
-- "auto": radix for a non-null radix key on a CUDA tensor whose buffer holds
-  at least ``RADIX_AUTO_ROWS`` rows; merge under ``ARROW_TPU_FORCE_MERGE=1``;
-  else xla.  ``ARROW_TPU_SORT=radix|xla`` forces radix or keeps it off, as
-  in the JAX package.
+- "auto": radix for a non-null radix key whose buffer holds at least
+  ``RADIX_AUTO_ROWS`` rows (:func:`radix_pays`), else xla.
+
+:func:`radix_pays` is the one row gate of every operator's radix route: the
+sorts' ``auto``, the group-by's radix route under ``auto`` and the join's
+co-sort all ask it.  The routes run on any device: the kernel wrappers of
+``compute.kernels`` launch the CUDA kernel for a CUDA tensor and run its
+plain version for a CPU tensor.
 
 Every route sorts the same unsigned-order code (:func:`key_code`).  Float
 keys get one canonical code for +0 and -0 and the largest code for every
@@ -25,7 +29,6 @@ capacity, with zeros past the length.
 
 from __future__ import annotations
 
-import os
 from typing import List, Optional, Union
 
 import torch
@@ -46,9 +49,16 @@ _SORTABLE = {
 _RADIX_KEY_DTYPES = {_A.UINT32, _A.INT32, _A.FLOAT32, _A.DATE32, _A.UINT64, _A.INT64}
 _MERGE_KEY_DTYPES = {_A.UINT32, _A.INT32, _A.FLOAT32, _A.DATE32}
 METHODS = ("auto", "xla", "radix", "merge")
-#: "auto" takes the radix route on CUDA from this buffer length on (the JAX
-#: package's gate; the H100 crossover is measured by chip_smoke.py)
+#: the radix routes pay from this buffer length on (the JAX package's gate;
+#: the H100 crossover is measured by chip_smoke.py)
 RADIX_AUTO_ROWS = 1 << 26
+
+
+def radix_pays(buffer_rows: int) -> bool:
+    """Whether a radix route beats the comparison sort at `buffer_rows`
+    rows: the row gate that every operator's ``auto`` asks (it reads
+    ``RADIX_AUTO_ROWS`` at each call)."""
+    return buffer_rows >= RADIX_AUTO_ROWS
 
 
 def _sign(code: torch.Tensor) -> int:
@@ -143,15 +153,6 @@ def _radix_eligible(keys: ArrowArrayBase, payload_cols) -> bool:
     return nplanes <= CK.radix.MAX_PLANES
 
 
-def _radix_auto(keys: ArrowArrayBase) -> bool:
-    forced = os.environ.get("ARROW_TPU_SORT")
-    if forced == "radix":
-        return True
-    if forced == "xla":
-        return False
-    return keys.data.is_cuda and keys.data.shape[0] >= RADIX_AUTO_ROWS
-
-
 def _sort_radix(keys: ArrowArrayBase, payload_cols, descending: bool = False):
     """Kernel B3/B4 over the logical prefix: plane 0 the key code, then the
     raw float key (the code is not invertible there), then each payload
@@ -186,10 +187,8 @@ def _sort_radix(keys: ArrowArrayBase, payload_cols, descending: bool = False):
 # ---- kernel B7 route -------------------------------------------------------
 
 
-def _merge_eligible(keys: ArrowArrayBase, descending: bool, force: bool = False) -> bool:
-    if descending or keys.validity is not None or keys.dtype not in _MERGE_KEY_DTYPES:
-        return False
-    return force or os.environ.get("ARROW_TPU_FORCE_MERGE") == "1"
+def _merge_eligible(keys: ArrowArrayBase, descending: bool) -> bool:
+    return not descending and keys.validity is None and keys.dtype in _MERGE_KEY_DTYPES
 
 
 def _check(a: ArrowArrayBase, method: str = "auto") -> None:
@@ -202,8 +201,7 @@ def _check(a: ArrowArrayBase, method: str = "auto") -> None:
 def argsort(a: ArrowArrayBase, descending: bool = False) -> ArrowArrayBase:
     """Stable permutation (UInt32Array) sorting `a` (nulls last)."""
     _check(a)
-    perm = _perm_merge(a) if _merge_eligible(a, descending) else _perm_xla(a, descending)
-    return _perm_array(perm, a)
+    return _perm_array(_perm_xla(a, descending), a)
 
 
 def sort(a: ArrowArrayBase, descending: bool = False, method: str = "auto") -> ArrowArrayBase:
@@ -213,11 +211,11 @@ def sort(a: ArrowArrayBase, descending: bool = False, method: str = "auto") -> A
     radix_ok = _radix_eligible(a, [])
     if method == "radix" and not radix_ok:
         raise OperationNotSupported("radix sort requires a non-null u32/i32/f32/date32/u64/i64 key")
-    if radix_ok and (method == "radix" or (method == "auto" and _radix_auto(a))):
+    if radix_ok and (method == "radix" or (method == "auto" and radix_pays(a.data.shape[0]))):
         return _sort_radix(a, [], descending)[0]
-    if method == "merge" and not _merge_eligible(a, descending, force=True):
-        raise OperationNotSupported("merge sort requires a 32-bit non-null ascending key")
-    if method in ("auto", "merge") and _merge_eligible(a, descending, force=method == "merge"):
+    if method == "merge":
+        if not _merge_eligible(a, descending):
+            raise OperationNotSupported("merge sort requires a 32-bit non-null ascending key")
         return _take(a, _perm_merge(a))
     return _take(a, _perm_xla(a, descending))
 
@@ -247,7 +245,7 @@ def sort_by_key(
     _check(keys, method)
     pcols = _payload_cols(payload)
     if _radix_eligible(keys, pcols) and (
-        method == "radix" or (method == "auto" and _radix_auto(keys))
+        method == "radix" or (method == "auto" and radix_pays(keys.data.shape[0]))
     ):
         ok, outs = _sort_radix(keys, pcols, descending)
         return ok, _rebuild(payload, outs)
@@ -256,16 +254,14 @@ def sort_by_key(
             "radix sort requires a non-null u32/i32/f32/date32/u64/i64 key and at most "
             f"{CK.radix.MAX_PLANES} planes across key and payload columns"
         )
-    merge_ok = _merge_eligible(keys, descending, force=method == "merge") and all(
-        len(c) == len(keys) for c in pcols
-    )
-    if method == "merge" and not merge_ok:
-        raise OperationNotSupported(
-            "merge sort requires a 32-bit non-null ascending key and equal-length payload columns"
-        )
-    if payload is None and not merge_ok:
-        return sort(keys, descending), None
-    perm = _perm_merge(keys) if merge_ok else _perm_xla(keys, descending)
+    if method == "merge":
+        if not (_merge_eligible(keys, descending) and all(len(c) == len(keys) for c in pcols)):
+            raise OperationNotSupported(
+                "merge sort requires a 32-bit non-null ascending key and equal-length payload columns"
+            )
+        perm = _perm_merge(keys)
+    else:
+        perm = _perm_xla(keys, descending)
     return _take(keys, perm), _rebuild(payload, [_take(c, perm) for c in pcols])
 
 
@@ -294,16 +290,4 @@ def lex_sort(
     return sorted_keys, _rebuild(payload, [_take(c, perm) for c in _payload_cols(payload)]), order
 
 
-def sortable_limbs(keys: torch.Tensor, dtype: _A) -> List[torch.Tensor]:
-    """int32 limbs, most significant first, whose signed orders compose
-    lexicographically to the Arrow order of integer `keys` (the merge
-    route's keys; 64-bit keys give two)."""
-    if dt.item_size(dtype) == 8:
-        hi = (keys >> 32).to(torch.int32)
-        lo = B.to_int32(keys & 0xFFFFFFFF) ^ -(1 << 31)
-        return [hi ^ -(1 << 31) if dt.is_unsigned(dtype) else hi, lo]
-    code = key_code(keys, dtype)
-    return [code ^ _sign(code)]
-
-
-__all__ = ["argsort", "key_code", "lex_sort", "sort", "sort_by_key", "sortable_limbs"]
+__all__ = ["argsort", "key_code", "lex_sort", "radix_pays", "sort", "sort_by_key"]

@@ -212,8 +212,7 @@ def join_shard_local(build: ShardedBatch, probe: ShardedBatch, build_key: str, p
     bcol, pcol = build.columns[build_key], probe.columns[probe_key]
     (bc, nb), (pc, np_) = _live_rows(build), _live_rows(probe)
     bvalid, pvalid = _valid_prefix(bcol, bc, nb), _valid_prefix(pcol, pc, np_)
-    pidx, bidx, total = legacy_emit(bcol.data[:nb], bvalid, pcol.data[:np_], pvalid, bcol.dtype, False,
-                                    limit=out_cap)
+    pidx, bidx, total = legacy_emit(bcol.data[:nb], bvalid, pcol.data[:np_], pvalid, bcol.dtype, limit=out_cap)
     k = min(total, out_cap)
     return total, _fit(pidx, k, out_cap), _fit(bidx, k, out_cap)
 

@@ -45,9 +45,10 @@ Phases, each printing lines that start with its name:
    device memory during both (every kernel but the 2-bit radix must
    launch); each kernel call of a second run of both,
    replayed on its own arguments against its plain version and timed beside
-   it; the sort rerun with
-   ARROW_TPU_RADIX_R=4 (the 2-bit radix, whose launches and calls are read
-   there) and with ARROW_TPU_SORT=xla; per-step times for both paths and the
+   it; the sort rerun on
+   compute.kernels.radix_sort with digit_bits=2 (the 2-bit radix, whose
+   launches and calls are read there) and with sort_by_key(method="xla");
+   per-step times for both paths and the
    sort's crossover, radix against torch.sort, at 2^24, 2^26 and 2^27;
 6. groupby: the group-by query (GROUP BY u32 key, SUM and COUNT of i32
    values in [0, 200)) at 2^27 rows for each key distribution (1K, 1M,
@@ -1653,23 +1654,6 @@ def phase_flagship(smi):
         torch.cuda.empty_cache()
 
 
-@contextlib.contextmanager
-def environ(**values):
-    """Set environment variables for the block (the JAX package's switches)."""
-    import os
-
-    saved = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
 def _sort_join_oracle(host):
     """numpy: the kept rows, their stable order by key, and the groups."""
     import numpy as np
@@ -1761,6 +1745,8 @@ def phase_sort_join(smi):
 
     from arrow_tpu_torch import compute as C
     from arrow_tpu_torch import flagship
+    from arrow_tpu_torch.array.array import make_array
+    from arrow_tpu_torch.compute import kernels as CK
     from arrow_tpu_torch.compute.kernels import _build
 
     n = SORT_JOIN_N
@@ -1802,23 +1788,25 @@ def phase_sort_join(smi):
           f"each kept row once, probe key = build key, the group's total and count; keys and "
           f"values in numpy's stable order)")
 
-    with environ(ARROW_TPU_RADIX_R="4"), recorded_calls() as calls4:
+    kk, kv = kept["k"], kept["v"]
+    with recorded_calls() as calls4:
         _build.reset_launch_counts()
-        sk4, sv4 = C.sort_by_key(kept["k"], kept["v"])
+        # u32 keys: their bits are their unsigned-order code
+        k4, v4 = CK.radix_sort([kk.data, kv.data], 32, kk.length, digit_bits=2)
         torch.cuda.synchronize()
         launches4 = {name: k.launches for name, k in _build.KERNELS.items()}
-    require(launches4["radix_sort_2bit"] > 0, f"ARROW_TPU_RADIX_R=4 launched no 2-bit sort: {launches4}")
-    check_sorted("sort with ARROW_TPU_RADIX_R=4", sk4, sv4, oracle)
-    del sk4, sv4
-    with environ(ARROW_TPU_SORT="xla"):
-        _build.reset_launch_counts()
-        skx, svx = C.sort_by_key(kept["k"], kept["v"])
-        torch.cuda.synchronize()
-        require(_build.KERNELS["radix_sort"].launches == 0, "ARROW_TPU_SORT=xla launched the radix sort")
-    check_sorted("sort with ARROW_TPU_SORT=xla", skx, svx, oracle)
+    require(launches4["radix_sort_2bit"] > 0, f"digit_bits=2 launched no 2-bit sort: {launches4}")
+    check_sorted("sort with digit_bits=2", make_array(k4, None, kk.length, kk.dtype),
+                 make_array(v4, None, kv.length, kv.dtype), oracle)
+    del k4, v4
+    _build.reset_launch_counts()
+    skx, svx = C.sort_by_key(kk, kv, method="xla")
+    torch.cuda.synchronize()
+    require(_build.KERNELS["radix_sort"].launches == 0, "method='xla' launched the radix sort")
+    check_sorted("sort with method='xla'", skx, svx, oracle)
     del skx, svx
-    print(f"sort_join n={n}: the sort rerun with ARROW_TPU_RADIX_R=4 (launches {launches4}) and "
-          f"with ARROW_TPU_SORT=xla (torch.sort, no radix launch) matches numpy")
+    print(f"sort_join n={n}: the sort rerun on the 2-bit radix (digit_bits=2, launches {launches4}) and "
+          f"with method='xla' (torch.sort, no radix launch) matches numpy")
     launches["radix_sort_2bit"] = launches4["radix_sort_2bit"]
     del out, sk, sv
     with recorded_calls() as calls:  # the query once more, its kernel calls kept for replay

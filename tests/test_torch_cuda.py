@@ -290,7 +290,7 @@ def test_segmented_scan_misaligned_views(cuda, name):
 
 def test_join_expand_launches_b2_once(cuda, monkeypatch):
     """The merge-expand emit's three fills are one B2 launch."""
-    monkeypatch.setattr(TJ, "RADIX_COSORT_ROWS", 0)
+    monkeypatch.setattr(TSORT, "RADIX_AUTO_ROWS", 0)
     launches = []
     expand = TJ._expand
 
@@ -718,17 +718,20 @@ def test_sort_routes_on_cuda_match_cpu(cuda, name, null_p, descending):
     _same(TC.argsort(col, descending), TC.argsort(gcol, descending))
 
 
-def test_radix_route_two_bit_on_cuda(cuda, monkeypatch):
-    monkeypatch.setenv("ARROW_TPU_RADIX_R", "4")
+def test_radix_route_two_bit_on_cuda(cuda):
+    """The 2-bit chain (B4), asked for by ``digit_bits=2``, on the card
+    against the stable torch.sort route on the CPU."""
     rng = np.random.default_rng(19)
     keys = att.UInt32Array.from_slice(rng.integers(0, 10_000, 100_003).astype(np.uint32), device="cpu")
     vals = att.Float32Array.from_slice(rng.standard_normal(100_003).astype(np.float32), device="cpu")
+    gk, gv = _to(keys, cuda), _to(vals, cuda)
     before = R.KERNEL_2BIT.launches
-    gk, gv = TC.sort_by_key(_to(keys, cuda), _to(vals, cuda), method="radix")
+    sk, sv = TCK.radix_sort([gk.data, gv.data], 32, gk.length, digit_bits=2)  # u32: the bits are the order
+    torch.cuda.synchronize()
     assert R.KERNEL_2BIT.launches == before + 1
     wk, wv = TC.sort_by_key(keys, vals, method="xla")
-    _same(wk, gk)
-    _same(wv, gv)
+    _same(wk, att.make_array(sk, None, gk.length, gk.dtype))
+    _same(wv, att.make_array(sv, None, gv.length, gv.dtype))
 
 
 def _pair_set(pi, bi):
@@ -739,7 +742,7 @@ def _pair_set(pi, bi):
 def test_join_on_cuda_matches_cpu(cuda, name, domain, null_p, monkeypatch):
     """The merge-expand emit on the card (co-sort on kernel B3 for u32 keys,
     with its gate opened at this size) against the CPU's legacy emit."""
-    monkeypatch.setattr(TJ, "RADIX_COSORT_ROWS", 0)
+    monkeypatch.setattr(TSORT, "RADIX_AUTO_ROWS", 0)
     rng = np.random.default_rng(23)
     dt_ = np.dtype(name)
     build = att.PrimitiveArray.from_optional_slice(
@@ -763,7 +766,7 @@ def test_join_one_match_on_cuda_matches_cpu(cuda, name, null_p, monkeypatch):
     its gate opened at this size): the one-match emit, one B2 fill and one
     B1 compaction past the plan's and no B7 pass, against the CPU's legacy
     emit; index planes of the emit's capacity, zero past the matches."""
-    monkeypatch.setattr(TJ, "RADIX_COSORT_ROWS", 0)
+    monkeypatch.setattr(TSORT, "RADIX_AUTO_ROWS", 0)
     rng = np.random.default_rng(31)
     dt_ = np.dtype(name)
     keys = rng.permutation(20_000).astype(dt_)
@@ -931,15 +934,15 @@ def test_join_take_runs_no_per_column_gather(cuda, monkeypatch):
 
 
 def test_sort_join_query_on_cuda(cuda):
-    """The sort-join query on the card: kernels B1, B2 and B3 (its gates
-    opened at this size) launch, and no B7 pass, since each kept row meets
+    """The sort-join query on the card: kernels B1, B2 and B3 (the radix
+    gate opened at this size) launch, and no B7 pass, since each kept row meets
     one group (the join's one-match emit); the result equals the plain
     path's and a numpy oracle's."""
     n = 1 << 18
     cols = flagship.make_host_columns(n, seed=2)
     batch = flagship.make_batch(n, seed=2, device=cuda)
-    saved = TJ.RADIX_COSORT_ROWS, TSORT.RADIX_AUTO_ROWS
-    TJ.RADIX_COSORT_ROWS = TSORT.RADIX_AUTO_ROWS = 0
+    saved = TSORT.RADIX_AUTO_ROWS
+    TSORT.RADIX_AUTO_ROWS = 0
     try:
         before = {k: v.launches for k, v in KERNELS.items()}
         kept, groups, joined, (sk, sv) = flagship.sort_join_query(batch)
@@ -947,7 +950,7 @@ def test_sort_join_query_on_cuda(cuda):
         with plain_versions():
             pk, pg, pj, (psk, psv) = flagship.sort_join_query(batch)
     finally:
-        TJ.RADIX_COSORT_ROWS, TSORT.RADIX_AUTO_ROWS = saved
+        TSORT.RADIX_AUTO_ROWS = saved
     for name in ("compact_multi", "segmented_scan", "radix_sort"):
         assert after[name] > before[name], name
     assert after["merge_pass"] == before["merge_pass"]

@@ -151,16 +151,20 @@ def test_ineligible_inputs_fall_back_under_auto(case):
 @pytest.mark.parametrize("method", ["mxu", "partition", "radix"])
 def test_ineligible_inputs_raise_under_an_explicit_method(method):
     """As arrow_tpu raises for them (tests/test_groupby_mxu.py:44): keys past
-    each route's domain, negative values, nulls; the radix route on the CPU
-    without ARROW_TPU_FORCE_RADIX_AGG."""
+    each route's domain, negative values, nulls; the radix route, which runs
+    on any device, for a null key, a padded buffer and a 16-bit key."""
     rng = np.random.default_rng(7)
     wide = att.UInt32Array.from_slice(rng.integers(0, 2**30, 8192).astype(np.uint32), device="cpu")
     small = att.UInt32Array.from_slice(rng.integers(0, 64, 8192).astype(np.uint32), device="cpu")
     neg = att.Int32Array.from_slice(rng.integers(-100, 100, 8192).astype(np.int32), device="cpu")
     nulls = att.UInt32Array.from_optional_slice([1, None, 3], device="cpu")
+    null_key = att.UInt32Array.from_optional_slice([None] + list(range(1, 8192)), device="cpu")
+    padded = att.UInt32Array.from_slice(rng.integers(0, 64, 8190).astype(np.uint32), device="cpu")
+    short = att.PrimitiveArray.from_slice(rng.integers(0, 64, 8192).astype(np.uint16), dtype=att.ArrowType.UINT16,
+                                          device="cpu")
     cases = {"mxu": [(wide, None), (small, neg), (nulls, None)],
              "partition": [(wide, None), (small, None), (small, neg)],
-             "radix": [(small, None)]}[method]
+             "radix": [(null_key, None), (padded, None), (short, None)]}[method]
     for keys, vals in cases:
         aggs = [("s", vals, "sum")] if vals is not None else [("n", None, "count")]
         with pytest.raises(att.OperationNotSupported, match=f"{method} groupby requires"):

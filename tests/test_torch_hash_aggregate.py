@@ -1,10 +1,14 @@
 """hash_aggregate of arrow_tpu_torch against arrow_tpu.compute.hash_aggregate:
 the sort route (sum/count/min/max/mean, nullable keys and values,
-i32/u32 (values >= 2^31)/i64/u64/f32, every key width) and the radix route
-under ARROW_TPU_FORCE_RADIX_AGG=1, which steers both packages.  Integers are
+i32/u32 (values >= 2^31)/i64/u64/f32, every key width) and the radix route,
+which the port takes by ``method="radix"`` or under ``auto`` past the shared
+row gate (``compute.sort.RADIX_AUTO_ROWS``, lowered here) and the JAX package
+under ARROW_TPU_FORCE_RADIX_AGG=1, set for its calls only.  Integers are
 exact; f32 sums are held to rtol=1e-6 and means to rtol=1e-12 (summation
 order only).  The mxu and partition routes are in test_torch_groupby_mxu.py
 and test_torch_groupby_region.py."""
+
+import importlib
 
 import numpy as np
 import pytest
@@ -15,6 +19,8 @@ from arrow_tpu import compute as JC
 from arrow_tpu_torch import compute as TC
 from arrow_tpu_torch.compute.kernels import plain_versions
 from torch_helpers import assert_same, jax_to_torch
+
+TS = importlib.import_module("arrow_tpu_torch.compute.sort")  # the module, not compute.sort()
 
 AGGS = ["sum", "count", "min", "max", "mean"]
 
@@ -137,13 +143,17 @@ def _radix_case(rng, kname, vname):
 
 @pytest.mark.parametrize("kname,vname", [("uint32", "int32"), ("int32", "uint32"), ("date32", "float32")])
 def test_radix_route_matches_jax(kname, vname, monkeypatch):
-    """ARROW_TPU_FORCE_RADIX_AGG=1 sends both packages' auto route to the
-    radix group-by on the CPU (the JAX package's chain interpreted)."""
-    monkeypatch.setenv("ARROW_TPU_FORCE_RADIX_AGG", "1")
+    """The port's radix group-by on the CPU (B3's plain version), by
+    ``method="radix"`` and by ``auto`` with the row gate at 0, against the
+    JAX package's auto route under ARROW_TPU_FORCE_RADIX_AGG=1 (its chain
+    interpreted)."""
     rng = np.random.default_rng(len(kname) + len(vname))
     jk, jv = _radix_case(rng, kname, vname)
     aggs = [(a, jv, a) for a in AGGS] + [("rows", None, "count")]
-    want = JC.hash_aggregate(jk, aggs)
+    with monkeypatch.context() as m:
+        m.setenv("ARROW_TPU_FORCE_RADIX_AGG", "1")
+        want = JC.hash_aggregate(jk, aggs)
+    monkeypatch.setattr(TS, "RADIX_AUTO_ROWS", 0)
     tk, tv = jax_to_torch(jk), jax_to_torch(jv)
     taggs = [(a, tv, a) for a in AGGS] + [("rows", None, "count")]
     for method in ("auto", "radix"):
@@ -154,18 +164,21 @@ def test_radix_route_matches_jax(kname, vname, monkeypatch):
 
 @pytest.mark.parametrize("case", ["int16_values", "int64_values", "nulls", "padded"])
 def test_radix_route_ineligible_falls_back(case, monkeypatch):
-    """Inputs the radix route cannot take go to the sort route under auto
-    and raise under method="radix", forced or not; the answer is the JAX
-    package's sort route's.  (The JAX radix route itself raises ValueError
-    on 8- and 16-bit values: a known defect the port does not copy.)"""
-    monkeypatch.setenv("ARROW_TPU_FORCE_RADIX_AGG", "1")
+    """Inputs the radix route cannot take go to the sort route under auto,
+    its row gate open, and raise under method="radix"; the answer is the JAX
+    package's sort route's under ARROW_TPU_FORCE_RADIX_AGG=1.  (The JAX
+    radix route itself raises ValueError on 8- and 16-bit values: a known
+    defect the port does not copy.)"""
+    monkeypatch.setattr(TS, "RADIX_AUTO_ROWS", 0)
     rng = np.random.default_rng(len(case))
     n = RADIX_N - 5 if case == "padded" else RADIX_N
     jk = _keys(rng, "uint32", n, 0.1 if case == "nulls" else 0.0)
     vname = {"int16_values": "int16", "int64_values": "int64"}.get(case, "int32")
     jv = _column(rng, vname, n, 0.0)
     aggs = [("s", jv, "sum"), ("mx", jv, "max"), ("c", None, "count")]
-    want = JC.hash_aggregate(jk, aggs, method="sort")
+    with monkeypatch.context() as m:
+        m.setenv("ARROW_TPU_FORCE_RADIX_AGG", "1")
+        want = JC.hash_aggregate(jk, aggs, method="sort")
     tk, tv = jax_to_torch(jk), jax_to_torch(jv)
     taggs = [("s", tv, "sum"), ("mx", tv, "max"), ("c", None, "count")]
     _check(want, TC.hash_aggregate(tk, taggs))
@@ -174,16 +187,13 @@ def test_radix_route_ineligible_falls_back(case, monkeypatch):
 
 
 @pytest.mark.parametrize("route", ["auto", "mxu", "partition", "radix", "sort"])
-def test_zero_rows_give_zero_groups(route, monkeypatch):
+def test_zero_rows_give_zero_groups(route):
     """A 0-row group-by returns 0 groups on every route (the JAX package
     raises there: its range check reduces an empty array).  The partition
-    route is told its key domain, since no key says it; the radix route is
-    forced onto the CPU."""
+    route is told its key domain, since no key says it."""
     keys = att.UInt32Array.from_slice(np.zeros(0, np.uint32), device="cpu")
     vals = att.Int32Array.from_slice(np.zeros(0, np.int32), device="cpu")
     kwargs = {"key_domain": (0, 1 << 20)} if route == "partition" else {}
-    if route == "radix":
-        monkeypatch.setenv("ARROW_TPU_FORCE_RADIX_AGG", "1")
     out = TC.hash_aggregate(keys, [("s", vals, "sum"), ("c", vals, "count"), ("n", None, "count")],
                             method=route, **kwargs)
     assert out.num_rows == 0 and out.column_names == ["key", "s", "c", "n"]

@@ -6,10 +6,12 @@ that do not, i64 negatives, the co-sort on the radix route, the merge
 emit's two paths (one-match for unique matched build keys, merge-expand for
 a repeated one) and their index planes; hash_join's
 one take of every output column against ``ops.take`` of each; and the
-``merge_len`` group-by under ARROW_TPU_FORCE_MERGE=1 against the JAX
-package's.  Exact."""
+port's legacy emit and sort-route group-by against the JAX package's under
+its ARROW_TPU_FORCE_MERGE=1 (its kernel B7 route), set for its calls only.
+Exact."""
 
 import functools
+import importlib
 import os
 
 import numpy as np
@@ -27,6 +29,7 @@ from arrow_tpu_torch.compute import kernels as TCK
 from arrow_tpu_torch.compute.kernels import merge as TM
 from torch_helpers import assert_same, batch_to_torch, jax_to_torch
 
+TS = importlib.import_module("arrow_tpu_torch.compute.sort")  # the module, not compute.sort()
 NB, NP = 300, 500
 
 
@@ -157,13 +160,16 @@ def test_expand_fills_three_planes_in_one_scan(monkeypatch):
 
 
 def test_radix_cosort_route(monkeypatch):
-    """The co-sort on kernel B3's route (CUDA at scale) gives the same pairs;
-    here the gate is opened for the CPU, where B3 runs its plain version."""
+    """The co-sort on kernel B3's route gives the same pairs; here the
+    shared row gate is opened at this size, and B3 runs its plain version
+    on the CPU."""
     monkeypatch.setenv("ARROW_TPU_JOIN_EMIT", "merge")
-    monkeypatch.setattr(TJ, "_radix_cosort", lambda rows, device: True)
+    monkeypatch.setattr(TS, "RADIX_AUTO_ROWS", 0)
     for case in ("u32_dups", "u32_nulls", "unique_matched"):
         build, probe = _case(case)
+        TCK.radix.KERNEL.passes = 0
         assert _pairs(*TC.join_indices(jax_to_torch(build), jax_to_torch(probe))) == _jax_pairs(case)
+        assert TCK.radix.KERNEL.passes > 0, case
 
 
 def _refuse(name):
@@ -193,13 +199,16 @@ def test_merge_emit_path(case, monkeypatch):
 
 
 def test_legacy_emit_on_merge_sorts(monkeypatch):
-    """Under ARROW_TPU_FORCE_MERGE=1 probe_bounds and build_order sort on
-    merge_lex_sort (kernel B7's route), 64-bit keys as two limbs."""
+    """The port's legacy emit (a stable torch.sort in probe_bounds and in
+    build_order) against the JAX package's under ARROW_TPU_FORCE_MERGE=1,
+    whose sorts there ride kernel B7, 64-bit keys as two limbs."""
     monkeypatch.setenv("ARROW_TPU_JOIN_EMIT", "legacy")
-    monkeypatch.setenv("ARROW_TPU_FORCE_MERGE", "1")
     for case in ("u64_wide", "i64_negative", "u32_dups"):
         build, probe = _case(case)
-        assert _pairs(*TC.join_indices(jax_to_torch(build), jax_to_torch(probe))) == _jax_pairs(case)
+        with monkeypatch.context() as m:
+            m.setenv("ARROW_TPU_FORCE_MERGE", "1")
+            want = _pairs(*JC.join_indices(build, probe))
+        assert _pairs(*TC.join_indices(jax_to_torch(build), jax_to_torch(probe))) == want
 
 
 @pytest.mark.parametrize("emit", ["legacy", "merge"])
@@ -286,7 +295,9 @@ def test_hash_join_take_equals_a_take_per_column(case, emit, monkeypatch):
 
 @pytest.mark.parametrize("vname", ["float32", "uint16"])
 def test_merge_len_groupby_matches_jax(vname, monkeypatch):
-    monkeypatch.setenv("ARROW_TPU_FORCE_MERGE", "1")
+    """The port's sort-route group-by, whose sort is a stable torch.sort (no
+    B7 pass), against the JAX package's under ARROW_TPU_FORCE_MERGE=1, which
+    sorts on kernel B7 there."""
     rng = np.random.default_rng(9)
     n = 16384 - 300
     keys = at.UInt32Array.from_slice(rng.integers(2**31 - 100, 2**31 + 100, n).astype(np.uint32))
@@ -296,13 +307,15 @@ def test_merge_len_groupby_matches_jax(vname, monkeypatch):
         [v if ok else None for v, ok in zip(vals.astype(vname).tolist(), valid)], dtype=at.ArrowType(vname)
     )
     spec = [("s", "sum"), ("mx", "max")]
-    want = JC.hash_aggregate(keys, [(o, col, a) for o, a in spec] + [("rows", None, "count")], method="sort")
+    with monkeypatch.context() as m:
+        m.setenv("ARROW_TPU_FORCE_MERGE", "1")
+        want = JC.hash_aggregate(keys, [(o, col, a) for o, a in spec] + [("rows", None, "count")], method="sort")
     tcol = jax_to_torch(col)
     passes = []
     plain = TM.merge_pass_plain
     monkeypatch.setattr(TM, "merge_pass_plain", lambda *a: passes.append(a[1]) or plain(*a))
     got = TC.hash_aggregate(jax_to_torch(keys), [(o, tcol, a) for o, a in spec] + [("rows", None, "count")])
-    assert passes == [8192]  # runs of 8192 and 7892 rows: one B7 pass
+    assert passes == []
     assert got.column_names == want.column_names
     for name in want.column_names:
         assert_same(want[name], got[name], rtol=1e-6 if vname == "float32" else None)

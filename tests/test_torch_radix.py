@@ -15,6 +15,7 @@ import torch
 import arrow_tpu as at
 from arrow_tpu.compute.sort import sort_by_key as jax_sort_by_key
 from arrow_tpu_torch import compute as TC
+from arrow_tpu_torch.compute import kernels as TCK
 from arrow_tpu_torch.compute.kernels import radix as R
 from arrow_tpu_torch.compute.sort import key_code
 from torch_helpers import assert_same, jax_to_torch
@@ -99,14 +100,18 @@ def test_port_radix_route_matches_jax_radix_route(case):
     assert_same(want_p, got_p)
 
 
-def test_two_bit_chain_matches_jax_radix_r4(monkeypatch):
+def test_two_bit_chain_matches_jax_radix_r4():
+    """The port's 2-bit chain (B4), asked for by ``digit_bits=2``, against
+    the JAX package's under its ARROW_TPU_RADIX_R=4."""
     keys, payload = _arrays("u32")
     want_k, want_p = _jax_radix("u32", "4")
-    monkeypatch.setenv("ARROW_TPU_RADIX_R", "4")
-    assert R.chain_digit_bits() == 2
-    got_k, got_p = TC.sort_by_key(jax_to_torch(keys), jax_to_torch(payload), method="radix")
-    assert_same(want_k, got_k)
-    assert_same(want_p, got_p)
+    code, pay = _code(keys), jax_to_torch(payload).data
+    R.KERNEL.passes = R.KERNEL_2BIT.passes = 0
+    got_code, got_p = TCK.radix_sort([code, pay], 32, N, digit_bits=2)
+    assert R.KERNEL_2BIT.passes == 4 and R.KERNEL.passes == 0  # keys below 256: bits 0-7, 2 a pass
+    np.testing.assert_array_equal(got_p.numpy().view(np.uint32), want_p.raw_values())
+    np.testing.assert_array_equal(keys.raw_values()[got_p.numpy()], want_k.raw_values())
+    np.testing.assert_array_equal(got_code.numpy().view(np.uint32), want_k.raw_values())
 
 
 @pytest.mark.parametrize("digit_bits", WIDTHS)

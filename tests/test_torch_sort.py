@@ -5,17 +5,30 @@ nulls, descending order, +-0, +-NaN and +-inf.  Exact, bit for bit.
 
 The JAX package's own radix and merge routes order +-0 and -NaN unlike its
 default route; ``test_jax_float_routes_disagree`` pins that down (ROADMAP
-section C), and the port follows the default route on every route."""
+section C), and the port follows the default route on every route.
+
+Also the one row gate of every radix route (``radix_pays``): it alone sends
+sort_by_key, hash_aggregate and the join's co-sort to kernel B3 under
+``auto``, on any device, and the JAX package's environment switches steer
+none of the port's routes."""
+
+import importlib
 
 import numpy as np
 import pytest
+import torch
 
 import arrow_tpu as at
 from arrow_tpu import compute as JC
 from arrow_tpu.compute.sort import _sort_radix as jax_sort_radix
 from arrow_tpu.table import RecordBatch as JBatch
+import arrow_tpu_torch as att
 from arrow_tpu_torch import compute as TC
+from arrow_tpu_torch.compute.kernels import merge as TM
+from arrow_tpu_torch.compute.kernels import radix as TR
 from torch_helpers import assert_same, batch_to_torch, jax_to_torch
+
+TS = importlib.import_module("arrow_tpu_torch.compute.sort")  # the module, not compute.sort()
 
 N = 3000
 _NAN_NEG = np.frombuffer(np.uint32(0xFFC00000).tobytes(), np.float32)[0]
@@ -169,3 +182,99 @@ def test_sort_rejects_what_it_does_not_take():
         TC.sort(jax_to_torch(at.BooleanArray.from_slice([True, False])))
     with pytest.raises(Exception):
         TC.lex_sort([nullable])
+
+
+# -- the one radix gate, and no environment switch --
+
+GATE_N = 16384  # a full buffer (the group-by's radix route takes no other), two of B7's 8192-row runs
+
+
+def _gate_inputs():
+    """CPU columns of GATE_N rows: u32 keys past 2^22 (no dense group-by
+    route takes them), i32 values, and a build and a probe side of u32 join
+    keys (unique build keys, probe keys half of them missing)."""
+    rng = np.random.default_rng(17)
+    u32 = lambda vals: att.UInt32Array.from_slice(vals.astype(np.uint32), device="cpu")  # noqa: E731
+    return {
+        "keys": u32(rng.integers(1 << 23, (1 << 23) + 500, GATE_N)),
+        "vals": att.Int32Array.from_slice(rng.integers(-1000, 1000, GATE_N).astype(np.int32), device="cpu"),
+        "build": u32(rng.permutation(GATE_N // 2)),
+        "probe": u32(rng.integers(0, GATE_N, GATE_N)),
+    }
+
+
+def _planes(out):
+    """Every buffer of an operator's output as bytes, in order."""
+    if isinstance(out, att.RecordBatch):
+        return [b for c in out.columns().values() for b in _planes(c)]
+    if isinstance(out, (tuple, list)):
+        return [b for o in out for b in _planes(o)]
+    if isinstance(out, torch.Tensor):
+        return [out.numpy().tobytes()]
+    if isinstance(out, int):
+        return [out]
+    return [out.length, out.data.numpy().tobytes(), None if out.validity is None else out.validity.numpy().tobytes()]
+
+
+GATED = {  # operator -> (the call under auto, its buffer rows)
+    "sort_by_key": (lambda c: TC.sort_by_key(c["keys"], c["vals"]), lambda c: c["keys"].data.shape[0]),
+    "hash_aggregate": (lambda c: TC.hash_aggregate(c["keys"], [("mx", c["vals"], "max"), ("n", None, "count")]),
+                       lambda c: c["keys"].data.shape[0]),
+    "join_indices": (lambda c: TC.join_indices(c["build"], c["probe"]),
+                     lambda c: c["build"].data.shape[0] + c["probe"].data.shape[0]),
+}
+
+
+@pytest.mark.parametrize("at_gate", [False, True], ids=["just_above", "at_buffer_rows"])
+@pytest.mark.parametrize("op", list(GATED))
+def test_one_gate_routes_every_operator(op, at_gate, monkeypatch):
+    """``RADIX_AUTO_ROWS`` alone decides whether each operator's ``auto``
+    takes kernel B3 (its plain version on these CPU tensors): no B3 pass
+    with the gate one row above the call's buffer rows, B3 passes with it
+    at them, and the same output either way.  The join runs its merge emit,
+    the one with a co-sort."""
+    monkeypatch.setenv("ARROW_TPU_JOIN_EMIT", "merge")
+    call, buffer_rows = GATED[op]
+    c = _gate_inputs()
+    want = _planes(call(c))  # the default gate, far above these buffers
+    monkeypatch.setattr(TS, "RADIX_AUTO_ROWS", buffer_rows(c) + (0 if at_gate else 1))
+    TR.KERNEL.passes = 0
+    got = _planes(call(c))
+    assert (TR.KERNEL.passes > 0) == at_gate
+    assert got == want
+
+
+def _every_sort(c):
+    """A call of each operator route that a JAX package switch steers there:
+    sort and argsort under auto, sort_by_key on the radix route, the
+    group-by under auto, and the legacy join emit (the CPU's default)."""
+    return (
+        TC.sort(c["keys"]), TC.argsort(c["keys"]), TC.sort_by_key(c["keys"], c["vals"], method="radix"),
+        TC.hash_aggregate(c["keys"], [("mx", c["vals"], "max"), ("n", None, "count")]),
+        TC.join_indices(c["build"], c["probe"]),
+    )
+
+
+@pytest.mark.parametrize("name,value", [
+    ("ARROW_TPU_SORT", "radix"), ("ARROW_TPU_FORCE_MERGE", "1"),
+    ("ARROW_TPU_FORCE_RADIX_AGG", "1"), ("ARROW_TPU_RADIX_R", "4"),
+])
+def test_jax_switches_do_not_steer_the_port(name, value, monkeypatch):
+    """With the JAX package's switch set, the port's outputs, its B3 passes
+    and its calls of B7 are those it gives without it."""
+    c = _gate_inputs()
+    merges = []
+    plain = TM.merge_pass_plain
+    monkeypatch.setattr(TM, "merge_pass_plain", lambda *a: merges.append(a[1]) or plain(*a))
+    runs = []
+    for setting in (None, value):
+        if setting is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, setting)
+        merges.clear()
+        TR.KERNEL.passes = TR.KERNEL_2BIT.passes = 0
+        out = _planes(_every_sort(c))
+        runs.append((out, TR.KERNEL.passes, TR.KERNEL_2BIT.passes, list(merges)))
+    assert runs[0][1] > 0 and runs[0][2] == 0 and runs[0][3] == []
+    assert runs[1] == runs[0]

@@ -607,8 +607,8 @@ def test_legacy_emit_expands_at_most_limit(limit):
     keys, _ = _hot_join_table()
     k = torch.from_numpy(keys.view(np.int32))
     valid = torch.ones(len(keys), dtype=torch.bool)
-    full_p, full_b, total = TJ.legacy_emit(k, valid, k, valid, att.ArrowType.UINT32, True)
-    p, b, t = TJ.legacy_emit(k, valid, k, valid, att.ArrowType.UINT32, True, limit=limit)
+    full_p, full_b, total = TJ.legacy_emit(k, valid, k, valid, att.ArrowType.UINT32)
+    p, b, t = TJ.legacy_emit(k, valid, k, valid, att.ArrowType.UINT32, limit=limit)
     kept = total if limit is None else min(total, limit)
     assert t == total == int(np.bincount(keys)[keys].sum()) > 1500
     assert p.shape[0] == b.shape[0] == TJ._bucket(kept)

@@ -77,7 +77,7 @@ CASES = {
     "sort": ({}, lambda c: C.hash_aggregate(c["k100"], [("s", c["v1"], "sum"), ("m", c["v3"], "mean")]),
              ["att.groupby", "  att.groupby.route.radix", "  att.groupby.route.sort", "    att.groupby.prepare",
               "    att.groupby.order", *SORT_TAIL]),
-    "radix": ({"ARROW_TPU_FORCE_RADIX_AGG": "1"},
+    "radix": ({},
               lambda c: C.hash_aggregate(c["kfull"], [("s", c["v1"], "sum")], method="radix"),
               ["att.groupby", "  att.groupby.route.radix", "    att.groupby.prepare", "    att.groupby.order",
                "      att.sync.radix_significant_bits", *SORT_TAIL]),
